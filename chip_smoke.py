@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  build    compile the three CUDA kernels from src/repro_torch/kernels/csrc
+           (one nvcc per source, in parallel) and report ptxas' register
+           and shared-memory use;
+  kernels  hold each kernel against its plain PyTorch version on the card
+           over the shapes and dtypes of tests/test_kernels.py (both
+           forms of the fused kernel, untouched windows zero, two
+           launches bitwise equal);
+  main     the d15 main path at full size through make_problem /
+           DistProblem.fusedmm: Erdos-Renyi m = n = 2^22, 16 nonzeros per
+           row, r = 128, float32, on one card (p = 1), all three elision
+           cells, each checked against backend="ref"; launch counts,
+           median ms per cell, Session-cached == uncached bitwise, and
+           each kernel's time beside its bound, its plain version and a
+           library call at the main path's shapes;
+  stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
+           every op and cell against p = 1, overlap == serial and
+           "none" == sddmm-then-spmm bitwise, collective log == the
+           schedule_words model.
+
+Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
+Any failed check raises, and the script exits non-zero before the last
+line.  ``--scale`` shrinks the main path (2^scale rows) for rehearsals;
+``--phases`` picks phases.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
+PHASES = ("build", "kernels", "main", "stacked")
+
+# tests/test_kernels.py shapes and tolerances
+SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
+          (384, 512, 256, 2), (128, 640, 32, 16)]
+TILINGS = [(128, 1), (64, 1), (32, 2), (32, 4)]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+class Checker:
+    """Collects one phase's checks; raises on the first failure."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.n = 0
+
+    def close(self, got, want, tol, what):
+        t = self.torch
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not bool(t.isfinite(got).all()):
+            raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)} or non-finite")
+        err = (got - want).abs()
+        bad = err > tol + tol * want.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: max abs err "
+                                 f"{float(err.max()):.3g} beyond tol {tol}")
+        self.n += 1
+        return float(err.max())
+
+    def equal(self, a, b, what):
+        if not self.torch.equal(a, b):
+            raise AssertionError(f"{what}: not bitwise equal")
+        self.n += 1
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median device milliseconds of ``fn`` over ``reps`` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    seconds = _build.build_all()
+    ptxas = {}
+    for name, text in _build.BUILD_LOG.items():
+        ptxas[name] = [ln.strip() for ln in text.splitlines()
+                       if "registers" in ln or "spill" in ln]
+        for ln in text.splitlines():
+            log(f"[nvcc {name}] {ln}")
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "per_source": seconds, "ptxas": ptxas})
+
+
+def _pack(sparse, m, n, k, seed, row_tile, nz_block, group=1):
+    rows, cols, vals = sparse.erdos_renyi(m, n, k, seed=seed)
+    return sparse.pack_row_tiled(rows, cols, vals, (m, n),
+                                 row_tile=row_tile, nz_block=nz_block,
+                                 group=group, device="cuda")
+
+
+def phase_kernels(torch):
+    from repro_torch.core import sparse
+    from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
+    from repro_torch.kernels.sddmm import sddmm_cuda, sddmm_plain
+    from repro_torch.kernels.spmm import spmm_cuda, spmm_plain
+    ck = Checker(torch)
+    worst = {"spmm": 0.0, "sddmm": 0.0, "fusedmm": 0.0}
+
+    def args(S):
+        return S.tile_base, S.rows_local, S.cols, S.vals
+
+    for (m, n, r, k) in SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            S = _pack(sparse, m, n, k, m + r, 128, 64)
+            rng = np.random.default_rng(m + r)
+            A = torch.from_numpy(rng.standard_normal((m, r))).to("cuda", dt)
+            B = torch.from_numpy(rng.standard_normal((n, r))).to("cuda", dt)
+            f32 = dt == torch.float32
+            tag = f"{m}x{n} r={r} k={k} {dt}"
+            got = sddmm_cuda(*args(S), A, B, row_tile=S.row_tile)
+            tol = 2e-5 if f32 else 0.12 * np.sqrt(r) / 8
+            worst["sddmm"] = max(worst["sddmm"], ck.close(
+                got, sddmm_plain(*args(S), A, B, row_tile=S.row_tile), tol,
+                f"sddmm {tag}"))
+            ck.equal(got, sddmm_cuda(*args(S), A, B, row_tile=S.row_tile),
+                     f"sddmm twice {tag}")
+            got = spmm_cuda(*args(S), B, row_tile=S.row_tile, m=m)
+            tol = 2e-4 if f32 else 0.15
+            worst["spmm"] = max(worst["spmm"], ck.close(
+                got, spmm_plain(*args(S), B, row_tile=S.row_tile, m=m), tol,
+                f"spmm {tag}"))
+            ck.equal(got, spmm_cuda(*args(S), B, row_tile=S.row_tile, m=m),
+                     f"spmm twice {tag}")
+            out, R = fusedmm_cuda(*args(S), A, B, row_tile=S.row_tile, m=m)
+            want_out, want_R = fusedmm_plain(*args(S), A, B,
+                                             row_tile=S.row_tile, m=m)
+            tol = 2e-3 if f32 else 0.5
+            worst["fusedmm"] = max(
+                worst["fusedmm"],
+                ck.close(out, want_out, tol, f"fusedmm out {tag}"),
+                ck.close(R, want_R, tol, f"fusedmm R {tag}"))
+            out2, R2 = fusedmm_cuda(*args(S), A, B, row_tile=S.row_tile, m=m)
+            ck.equal(out, out2, f"fusedmm twice out {tag}")
+            ck.equal(R, R2, f"fusedmm twice R {tag}")
+    # tiling sweep: both fused forms against the plain version
+    for dt in (torch.float32, torch.bfloat16):
+        S = _pack(sparse, 256, 192, 6, 17, 64, 32, group=4)
+        rng = np.random.default_rng(17)
+        A = torch.from_numpy(rng.standard_normal((256, 128))).to("cuda", dt)
+        B = torch.from_numpy(rng.standard_normal((192, 128))).to("cuda", dt)
+        want_out, want_R = fusedmm_plain(*args(S), A, B, row_tile=64, m=256)
+        tol = 2e-3 if dt == torch.float32 else 0.5
+        for r_tile, bps in TILINGS:
+            out, R = fusedmm_cuda(*args(S), A, B, row_tile=64, m=256,
+                                  r_tile=r_tile, blocks_per_step=bps)
+            if fusedmm_cuda.last_two_pass != (r_tile < 128):
+                raise AssertionError(f"fusedmm r_tile={r_tile} took the "
+                                     f"wrong form")
+            tag = f"r_tile={r_tile} bps={bps} {dt}"
+            worst["fusedmm"] = max(
+                worst["fusedmm"],
+                ck.close(out, want_out, tol, f"fusedmm out {tag}"),
+                ck.close(R, want_R, tol, f"fusedmm R {tag}"))
+            out2, R2 = fusedmm_cuda(*args(S), A, B, row_tile=64, m=256,
+                                    r_tile=r_tile, blocks_per_step=bps)
+            ck.equal(out, out2, f"fusedmm twice out {tag}")
+            ck.equal(R, R2, f"fusedmm twice R {tag}")
+            if dt == torch.float32:
+                # shared arithmetic: fused == sddmm then spmm, bit for bit
+                Rs = sddmm_cuda(*args(S), A, B, row_tile=64)
+                ck.equal(R, Rs, f"fusedmm R == sddmm {tag}")
+                ck.equal(out, spmm_cuda(S.tile_base, S.rows_local, S.cols,
+                                        Rs, B, row_tile=64, m=256),
+                         f"fusedmm out == spmm(sddmm) {tag}")
+    # windows no block touches are exactly zero
+    S = sparse.pack_row_tiled(np.array([0, 1, 2], np.int32),
+                              np.array([5, 6, 7], np.int32),
+                              np.ones(3, np.float32), (512, 128),
+                              row_tile=128, nz_block=64, device="cuda")
+    Bones = torch.ones((128, 64), device="cuda")
+    out = spmm_cuda(*args(S), Bones, row_tile=128, m=512)
+    fout, _ = fusedmm_cuda(*args(S), torch.ones((512, 64), device="cuda"),
+                           Bones, row_tile=128, m=512)
+    for name, o in (("spmm", out), ("fusedmm", fout)):
+        if not (bool((o[128:] == 0).all()) and bool((o[3:128] == 0).all())):
+            raise AssertionError(f"{name}: untouched windows not zero")
+    if not bool((out[:3] == 1).all()):
+        raise AssertionError("spmm: touched rows wrong")
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "checks": ck.n, "max_abs_err": worst})
+
+
+def _bound(torch, S, r, m, kind):
+    """(bound_ms, bound_by, gather_ms) of one kernel on pack S: the bytes
+    of each input read once and each output written once (B and A counted
+    as the rows the nonzeros touch) over the HBM rate, against the flops
+    over the float32 rate."""
+    live = S.vals != 0
+    nnz = int(live.sum())
+    slots = S.rows_local.numel()
+    idx = slots * 12 + S.tile_base.numel() * 4
+    b_rows = int(torch.unique(S.cols[live]).numel())
+    a_rows = int(torch.unique(S.rows_global()[live]).numel())
+    if kind == "spmm":
+        nbytes = idx + b_rows * r * 4 + m * r * 4
+        flops = 2 * nnz * r
+    elif kind == "sddmm":
+        nbytes = idx + (a_rows + b_rows) * r * 4 + slots * 4
+        flops = 2 * nnz * r + nnz
+    else:
+        nbytes = idx + (a_rows + b_rows) * r * 4 + m * r * 4 + slots * 4
+        flops = 4 * nnz * r + nnz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    gather = nnz * r * 4 / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", gather, nbytes, flops, nnz)
+
+
+def erdos_renyi_on_card(torch, m, n, per_row, seed):
+    """``sparse.erdos_renyi``'s construction (per_row uniform columns per
+    row, duplicates dropped, sorted, normal values) drawn by a seeded
+    generator on the card; returns host numpy COO for the planner."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.arange(m, device="cuda").repeat_interleave(per_row)
+    cols = torch.randint(0, n, (m * per_row,), generator=g, device="cuda")
+    key = torch.unique(rows * n + cols)
+    vals = torch.randn(key.numel(), generator=g, device="cuda")
+    return ((key // n).int().cpu().numpy(), (key % n).int().cpu().numpy(),
+            vals.cpu().numpy())
+
+
+def phase_main(torch, scale: int, reps: int):
+    from repro_torch.core import api, sparse
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
+    from repro_torch.kernels.sddmm import sddmm_cuda, sddmm_plain
+    from repro_torch.kernels.spmm import spmm_cuda, spmm_plain
+    ck = Checker(torch)
+    m = n = 1 << scale
+    r, per_row, seed = 128, 16, 0
+    t0 = time.perf_counter()
+    rows, cols, vals = erdos_renyi_on_card(torch, m, n, per_row, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((n, r), generator=g, device="cuda")
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prob = api.make_problem(rows, cols, vals, (m, n), r, algorithm="d15")
+    if prob.grid.device.type != "cuda" or prob.p != 1:
+        raise AssertionError("make_problem did not land on one card")
+    pack_gib = {}
+    for orient in ("normal", "transpose"):
+        pl = prob.plan(orient)
+        pack_gib[orient] = round(sum(
+            t.numel() * t.element_size() for f in (
+                pl.rows_local, pl.cols, pl.vals, pl.tile_base)
+            for t in f) / 2**30, 3)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    cells = ("none", "reuse", "fused")
+
+    # the main path, counted
+    ops.reset_launch_counts()
+    outs = {}
+    for el in cells:
+        out, R = prob.fusedmm(X, Y, elision=el)
+        outs[el] = (out, R.raw)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} kernel not launched on the main "
+                                 f"path: {launches}")
+
+    # each cell against the plain kernels, and Session-cached == uncached
+    cell_err, cell_ms = {}, {}
+    sess = api.Session()
+    for el in cells:
+        out, raw = outs.pop(el)
+        if tuple(out.shape) != (m, r):
+            raise AssertionError(f"{el}: out shape {tuple(out.shape)}")
+        want, want_R = prob.fusedmm(X, Y, elision=el, backend="ref")
+        cell_err[el] = ck.close(out, want, 2e-3, f"main {el} out")
+        for t, (a, b) in enumerate(zip(raw, want_R.raw)):
+            ck.close(a, b, 2e-3, f"main {el} R phase {t}")
+        del want, want_R
+        cached, cR = prob.fusedmm(X, Y, elision=el, session=sess)
+        ck.equal(out, cached, f"main {el} session out")
+        for a, b in zip(raw, cR.raw):
+            ck.equal(a, b, f"main {el} session R")
+        del out, raw, cached, cR
+        cell_ms[el] = time_ms(torch, lambda: prob.fusedmm(X, Y, elision=el),
+                              reps)
+        torch.cuda.empty_cache()
+    emit({"phase": "main", "m": m, "n": n, "r": r, "nnz": prob.nnz,
+          "p": prob.p, "c": prob.c, "gen_s": round(t_gen, 3),
+          "plan_s": round(t_plan, 3), "pack_gib": pack_gib,
+          "launches": launches,
+          "cell_ms": cell_ms, "cell_max_abs_err": cell_err,
+          "session": sess.stats(), "checks": ck.n,
+          "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)})
+
+    # each kernel at the main path's shapes (phase 0, rank (0, 0))
+    plan = prob.plan("normal")
+    S = sparse.RowTiledCOO(plan.rows_local[0][0, 0], plan.cols[0][0, 0],
+                           plan.vals[0][0, 0], plan.tile_base[0][0, 0],
+                           plan.block_shape, plan.row_tile)
+    pk = (S.tile_base, S.rows_local, S.cols, S.vals)
+    rt = S.row_tile
+    crow = torch.zeros(m + 1, dtype=torch.int64, device="cuda")
+    r_dev = torch.from_numpy(rows.astype(np.int64)).cuda()
+    crow[1:] = torch.cumsum(torch.bincount(r_dev, minlength=m), 0)
+    csr = torch.sparse_csr_tensor(
+        crow, torch.from_numpy(cols.astype(np.int64)).cuda(),
+        torch.from_numpy(vals).cuda(), size=(m, n), check_invariants=False)
+    del r_dev
+    vals_dev = csr.values()
+    Yt = Y.t()
+    kernels = []
+    specs = [
+        ("spmm", "src/repro_torch/kernels/csrc/spmm.cu",
+         "src/repro/kernels/spmm.py:52",
+         lambda: spmm_cuda(*pk, Y, row_tile=rt, m=m),
+         lambda: spmm_plain(*pk, Y, row_tile=rt, m=m),
+         lambda: torch.sparse.mm(csr, Y)),
+        ("sddmm", "src/repro_torch/kernels/csrc/sddmm.cu",
+         "src/repro/kernels/sddmm.py:49",
+         lambda: sddmm_cuda(*pk, X, Y, row_tile=rt),
+         lambda: sddmm_plain(*pk, X, Y, row_tile=rt),
+         lambda: torch.sparse.sampled_addmm(csr, X, Yt, beta=0.0)
+         .values() * vals_dev),
+        ("fusedmm", "src/repro_torch/kernels/csrc/fusedmm.cu",
+         "src/repro/kernels/fusedmm.py:92",
+         lambda: fusedmm_cuda(*pk, X, Y, row_tile=rt, m=m),
+         lambda: fusedmm_plain(*pk, X, Y, row_tile=rt, m=m),
+         None),
+    ]
+    for name, src, repl, kern, plain, lib in specs:
+        got = kern()
+        want = plain()
+        if name == "fusedmm":
+            err = max(ck.close(got[0], want[0], 2e-3, "fusedmm out"),
+                      ck.close(got[1], want[1], 2e-3, "fusedmm R"))
+        else:
+            err = ck.close(got, want, 2e-3 if name == "spmm" else 2e-5,
+                           name)
+        del got, want
+        ms = time_ms(torch, kern, reps)
+        plain_ms = time_ms(torch, plain, 2)
+        lib_ms = time_ms(torch, lib, reps) if lib is not None else None
+        bound, by, gather, nbytes, flops, nnz = _bound(torch, S, r, m, name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name], "matches_plain": True,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "gather_bound_ms": gather,
+            "bytes": nbytes, "flops": flops, "nnz": nnz})
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_times", "m": m, "r": r, "nblocks": S.nblocks,
+          "nz_block": S.nz_block, "row_tile": rt, "kernels": kernels})
+    return kernels
+
+
+def phase_stacked(torch):
+    from repro_torch.core import api, d15, sparse
+    ck = Checker(torch)
+    m = n = 1 << 16
+    r = 128
+    rows, cols, vals, X, Y = sparse.random_problem(m, n, r, 16, seed=3)
+    dev = torch.device("cuda")
+    p8 = api.make_problem(rows, cols, vals, (m, n), r, algorithm="d15",
+                          c=2, devices=[dev] * 8)
+    p1 = api.make_problem(rows, cols, vals, (m, n), r, algorithm="d15",
+                          devices=[dev])
+    if (p8.p, p8.c, p8.grid.L) != (8, 2, 4):
+        raise AssertionError("stacked grid is not 8 ranks, c = 2")
+
+    def words_match(prob, op, el="none"):
+        model = [(k, w) for (_, _, k, w) in prob.schedule_words(op, el)
+                 if k and w]
+        logged = [(k, w) for k, w in prob.last_collectives.words() if w]
+        if model != logged:
+            raise AssertionError(f"{op}/{el}: log {logged} != model {model}")
+        ck.n += 1
+
+    ck.close(torch.from_numpy(p8.sddmm(X, Y).values()),
+             torch.from_numpy(p1.sddmm(X, Y).values()), 2e-4,
+             "sddmm p8 vs p1")
+    words_match(p8, "sddmm")
+    ck.close(p8.spmm(Y), p1.spmm(Y), 2e-4, "spmm p8 vs p1")
+    words_match(p8, "spmm")
+    ck.close(p8.spmm_t(X), p1.spmm_t(X), 2e-4, "spmm_t p8 vs p1")
+    words_match(p8, "spmm_t")
+    for el in ("none", "reuse", "fused"):
+        o8, R8 = p8.fusedmm(X, Y, elision=el)
+        words_match(p8, "fusedmm", el)
+        o1, R1 = p1.fusedmm(X, Y, elision=el)
+        ck.close(o8, o1, 2e-3, f"fusedmm {el} p8 vs p1")
+        ck.close(torch.from_numpy(R8.values()), torch.from_numpy(R1.values()),
+                 2e-3, f"fusedmm {el} R p8 vs p1")
+    # "none" == the sddmm-then-spmm sequence, bit for bit
+    R_seq = p8.sddmm(X, Y)
+    out_seq = p8.with_values(R_seq.values()).spmm(Y)
+    o_none, R_none = p8.fusedmm(X, Y, elision="none")
+    ck.equal(o_none, out_seq, "none == sddmm;spmm out")
+    if not np.array_equal(R_none.values(), R_seq.values()):
+        raise AssertionError("none == sddmm;spmm R: not bitwise")
+    # overlap == serial, bit for bit
+    g = p8.grid
+    A, B = g.stack(torch.from_numpy(X).cuda()), \
+        g.stack(torch.from_numpy(Y).cuda())
+    plan, plant = p8.plan("normal"), p8.plan("transpose")
+    planb = p8.transposed().plan("transpose")
+    pairs = [
+        ("sddmm", lambda ov: d15.sddmm_d15(g, plan, A, B, overlap=ov)),
+        ("spmma", lambda ov: (d15.spmma_d15(g, plan, B, overlap=ov),)),
+        ("spmmb", lambda ov: (d15.spmmb_d15(g, planb, A, overlap=ov),)),
+    ]
+    # the reuse cell takes Y in the gathered slot and X shifting
+    for el, pl, a, b in (("none", plan, A, B), ("reuse", plant, B, A),
+                         ("fused", plan, A, B)):
+        pairs.append((f"fusedmm/{el}", lambda ov, el=el, pl=pl, a=a, b=b: (
+            lambda o: (o[0],) + tuple(o[1]))(
+            d15.fusedmm_d15(g, pl, a, b, elision=el, overlap=ov))))
+    for what, fn in pairs:
+        for a, b in zip(fn(True), fn(False)):
+            ck.equal(a, b, f"{what} overlap == serial")
+    torch.cuda.synchronize()
+    emit({"phase": "stacked", "m": m, "r": r, "p": 8, "c": 2,
+          "checks": ck.n})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--scale", type=int, default=22)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+
+    import torch
+    from repro_torch.kernels import _build  # noqa: F401  (the port is here)
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    kernels = None
+    for ph in phases:
+        t0 = time.perf_counter()
+        if ph == "build":
+            phase_build()
+        elif ph == "kernels":
+            phase_kernels(torch)
+        elif ph == "main":
+            kernels = phase_main(torch, args.scale, args.reps)
+        elif ph == "stacked":
+            phase_stacked(torch)
+        else:
+            raise SystemExit(f"unknown phase {ph!r}")
+        log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
+    if kernels is not None:
+        emit({"kernels": kernels})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    log(f"total: {time.perf_counter() - t_all:.1f} s")
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

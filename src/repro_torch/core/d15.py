@@ -1,0 +1,465 @@
+"""1.5D dense-shifting, dense-replicating algorithms (paper Algorithm 1).
+
+Port of ``repro.core.d15`` over the stacked collective layer.
+
+Grid: ("layer" = p/c, "fiber" = c).  The sparse matrix S is STATIONARY
+(block (u, j) lives on rank (u, j % c)), one dense matrix is REPLICATED
+along the fiber (all-gather input / reduce-scatter output), the other
+PROPAGATES via cyclic shifts within each layer.
+
+Block schedule: A row-block i lives on rank (i // c, i % c).  B row-block
+j starts on rank (j // c, j % c); after t shifts rank (u, v) holds B
+block ((u - t) mod L) * c + v.  The planner packs, for every (rank,
+phase), the RowTiledCOO of the S block the local kernel needs, padded
+per phase, plus a static kernel tiling chosen from the pack statistics.
+
+Executors take and return *stacked* tensors: every dense operand has
+leading (L, c) rank axes (``Grid15.stack``), a pre-gathered operand is
+(L, c, c * rows, r), and sampled values come back as one (L, c, nb_t, k)
+tensor per phase.  Each phase runs the local kernel once per rank.  The
+phase loops keep the reference's issue order: with ``overlap=True`` the
+shift of the *next* B is issued before the current phase's kernel (on
+one stream it cannot hide yet; the order is kept for the distributed
+backend), and a traveling accumulator precomputes the next phase's
+contribution before its shift.  Shifts whose result no one reads (the
+cycle-closing ones the reference's compiler drops) are not issued, so
+the collective log equals :func:`schedule_words` event for event.
+
+Modes (unified, per the paper's SpMM<->SDDMM conversion):
+  sddmm_d15   : R = S * (A @ B.T)          A replicated-in, B shifts
+  spmma_d15   : A = S @ B                  A replicated-out, B shifts
+  spmmb_d15   : B = S.T @ A                A replicated-in, B shifts+accum
+  fusedmm_d15 : FusedMM, elision in {"auto", "none", "reuse", "fused"}
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import common, costmodel
+from repro_torch.core.collectives import Stacked
+from repro_torch.core.grid import Grid15
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanD15:
+    """Per-(rank, phase) packs of S (or S^T) on the grid's device.
+
+    Each field is a tuple with one stacked tensor per phase; block counts
+    may differ across phases (per-phase padding).
+    """
+    rows_local: Tuple[torch.Tensor, ...]   # T x (L, c, nb_t, k) int32
+    cols: Tuple[torch.Tensor, ...]
+    vals: Tuple[torch.Tensor, ...]
+    tile_base: Tuple[torch.Tensor, ...]    # T x (L, c, nb_t)
+    m: int
+    n: int
+    r: int
+    row_tile: int
+    transpose: bool
+    tiling: costmodel.Tiling
+    meta: "MetaD15"
+
+    @property
+    def block_shape(self) -> Tuple[int, int]:
+        # (rows of the replicated/gathered matrix, rows of one B block)
+        if self.transpose:
+            return (self.nB, self.cmA)
+        return (self.cmA, self.nB)
+
+    @property
+    def cmA(self):
+        return self.meta.cmA
+
+    @property
+    def nB(self):
+        return self.meta.nB
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MetaD15:
+    cmA: int
+    nB: int
+    block_meta: common.BlockMeta
+
+
+def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
+             transpose: bool = False, row_tile: int = 256,
+             nz_block: int = 256, group: int = 1, comm: str = "dense",
+             compress=None) -> PlanD15:
+    """Pack S for the 1.5D dense-shifting schedule (host, amortized).
+
+    transpose=True packs S^T blocks (needed by replication-reuse FusedMM
+    and by SpMMB).  ``group`` pads window runs so ``blocks_per_step`` up
+    to ``group`` stays feasible.  Only the dense wire format is ported;
+    ``comm="sparse"`` comes with a later slice.
+    """
+    if comm != "dense" or compress is not None:
+        raise NotImplementedError(
+            "comm='sparse' (support-pruned sends) and compress= are not "
+            "ported yet; they come with the comm='sparse' slice")
+    L, c, p = grid.L, grid.c, grid.p
+    if m % p or n % p:
+        raise ValueError(f"d15 needs p={p} to divide m={m} and n={n}")
+    mA, nB = m // p, n // p
+    cmA = c * mA
+    blk_shape = (nB, cmA) if transpose else (cmA, nB)
+    row_tile = common.choose_row_tile(blk_shape[0], row_tile)
+
+    part = common.block_partition(np.asarray(rows), np.asarray(cols),
+                                  np.asarray(vals), cmA, nB, p)
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+             np.zeros(0, np.float32))
+    rls, cls, vls, tbs, tilings = [], [], [], [], []
+    row_off = np.zeros((L, L, c), np.int64)   # (phase, layer, fiber)
+    col_off = np.zeros((L, L, c), np.int64)
+    n_dense = cmA if transpose else nB        # rows of the gathered/shifted
+    dev = grid.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for t in range(L):                        # dense operand fed to kernels
+        blocks = []
+        for u in range(L):
+            for v in range(c):
+                j = ((u - t) % L) * c + v
+                br, bc, bv = part.get((u, j), empty)
+                if transpose:
+                    br, bc = bc, br
+                    row_off[t, u, v], col_off[t, u, v] = j * nB, u * cmA
+                else:
+                    row_off[t, u, v], col_off[t, u, v] = u * cmA, j * nB
+                blocks.append((br, bc, bv))
+        rl, cl, vl, tb = common.pack_block_list(blocks, blk_shape, row_tile,
+                                                nz_block, group=group)
+        tilings.append(common.plan_tiling(tb, n_b=n_dense, r=r,
+                                          k=nz_block, row_tile=row_tile))
+        shp = (L, c) + rl.shape[1:]
+        rls.append(put(rl.reshape(shp)))
+        cls.append(put(cl.reshape(shp)))
+        vls.append(put(vl.reshape(shp)))
+        tbs.append(put(tb.reshape((L, c) + tb.shape[1:])))
+
+    meta = MetaD15(cmA, nB, common.BlockMeta(
+        row_off, col_off, (n, m) if transpose else (m, n)))
+    return PlanD15(tuple(rls), tuple(cls), tuple(vls), tuple(tbs),
+                   m, n, r, row_tile, transpose,
+                   common.merge_tilings(tilings), meta)
+
+
+def _coo(plan: PlanD15, t: int, u: int, v: int, vals=None):
+    """Rank (u, v)'s phase-t pack, optionally with new values."""
+    return common.coo_of(plan.rows_local[t][u, v], plan.cols[t][u, v],
+                         plan.vals[t][u, v] if vals is None else vals[u, v],
+                         plan.tile_base[t][u, v], plan.block_shape,
+                         plan.row_tile)
+
+
+def _stack(grid: Grid15, outs):
+    if grid.p == 1:
+        return outs[0][0][None, None]
+    return torch.stack([torch.stack(row) for row in outs])
+
+
+def _on_ranks(grid: Grid15, fn):
+    """Stacked (L, c, ...) result(s) of ``fn(u, v)`` over every rank."""
+    outs = [[fn(u, v) for v in range(grid.c)] for u in range(grid.L)]
+    if isinstance(outs[0][0], tuple):
+        return tuple(_stack(grid, [[o[i] for o in row] for row in outs])
+                     for i in range(len(outs[0][0])))
+    return _stack(grid, outs)
+
+
+def _acc(total, contrib):
+    """Running sum of per-phase contributions (the first starts it)."""
+    return contrib if total is None else total + contrib
+
+
+class _Ring:
+    """The traveling operand of one round of L phases.
+
+    ``cur`` is the operand of the current phase; :meth:`advance` moves to
+    the next.  At most ``n_shifts`` shifts are issued: L - 1 when the
+    round's final position is dead, L when the operand must come home.
+    ``overlap`` issues each shift one phase ahead (before the kernel that
+    reads the current operand), as the reference's double buffer does.
+    """
+
+    def __init__(self, coll: Stacked, x, n_shifts: int, overlap: bool):
+        self.coll, self.n, self.overlap = coll, n_shifts, overlap
+        self.issued = 0
+        self.cur = x
+        self.nxt = self._shift(x) if overlap else None
+
+    def _shift(self, x):
+        if x is None or self.issued >= self.n:
+            return None
+        self.issued += 1
+        return self.coll.shift(x)
+
+    def advance(self):
+        if self.overlap:
+            self.cur = self.nxt
+            self.nxt = self._shift(self.nxt)
+        else:
+            self.cur = self._shift(self.cur)
+
+
+def _tk(plan: PlanD15, backend):
+    return dict(plan.tiling.kernel_kwargs(), backend=backend)
+
+
+def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
+    def one(u, v):
+        args = (B_t[u, v], T[u, v]) if swap else (T[u, v], B_t[u, v])
+        return ops.sddmm(*args, _coo(plan, t, u, v), **tk).vals
+    return _on_ranks(grid, one)
+
+
+def _spmm_phase(grid, plan, t, vals, D, m, tk):
+    return _on_ranks(grid, lambda u, v: ops.spmm(
+        _coo(plan, t, u, v, vals), D[u, v], m=m, **tk))
+
+
+def _sddmm_phases(grid, coll, plan, T, B0, overlap, tk, swap=False,
+                  keep_home=False):
+    """L SDDMM phases against a shifting B; returns (vals list, B home).
+
+    ``keep_home`` issues the L-th shift, which brings B back home for a
+    second round; otherwise the round's final position is dead."""
+    ring = _Ring(coll, B0, grid.L if keep_home else grid.L - 1, overlap)
+    vals_out = []
+    for t in range(grid.L):
+        vals_out.append(_sddmm_phase(grid, plan, t, T, ring.cur, swap, tk))
+        ring.advance()
+    return vals_out, ring.cur if keep_home else None
+
+
+def _gather(coll, A, pre_gathered):
+    return A if pre_gathered else coll.all_gather(A)
+
+
+def _phase_shift(n_phases: int, start: int = 0):
+    out = []
+    for t in range(start, start + n_phases):
+        out += [("phase", t), ("shift", t)]
+    return out
+
+
+def schedule_events(grid: Grid15, op: str, elision: str = "none"):
+    """Ordered (point, phase) boundaries of one executor round: an
+    optional fiber all-gather, L phase/shift pairs per structure pass
+    (two passes for the unfused/reuse FusedMM cells), and a terminal
+    reduce-scatter where the output is replicated-out."""
+    L = grid.L
+    if op == "sddmm":
+        return [("gather", 0)] + _phase_shift(L)
+    if op == "spmm":
+        return _phase_shift(L) + [("reduce", L - 1)]
+    if op == "spmm_t":                       # spmmb: AG in, B accumulates
+        return [("gather", 0)] + _phase_shift(L)
+    if op == "fusedmm":
+        if elision == "reuse":               # FusedMMB: single AG, 2 passes
+            return [("gather", 0)] + _phase_shift(2 * L)
+        if elision == "fused":               # one structure pass
+            return [("gather", 0)] + _phase_shift(L) + [("reduce", L - 1)]
+        return ([("gather", 0)] + _phase_shift(2 * L)
+                + [("reduce", 2 * L - 1)])
+    raise ValueError(f"unknown op {op!r}")
+
+
+def schedule_words(grid: Grid15, plan: PlanD15, op: str,
+                   elision: str = "none", pre_gathered: bool = False):
+    """Per-device wire words for each schedule event.
+
+    Returns ``(point, phase, kind, words)`` tuples aligned 1:1 with
+    :func:`schedule_events`; ``kind`` names the collective (None for
+    compute phases), and a cycle-closing shift whose result no one reads
+    costs 0 words.  The executors' collective log
+    (``collectives.Stacked.log``) holds exactly the events with words.
+    """
+    L, c, p = grid.L, grid.c, grid.p
+    ag = 0.0 if pre_gathered else float((c - 1) * (plan.m // p) * plan.r)
+    rs = float((c - 1) * (plan.m // p) * plan.r)
+    sh = float((plan.n // p) * plan.r)
+    if op in ("sddmm", "spmm"):
+        dead = {L - 1}              # result of the cycle-closing shift
+    elif op == "spmm_t":
+        dead = set()                # the traveling buffer IS the output
+    elif op == "fusedmm":
+        el = resolve_elision(elision, plan.transpose)
+        dead = {2 * L - 1} if el == "none" else {L - 1}
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    out = []
+    for point, t in schedule_events(grid, op, elision):
+        if point == "gather":
+            out.append((point, t, "all-gather", ag))
+        elif point == "reduce":
+            out.append((point, t, "reduce-scatter", rs))
+        elif point == "shift":
+            out.append((point, t, "collective-permute",
+                        0.0 if t in dead else sh))
+        else:
+            out.append((point, t, None, 0.0))
+    return out
+
+
+def resolve_elision(elision: str, transpose: bool) -> str:
+    """Resolve ``"auto"`` for the pack in hand: a transpose pack admits
+    replication reuse (FusedMMB) alone; for a normal pack local fusion
+    beats the unoptimized sequence at every c (Table III)."""
+    if elision != "auto":
+        return elision
+    return "reuse" if transpose else "fused"
+
+
+# ---------------------------------------------------------------------------
+# Unified Algorithm 1: SDDMM / SpMMA / SpMMB
+# ---------------------------------------------------------------------------
+
+def _coll(grid, coll):
+    return coll if coll is not None else Stacked(grid)
+
+
+def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
+              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              backend: str | None = None):
+    """R = S * (A @ B.T); returns per-phase vals, T x (L, c, nb_t, k).
+
+    pre_gathered=True: A arrives already fiber-replicated, (L, c, c * m/p,
+    r), and the all-gather is skipped."""
+    coll = _coll(grid, coll)
+    T = _gather(coll, A, pre_gathered)                     # (c m/p, r)
+    r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap,
+                              _tk(plan, backend))
+    return tuple(r_vals)
+
+
+def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
+              coll: Stacked | None = None, backend: str | None = None):
+    """A = S @ B with A replicated as output, reduce-scattered at the end."""
+    coll = _coll(grid, coll)
+    tk = _tk(plan, backend)
+    ring = _Ring(coll, B, grid.L - 1, overlap)
+    T = None
+    for t in range(grid.L):
+        T = _acc(T, _spmm_phase(grid, plan, t, None, ring.cur, plan.cmA,
+                                tk))
+        ring.advance()
+    return coll.psum_scatter(T)
+
+
+def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
+              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              backend: str | None = None):
+    """B = S.T @ A: A replicated-in; the shifting B buffer accumulates.
+
+    The traveling buffer is an accumulator, so its shift depends on the
+    local kernel; overlap instead precomputes the *next* phase's local
+    contribution before the current shift."""
+    if not plan.transpose:
+        raise ValueError("spmmb_d15 needs a transpose-packed plan")
+    coll = _coll(grid, coll)
+    tk = _tk(plan, backend)
+    T = _gather(coll, A, pre_gathered)
+    return _traveling_spmm(grid, coll, plan, T, None, overlap, tk)
+
+
+def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
+    """L phases of S^T-pack SpMM against T whose (nB, r) output travels
+    the ring and arrives home after the full cycle."""
+    L = grid.L
+
+    def contrib(t):
+        return _spmm_phase(grid, plan, t,
+                           None if r_vals is None else r_vals[t], T,
+                           plan.nB, tk)
+
+    B_cur = None
+    if overlap:
+        nxt = contrib(0)
+        for t in range(L):
+            B_cur = coll.shift(_acc(B_cur, nxt))
+            if t + 1 < L:
+                nxt = contrib(t + 1)
+    else:
+        for t in range(L):
+            B_cur = coll.shift(_acc(B_cur, contrib(t)))
+    return B_cur
+
+
+# ---------------------------------------------------------------------------
+# FusedMM with the paper's three strategies
+# ---------------------------------------------------------------------------
+
+def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
+                overlap: bool = True, pre_gathered: bool = False, *,
+                coll: Stacked | None = None, backend: str | None = None):
+    """FusedMM on the 1.5D dense-shifting grid.
+
+    elision="auto"  : resolve via the cost model (see resolve_elision)
+    elision="none"  : FusedMMA, SDDMM then SpMMA (2 rounds, AG + RS)
+    elision="reuse" : FusedMMB on the S^T pack (2 rounds, single AG)
+    elision="fused" : FusedMMA via the fused local kernel (1 round, AG + RS)
+
+    pre_gathered=True: the first dense operand arrives already replicated
+    along the fiber and the all-gather is skipped (Session reuse).
+
+    Returns (stacked out, per-phase R vals tuple).
+    """
+    elision = resolve_elision(elision, plan.transpose)
+    coll = _coll(grid, coll)
+    tk = _tk(plan, backend)
+    L = grid.L
+
+    if elision == "none":
+        if plan.transpose:
+            raise ValueError("elision='none' needs a normal-packed plan")
+        T = _gather(coll, A, pre_gathered)
+        r_vals, B_home = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
+                                       keep_home=True)
+        ring = _Ring(coll, B_home, L - 1, overlap)
+        T2 = None
+        for t in range(L):
+            T2 = _acc(T2, _spmm_phase(grid, plan, t, r_vals[t], ring.cur,
+                                      plan.cmA, tk))
+            ring.advance()
+        return coll.psum_scatter(T2), tuple(r_vals)
+
+    if elision == "reuse":
+        # FusedMMB: replicate A once; it serves the SDDMM *and* the SpMMB.
+        if not plan.transpose:
+            raise ValueError("elision='reuse' needs a transpose-packed plan")
+        T = _gather(coll, A, pre_gathered)                 # single AG
+        r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
+                                  swap=True)
+        out = _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk)
+        return out, tuple(r_vals)
+
+    if elision == "fused":
+        if plan.transpose:
+            raise ValueError("elision='fused' needs a normal-packed plan")
+        T = _gather(coll, A, pre_gathered)
+        ring = _Ring(coll, B, L - 1, overlap)
+        T2, r_vals = None, []
+        for t in range(L):
+            contrib, R_t = _on_ranks(grid, lambda u, v: _fused_local(
+                plan, t, u, v, T, ring.cur, tk))
+            T2 = _acc(T2, contrib)
+            r_vals.append(R_t)
+            ring.advance()
+        return coll.psum_scatter(T2), tuple(r_vals)
+
+    raise ValueError(f"unknown elision {elision!r}")
+
+
+def _fused_local(plan, t, u, v, T, B_t, tk):
+    out, R = ops.fusedmm(T[u, v], B_t[u, v], _coo(plan, t, u, v),
+                         m=plan.cmA, **tk)
+    return out, R.vals
