@@ -13,14 +13,19 @@ Phases, each printing one JSON line:
   kernels  hold each kernel against its plain PyTorch version on the card
            over the shapes and dtypes of tests/test_kernels.py (both
            forms of the fused kernel, untouched windows zero, two
-           launches bitwise equal);
+           launches bitwise equal), and the bulk and load forms of spmm
+           and sddmm (FORM_CASES: the form each shape must take, windows
+           longer than one staged index chunk, bulk == load bitwise);
   main     the d15 main path at full size through make_problem /
            DistProblem.fusedmm: Erdos-Renyi m = n = 2^22, 16 nonzeros per
            row, r = 128, float32, on one card (p = 1), all three elision
            cells, each checked against backend="ref"; launch counts,
            median ms per cell, Session-cached == uncached bitwise, and
            each kernel's time beside its bound, its plain version and a
-           library call at the main path's shapes;
+           library call at the main path's shapes, its rate with B counted
+           once against the card's streaming read rate (a sum over 4 GiB),
+           embedding_bag as SpMM's second yardstick, SpMM and SDDMM with
+           bfloat16 operands, and fused == sddmm then spmm bitwise;
   stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
            every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
@@ -55,6 +60,24 @@ PHASES = ("build", "kernels", "main", "stacked")
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
           (384, 512, 256, 2), (128, 640, 32, 16)]
 TILINGS = [(128, 1), (64, 1), (32, 2), (32, 4)]
+# (m, n, r, nonzeros per row, row_tile, nz_block, dtype name, the form the
+# spmm and sddmm wrappers must choose); the last two have windows of 8192
+# entries, eight staged index chunks each
+FORM_CASES = [(256, 192, 34, 6, 64, 32, "float32", "load"),
+              (256, 192, 36, 6, 64, 32, "bfloat16", "load"),
+              (256, 192, 36, 6, 64, 32, "float32", "bulk"),
+              (512, 4096, 128, 64, 128, 64, "float32", "bulk"),
+              (512, 4096, 128, 64, 128, 64, "bfloat16", "bulk")]
+
+
+def _misaligned(torch, x):
+    """``x``'s values at a base 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    esz = x.element_size()
+    shift = 4 // esz + (-buf.data_ptr() // esz) % (16 // esz)
+    y = buf[shift:shift + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
 
 
 def emit(obj) -> None:
@@ -208,6 +231,52 @@ def phase_kernels(torch):
                 ck.equal(out, spmm_cuda(S.tile_base, S.rows_local, S.cols,
                                         Rs, B, row_tile=64, m=256),
                          f"fusedmm out == spmm(sddmm) {tag}")
+    # both forms of spmm and sddmm, and windows longer than one staged
+    # index chunk, against the plain versions
+    forms = []
+    for (m, n, r, per_row, row_tile, nz_block, dt, form) in FORM_CASES:
+        dt = getattr(torch, dt)
+        S = _pack(sparse, m, n, per_row, m + r, row_tile, nz_block)
+        rng = np.random.default_rng(m + r)
+        A = torch.from_numpy(rng.standard_normal((m, r))).to("cuda", dt)
+        B = torch.from_numpy(rng.standard_normal((n, r))).to("cuda", dt)
+        f32 = dt == torch.float32
+        tag = f"{m}x{n} r={r} row_tile={row_tile} per_row={per_row} {dt}"
+        got = sddmm_cuda(*args(S), A, B, row_tile=row_tile)
+        want = sddmm_plain(*args(S), A, B, row_tile=row_tile)
+        out = spmm_cuda(*args(S), B, row_tile=row_tile, m=m)
+        if (sddmm_cuda.last_form, spmm_cuda.last_form) != (form, form):
+            raise AssertionError(f"{tag}: forms {sddmm_cuda.last_form}/"
+                                 f"{spmm_cuda.last_form}, want {form}")
+        tol = 2e-5 if f32 else 0.12 * np.sqrt(r) / 8
+        worst["sddmm"] = max(worst["sddmm"],
+                             ck.close(got, want, tol, f"sddmm {tag}"))
+        ck.equal(got, sddmm_cuda(*args(S), A, B, row_tile=row_tile),
+                 f"sddmm twice {tag}")
+        tol = 2e-4 if f32 else 0.15
+        worst["spmm"] = max(worst["spmm"], ck.close(
+            out, spmm_plain(*args(S), B, row_tile=row_tile, m=m), tol,
+            f"spmm {tag}"))
+        ck.equal(out, spmm_cuda(*args(S), B, row_tile=row_tile, m=m),
+                 f"spmm twice {tag}")
+        if f32:
+            fo, fR = fusedmm_cuda(*args(S), A, B, row_tile=row_tile, m=m)
+            ck.equal(fR, got, f"fusedmm R == sddmm {tag}")
+            ck.equal(fo, spmm_cuda(S.tile_base, S.rows_local, S.cols, got,
+                                   B, row_tile=row_tile, m=m),
+                     f"fusedmm out == spmm(sddmm) {tag}")
+        if form == "bulk":
+            # values at an unaligned base take the load form; A and B stay
+            # aligned, so both forms must give the same bits
+            pk2 = args(S)[:3] + (_misaligned(torch, S.vals),)
+            ck.equal(got, sddmm_cuda(*pk2, A, B, row_tile=row_tile),
+                     f"sddmm bulk == load {tag}")
+            ck.equal(out, spmm_cuda(*pk2, B, row_tile=row_tile, m=m),
+                     f"spmm bulk == load {tag}")
+            if (sddmm_cuda.last_form, spmm_cuda.last_form) != ("load",
+                                                               "load"):
+                raise AssertionError(f"{tag}: unaligned vals kept bulk")
+        forms.append(f"{form}: {tag}")
     # windows no block touches are exactly zero
     S = sparse.pack_row_tiled(np.array([0, 1, 2], np.int32),
                               np.array([5, 6, 7], np.int32),
@@ -223,34 +292,44 @@ def phase_kernels(torch):
     if not bool((out[:3] == 1).all()):
         raise AssertionError("spmm: touched rows wrong")
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "checks": ck.n, "max_abs_err": worst})
+    emit({"phase": "kernels", "checks": ck.n, "max_abs_err": worst,
+          "forms": forms})
 
 
-def _bound(torch, S, r, m, kind):
-    """(bound_ms, bound_by, gather_ms) of one kernel on pack S: the bytes
-    of each input read once and each output written once (B and A counted
-    as the rows the nonzeros touch) over the HBM rate, against the flops
-    over the float32 rate."""
+def _bound(torch, S, r, m, kind, isz=4):
+    """(bound_ms, bound_by, gather_ms, bytes, flops, nnz, bytes_once) of
+    one kernel on pack S with dense operands of ``isz`` bytes a value.
+
+    The bound: the bytes of each input read once and each output written
+    once (B and A counted as the rows the nonzeros touch) over the HBM
+    rate, against the flops over the float32 rate.  ``bytes_once``: what
+    the kernel must move on this matrix, where no row of B is reused --
+    one row of B per nonzero (B counted once, in the gathers), the
+    indices, A's rows and the outputs."""
     live = S.vals != 0
     nnz = int(live.sum())
     slots = S.rows_local.numel()
     idx = slots * 12 + S.tile_base.numel() * 4
     b_rows = int(torch.unique(S.cols[live]).numel())
     a_rows = int(torch.unique(S.rows_global()[live]).numel())
+    gathers = nnz * r * isz
     if kind == "spmm":
-        nbytes = idx + b_rows * r * 4 + m * r * 4
+        nbytes = idx + b_rows * r * isz + m * r * isz
+        once = idx + gathers + m * r * isz
         flops = 2 * nnz * r
     elif kind == "sddmm":
-        nbytes = idx + (a_rows + b_rows) * r * 4 + slots * 4
+        nbytes = idx + (a_rows + b_rows) * r * isz + slots * 4
+        once = idx + gathers + a_rows * r * isz + slots * 4
         flops = 2 * nnz * r + nnz
     else:
-        nbytes = idx + (a_rows + b_rows) * r * 4 + m * r * 4 + slots * 4
+        nbytes = idx + (a_rows + b_rows) * r * isz + m * r * isz + slots * 4
+        once = idx + gathers + a_rows * r * isz + m * r * isz + slots * 4
         flops = 4 * nnz * r + nnz
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
-    gather = nnz * r * 4 / HBM_BYTES_PER_S * 1e3
+    gather = gathers / HBM_BYTES_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", gather, nbytes, flops, nnz)
+            "operations", gather, nbytes, flops, nnz, once)
 
 
 def erdos_renyi_on_card(torch, m, n, per_row, seed):
@@ -308,6 +387,10 @@ def phase_main(torch, scale: int, reps: int):
         if cnt <= 0:
             raise AssertionError(f"{name} kernel not launched on the main "
                                  f"path: {launches}")
+    main_forms = {"spmm": spmm_cuda.last_form,
+                  "sddmm": sddmm_cuda.last_form}
+    if set(main_forms.values()) != {"bulk"}:
+        raise AssertionError(f"main path took forms {main_forms}")
 
     # each cell against the plain kernels, and Session-cached == uncached
     cell_err, cell_ms = {}, {}
@@ -332,7 +415,7 @@ def phase_main(torch, scale: int, reps: int):
     emit({"phase": "main", "m": m, "n": n, "r": r, "nnz": prob.nnz,
           "p": prob.p, "c": prob.c, "gen_s": round(t_gen, 3),
           "plan_s": round(t_plan, 3), "pack_gib": pack_gib,
-          "launches": launches,
+          "launches": launches, "forms": main_forms,
           "cell_ms": cell_ms, "cell_max_abs_err": cell_err,
           "session": sess.stats(), "checks": ck.n,
           "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)})
@@ -353,6 +436,10 @@ def phase_main(torch, scale: int, reps: int):
     del r_dev
     vals_dev = csr.values()
     Yt = Y.t()
+    bag_idx, bag_off = csr.col_indices(), crow[:-1]
+    # the same pack with its values at an unaligned base: the load form
+    pkl = pk[:3] + (_misaligned(torch, S.vals),)
+    gbps = stream_read_gb_per_s(torch, reps)
     kernels = []
     specs = [
         ("spmm", "src/repro_torch/kernels/csrc/spmm.cu",
@@ -382,21 +469,100 @@ def phase_main(torch, scale: int, reps: int):
             err = ck.close(got, want, 2e-3 if name == "spmm" else 2e-5,
                            name)
         del got, want
-        ms = time_ms(torch, kern, reps)
+        if name == "fusedmm":
+            ms = time_ms(torch, kern, reps)
+        else:
+            # the load form (the first port's design) on the same inputs,
+            # in turns with the bulk form: load, bulk, bulk, load
+            if name == "spmm":
+                def load():
+                    return spmm_cuda(*pkl, Y, row_tile=rt, m=m)
+            else:
+                def load():
+                    return sddmm_cuda(*pkl, X, Y, row_tile=rt)
+            ck.equal(kern(), load(), f"{name} bulk == load, full size")
+            if (spmm_cuda if name == "spmm" else sddmm_cuda).last_form \
+                    != "load":
+                raise AssertionError(f"{name}: unaligned vals kept bulk")
+            load_ms = [time_ms(torch, load, reps)]
+            ms = statistics.median([time_ms(torch, kern, reps),
+                                    time_ms(torch, kern, reps)])
+            load_ms.append(time_ms(torch, load, reps))
         plain_ms = time_ms(torch, plain, 2)
         lib_ms = time_ms(torch, lib, reps) if lib is not None else None
-        bound, by, gather, nbytes, flops, nnz = _bound(torch, S, r, m, name)
-        kernels.append({
+        bound, by, gather, nbytes, flops, nnz, once = _bound(torch, S, r, m,
+                                                             name)
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "matches_plain": True,
             "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms, "gather_bound_ms": gather,
-            "bytes": nbytes, "flops": flops, "nnz": nnz})
+            "bytes": nbytes, "flops": flops, "nnz": nnz,
+            "bytes_once": once, "tb_per_s": once / ms / 1e9,
+            "ceiling_ms": once / gbps / 1e6}
+        if name != "fusedmm":
+            row["load_form_ms"] = load_ms
+            row["load_form_tb_per_s"] = once / statistics.median(load_ms) / 1e9
+        if name == "spmm":
+            # second yardstick: the same product as a weighted bag sum
+            bag = torch.nn.functional.embedding_bag
+
+            def lib2():
+                return bag(bag_idx, Y, bag_off, mode="sum",
+                           per_sample_weights=vals_dev)
+            ck.close(lib2(), spmm_cuda(*pk, Y, row_tile=rt, m=m), 2e-3,
+                     "embedding_bag == spmm")
+            row["library2"] = "embedding_bag(mode='sum', weights=vals)"
+            row["library2_ms"] = time_ms(torch, lib2, reps)
+        if name != "fusedmm":
+            # bfloat16 dense operands at the same shapes (vals float32)
+            Xb, Yb = X.bfloat16(), Y.bfloat16()
+            if name == "spmm":
+                def kb():
+                    return spmm_cuda(*pk, Yb, row_tile=rt, m=m)
+                want = spmm_plain(*pk, Yb, row_tile=rt, m=m)
+                tol = 0.15
+            else:
+                def kb():
+                    return sddmm_cuda(*pk, Xb, Yb, row_tile=rt)
+                want = sddmm_plain(*pk, Xb, Yb, row_tile=rt)
+                tol = 0.12 * np.sqrt(r) / 8
+            ck.close(kb(), want, tol, f"{name} bf16")
+            del want
+            row["bf16_ms"] = time_ms(torch, kb, reps)
+            row["bf16_form"] = (spmm_cuda if name == "spmm"
+                                else sddmm_cuda).last_form
+            row["bf16_bytes_once"] = _bound(torch, S, r, m, name, isz=2)[-1]
+            row["bf16_tb_per_s"] = (row["bf16_bytes_once"] / row["bf16_ms"]
+                                    / 1e9)
+            del Xb, Yb
+        kernels.append(row)
         torch.cuda.empty_cache()
+    # at full size, fused == sddmm then spmm, bit for bit (float32)
+    fo, fR = fusedmm_cuda(*pk, X, Y, row_tile=rt, m=m)
+    Rs = sddmm_cuda(*pk, X, Y, row_tile=rt)
+    ck.equal(fR, Rs, "full size fusedmm R == sddmm")
+    ck.equal(fo, spmm_cuda(*pk[:3], Rs, Y, row_tile=rt, m=m),
+             "full size fusedmm out == spmm(sddmm)")
+    del fo, fR, Rs
+    torch.cuda.empty_cache()
     emit({"phase": "kernel_times", "m": m, "r": r, "nblocks": S.nblocks,
-          "nz_block": S.nz_block, "row_tile": rt, "kernels": kernels})
+          "nz_block": S.nz_block, "row_tile": rt,
+          "stream_read_gb_per_s": gbps, "checks": ck.n,
+          "kernels": kernels})
     return kernels
+
+
+def stream_read_gb_per_s(torch, reps: int) -> float:
+    """The card's streaming read rate: a plain sum over 4 GiB of float32,
+    GB/s (10^9 bytes) by median device time."""
+    x = torch.ones(1 << 30, device="cuda")
+    ms = time_ms(torch, lambda: x.sum(), reps)
+    rate = x.numel() * 4 / ms / 1e6
+    del x
+    torch.cuda.empty_cache()
+    return rate
 
 
 def phase_stacked(torch):

@@ -125,6 +125,56 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 DTYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: kernel forms of the C interface (``csrc/bulk.cuh``)
+FORM_FLAG = {"load": 0, "bulk": 1}
+#: bulk-form limits, as ``csrc/bulk.cuh`` sets them
+SPMM_MAX_ROW_TILE = 512           # float32 accumulator of 32 columns
+SDDMM_MAX_ROW_BYTES = 1024        # one staged row of B
+SDDMM_MAX_A_WINDOW = 64 * 1024    # one staged window of A
+
+
+def choose_form(kind: str, *, r: int, k: int, row_tile: int, dense_dtype,
+                vals_dtype, addresses, a_rows: int | None = None,
+                n_windows: int | None = None) -> str:
+    """The form of the ``kind`` ("spmm" or "sddmm") kernel for a shape.
+
+    "bulk" moves rows, index runs and A's windows with bulk asynchronous
+    copies, which take whole 16-byte units at 16-byte aligned addresses:
+    rows of ``r * itemsize % 16 == 0`` bytes, ``k`` entries a multiple of
+    16 bytes of every index and value array, and every base in
+    ``addresses`` aligned.  SDDMM's bulk form also stages a whole window
+    of A and whole rows of B, within the limits above, and needs A's rows
+    to be exactly ``n_windows`` windows.  Anything else takes "load".
+    """
+    dsz, vsz = dense_dtype.itemsize, vals_dtype.itemsize
+    ok = (r > 0 and (r * dsz) % 16 == 0 and (k * 4) % 16 == 0
+          and (k * vsz) % 16 == 0 and all(a % 16 == 0 for a in addresses))
+    if kind == "spmm":
+        ok = ok and row_tile <= SPMM_MAX_ROW_TILE
+    elif kind == "sddmm":
+        ok = (ok and r * dsz <= SDDMM_MAX_ROW_BYTES
+              and row_tile * r * dsz <= SDDMM_MAX_A_WINDOW
+              and a_rows == n_windows * row_tile)
+    else:
+        raise ValueError(f"no kernel forms for {kind!r}")
+    return "bulk" if ok else "load"
+
+
+def window_offsets(tile_base: torch.Tensor, row_tile: int,
+                   n_windows: int) -> torch.Tensor:
+    """int64 (n_windows + 1,): window w's run of pack blocks is
+    ``off[w] .. off[w + 1]`` (``tile_base`` is non-decreasing; padding
+    blocks after the last window fall in its run).  On the pack's
+    device, once per call."""
+    starts = torch.arange(0, (n_windows + 1) * row_tile, row_tile,
+                          dtype=tile_base.dtype, device=tile_base.device)
+    return torch.searchsorted(tile_base, starts)
+
+
+def addresses(*tensors: torch.Tensor) -> list:
+    return [t.data_ptr() for t in tensors]
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -15,8 +15,14 @@
 //     threads owns whole columns of the window's float32 accumulator in
 //     shared memory, adding the window's nonzeros in pack order.
 //
-// There are no atomics, so two launches give the same bits, and the
-// fused kernel's dots and scatter equal the sddmm and spmm kernels'.
+// The SpMM and SDDMM kernels come in two forms with that one arithmetic:
+// the load form here (each thread loads what it needs) and the bulk form
+// of bulk.cuh (bulk async copies into shared memory), which the wrappers
+// choose by shape and alignment.  The SpMM kernels find window w's run
+// of blocks as off[w] .. off[w+1], an int64 offsets array the wrapper
+// computes per call.  There are no atomics, so two launches give the
+// same bits, and the fused kernel's dots and scatter equal the sddmm and
+// spmm kernels' in either form.
 // Offsets into the dense operands are 64-bit: col * r passes 2^31 at
 // m = n = 2^22, r = 128.
 #pragma once
@@ -129,8 +135,8 @@ __device__ __forceinline__ void warp_dots(const TD* const* a,
 }
 
 // ---------------------------------------------------------------------------
-// SDDMM: out[b, e] = vals[b, e] * <A[tile_base[b] + rows_local[b, e]],
-//                                  B[cols[b, e]]>, float32 out.
+// SDDMM, load form: out[b, e] = vals[b, e] *
+//     <A[tile_base[b] + rows_local[b, e]], B[cols[b, e]]>, float32 out.
 // One warp per pack block, its k entries eight at a time.
 // ---------------------------------------------------------------------------
 template <typename TV, typename TD>
@@ -166,15 +172,15 @@ sddmm_kernel(const int32_t* __restrict__ tile_base,
 }
 
 // ---------------------------------------------------------------------------
-// SpMM: out (m, r) = S @ B.  Grid (m / row_tile windows, r-chunks); a
-// block of `chunk` threads owns one window x one r-chunk, keeps it in a
-// (row_tile x chunk) float32 accumulator in shared memory, walks the
-// window's blocks in order and writes the window once.  Windows no block
-// touches are written as zeros.
+// SpMM, load form: out (m, r) = S @ B.  Grid (m / row_tile windows,
+// r-chunks); a block of `chunk` threads owns one window x one r-chunk,
+// keeps it in a (row_tile x chunk) float32 accumulator in shared memory,
+// walks the window's blocks off[w] .. off[w+1] in order and writes the
+// window once.  Windows no block touches are written as zeros.
 // ---------------------------------------------------------------------------
 template <typename TV, typename TD>
 __global__ void __launch_bounds__(kMaxChunk)
-spmm_kernel(const int32_t* __restrict__ tile_base,
+spmm_kernel(const int64_t* __restrict__ off,
             const int32_t* __restrict__ rows_local,
             const int32_t* __restrict__ cols, const TV* __restrict__ vals,
             const TD* __restrict__ B, TD* __restrict__ out, int64_t nb,
@@ -189,8 +195,7 @@ spmm_kernel(const int32_t* __restrict__ tile_base,
   const bool live = col < r;
   const int32_t base = blockIdx.x * row_tile;
   for (int i = 0; i < row_tile; ++i) acc[i * chunk + t] = 0.f;
-  const int64_t lo = lower_bound(tile_base, nb, base);
-  const int64_t hi = lower_bound(tile_base, nb, base + row_tile);
+  const int64_t lo = off[blockIdx.x], hi = off[blockIdx.x + 1];
   for (int64_t b = lo; b < hi; ++b) {
     __syncthreads();                        // last block's staging is read
     for (int e = t; e < k; e += blockDim.x) {
@@ -233,11 +238,13 @@ inline size_t spmm_smem(int row_tile, int chunk, int k) {
   return (size_t)row_tile * chunk * 4 + (size_t)k * 12;
 }
 
-// Launches the spmm kernel on `stream`; returns the launch's error code.
+// Launches the load-form spmm kernel on `stream`; returns the launch's
+// error code.
 template <typename TV, typename TD>
-int launch_spmm(const int32_t* tb, const int32_t* rl, const int32_t* cl,
-                const TV* vals, const TD* B, TD* out, int64_t nb, int k,
-                int row_tile, int m, int r, cudaStream_t stream) {
+int launch_spmm_load(const int64_t* off, const int32_t* rl,
+                     const int32_t* cl, const TV* vals, const TD* B, TD* out,
+                     int64_t nb, int k, int row_tile, int m, int r,
+                     cudaStream_t stream) {
   const int chunk = spmm_chunk(r, row_tile);
   const size_t smem = spmm_smem(row_tile, chunk, k);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -250,14 +257,15 @@ int launch_spmm(const int32_t* tb, const int32_t* rl, const int32_t* cl,
   }
   dim3 grid(m / row_tile, (r + chunk - 1) / chunk);
   spmm_kernel<TV, TD><<<grid, chunk, smem, stream>>>(
-      tb, rl, cl, vals, B, out, nb, k, row_tile, r, chunk);
+      off, rl, cl, vals, B, out, nb, k, row_tile, r, chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename TV, typename TD>
-int launch_sddmm(const int32_t* tb, const int32_t* rl, const int32_t* cl,
-                 const TV* vals, const TD* A, const TD* B, float* out,
-                 int64_t nb, int k, int r, cudaStream_t stream) {
+int launch_sddmm_load(const int32_t* tb, const int32_t* rl,
+                      const int32_t* cl, const TV* vals, const TD* A,
+                      const TD* B, float* out, int64_t nb, int k, int r,
+                      cudaStream_t stream) {
   if (nb == 0 || k == 0) return 0;
   const int64_t grid = (nb + kSddmmWarps - 1) / kSddmmWarps;
   const bool vec4 = vec4_ok(r, A, B, sizeof(TD));

@@ -18,7 +18,8 @@
 //
 // Two passes, when the caller asks for r_tile < r, or r is over 512 or
 // not a multiple of 4: the sddmm kernel writes float32 R, then the spmm
-// kernel scatters with it (both from common.cuh).
+// kernel scatters with it (bulk.cuh, each in the form the wrapper chose,
+// with the wrapper's window offsets).
 //
 // Both branches take the dot and the scatter in the sddmm and spmm
 // kernels' order (lane partials four columns at a time, the shuffle
@@ -26,7 +27,7 @@
 // values fusedmm equals sddmm then spmm bit for bit.  Bound on the H100:
 // memory, the gathers of B's rows (nnz * r values); the single pass
 // halves them against the two kernels.
-#include "common.cuh"
+#include "bulk.cuh"
 
 namespace rt {
 
@@ -175,21 +176,23 @@ int launch_rows(const int32_t* tb, const int32_t* rl, const int32_t* cl,
 }
 
 template <typename TV, typename TD>
-int launch_fusedmm(const int32_t* tb, const int32_t* rl, const int32_t* cl,
-                   const TV* vals, const TD* A, const TD* B, TD* out,
-                   float* rvals, int64_t nb, int k, int row_tile, int m,
-                   int r, int want_two_pass, int* used_two_pass,
+int launch_fusedmm(const int32_t* tb, const int64_t* off, const int32_t* rl,
+                   const int32_t* cl, const TV* vals, const TD* A,
+                   const TD* B, TD* out, float* rvals, int64_t nb, int k,
+                   int row_tile, int m, int r, int want_two_pass,
+                   int* used_two_pass, int sddmm_form, int spmm_form,
                    cudaStream_t stream) {
   const bool two = want_two_pass || r > kFusedMaxR ||
                    !vec4_ok(r, A, B, sizeof(TD)) ||
                    (uintptr_t)out % (4 * sizeof(TD)) != 0;
   *used_two_pass = two ? 1 : 0;
   if (two) {
-    int err = launch_sddmm<TV, TD>(tb, rl, cl, vals, A, B, rvals, nb, k, r,
+    int err = launch_sddmm<TV, TD>(sddmm_form, tb, off, rl, cl, vals, A, B,
+                                   rvals, nb, k, row_tile, m / row_tile, r,
                                    stream);
     if (err) return err;
-    return launch_spmm<float, TD>(tb, rl, cl, rvals, B, out, nb, k, row_tile,
-                                  m, r, stream);
+    return launch_spmm<float, TD>(spmm_form, off, rl, cl, rvals, B, out, nb,
+                                  k, row_tile, m, r, stream);
   }
   if (m == 0 || r == 0) return 0;
   const int slices = (r + 127) / 128;
@@ -207,18 +210,21 @@ int launch_fusedmm(const int32_t* tb, const int32_t* rl, const int32_t* cl,
 
 RT_ERROR_STRING_FN
 
-extern "C" int rt_fusedmm(const void* tile_base, const void* rows_local,
-                          const void* cols, const void* vals, const void* A,
-                          const void* B, void* out, void* rvals, long long nb,
-                          int k, int row_tile, int m, int r,
-                          int want_two_pass, int* used_two_pass,
+extern "C" int rt_fusedmm(const void* tile_base, const void* off,
+                          const void* rows_local, const void* cols,
+                          const void* vals, const void* A, const void* B,
+                          void* out, void* rvals, long long nb, int k,
+                          int row_tile, int m, int r, int want_two_pass,
+                          int* used_two_pass, int sddmm_form, int spmm_form,
                           int vals_bf16, int dense_bf16, void* stream) {
   int err = 0;
   RT_DISPATCH(vals_bf16, dense_bf16,
               err = rt::launch_fusedmm<TV, TD>(
-                  (const int32_t*)tile_base, (const int32_t*)rows_local,
+                  (const int32_t*)tile_base, (const int64_t*)off,
+                  (const int32_t*)rows_local,
                   (const int32_t*)cols, (const TV*)vals, (const TD*)A,
                   (const TD*)B, (TD*)out, (float*)rvals, nb, k, row_tile, m,
-                  r, want_two_pass, used_two_pass, (cudaStream_t)stream));
+                  r, want_two_pass, used_two_pass, sddmm_form, spmm_form,
+                  (cudaStream_t)stream));
   return err;
 }

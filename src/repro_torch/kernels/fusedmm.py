@@ -29,8 +29,8 @@ def _fn():
     fn = _build.load("fusedmm").rt_fusedmm
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, ctypes.c_longlong, I, I, I,
-                       I, I, ctypes.POINTER(I), I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, ctypes.c_longlong, I, I,
+                       I, I, I, ctypes.POINTER(I), I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -60,13 +60,25 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     out = torch.empty((m, r), dtype=B.dtype, device=B.device)
     r_vals = torch.empty((nb, k), dtype=torch.float32, device=B.device)
     used_two = ctypes.c_int(0)
+    # the two-pass form's sddmm and spmm launches
+    idx = _build.addresses(rows_local, cols)
+    shape = dict(r=r, k=k, row_tile=row_tile, dense_dtype=B.dtype)
+    sddmm_form = _build.choose_form(
+        "sddmm", vals_dtype=vals.dtype, a_rows=A.shape[0],
+        n_windows=m // row_tile,
+        addresses=idx + _build.addresses(vals, A, B), **shape)
+    spmm_form = _build.choose_form(
+        "spmm", vals_dtype=torch.float32,
+        addresses=idx + _build.addresses(r_vals, B), **shape)
+    off = _build.window_offsets(tile_base, row_tile, m // row_tile)
     fn = _fn()
-    code = fn(_build.ptr(tile_base), _build.ptr(rows_local),
-              _build.ptr(cols), _build.ptr(vals), _build.ptr(A),
-              _build.ptr(B), _build.ptr(out), _build.ptr(r_vals), nb, k,
-              row_tile, m, r, want_two, ctypes.byref(used_two),
-              _build.DTYPE_FLAG[vals.dtype], _build.DTYPE_FLAG[B.dtype],
-              _build.stream(B.device))
+    code = fn(_build.ptr(tile_base), _build.ptr(off),
+              _build.ptr(rows_local), _build.ptr(cols), _build.ptr(vals),
+              _build.ptr(A), _build.ptr(B), _build.ptr(out),
+              _build.ptr(r_vals), nb, k, row_tile, m, r, want_two,
+              ctypes.byref(used_two), _build.FORM_FLAG[sddmm_form],
+              _build.FORM_FLAG[spmm_form], _build.DTYPE_FLAG[vals.dtype],
+              _build.DTYPE_FLAG[B.dtype], _build.stream(B.device))
     _build.check(_build.load("fusedmm"), code, "fusedmm")
     fusedmm_cuda.launches += 1
     fusedmm_cuda.last_two_pass = bool(used_two.value)

@@ -3,7 +3,9 @@
 ``spmm_cuda`` launches the Hopper kernel ``csrc/spmm.cu`` (which
 replaces ``repro.kernels.spmm.spmm_pallas``) for tensors on the card;
 for tensors on the CPU it returns :func:`spmm_plain`, the plain PyTorch
-version.  ``spmm_cuda.launches`` counts kernel launches.
+version.  ``spmm_cuda.launches`` counts kernel launches and
+``spmm_cuda.last_form`` names the form of the last one ("bulk" or
+"load", see ``_build.choose_form``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def _fn():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, I, I, I, I, I,
-                       I, P]
+                       I, I, P]
         fn.restype = I
     return fn
 
@@ -52,15 +54,22 @@ def spmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
                                [B], row_tile=row_tile, m=m, r_tile=r_tile,
                                blocks_per_step=blocks_per_step)
     out = torch.empty((m, r), dtype=B.dtype, device=B.device)
+    form = _build.choose_form(
+        "spmm", r=r, k=k, row_tile=row_tile, dense_dtype=B.dtype,
+        vals_dtype=vals.dtype,
+        addresses=_build.addresses(rows_local, cols, vals, B))
+    off = _build.window_offsets(tile_base, row_tile, m // row_tile)
     fn = _fn()
-    code = fn(_build.ptr(tile_base), _build.ptr(rows_local),
-              _build.ptr(cols), _build.ptr(vals), _build.ptr(B),
-              _build.ptr(out), nb, k, row_tile, m, r,
+    code = fn(_build.ptr(off), _build.ptr(rows_local), _build.ptr(cols),
+              _build.ptr(vals), _build.ptr(B), _build.ptr(out), nb, k,
+              row_tile, m, r, _build.FORM_FLAG[form],
               _build.DTYPE_FLAG[vals.dtype], _build.DTYPE_FLAG[B.dtype],
               _build.stream(B.device))
     _build.check(_build.load("spmm"), code, "spmm")
     spmm_cuda.launches += 1
+    spmm_cuda.last_form = form
     return out
 
 
 spmm_cuda.launches = 0
+spmm_cuda.last_form = None
