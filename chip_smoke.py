@@ -11,21 +11,28 @@ Phases, each printing one JSON line:
            (one nvcc per source, in parallel) and report ptxas' register
            and shared-memory use;
   kernels  hold each kernel against its plain PyTorch version on the card
-           over the shapes and dtypes of tests/test_kernels.py (both
-           forms of the fused kernel, untouched windows zero, two
-           launches bitwise equal), and the bulk and load forms of spmm
-           and sddmm (FORM_CASES: the form each shape must take, windows
-           longer than one staged index chunk, bulk == load bitwise);
+           over the shapes and dtypes of tests/test_kernels.py (the
+           fused kernel's single pass and two-pass route, untouched
+           windows zero, two launches bitwise equal), and the bulk and
+           load forms of all three kernels (FORM_CASES: the form each
+           shape must take, windows longer than one staged index chunk,
+           bulk == load bitwise, fused == sddmm then spmm bitwise);
   main     the d15 main path at full size through make_problem /
            DistProblem.fusedmm: Erdos-Renyi m = n = 2^22, 16 nonzeros per
            row, r = 128, float32, on one card (p = 1), all three elision
            cells, each checked against backend="ref"; launch counts,
-           median ms per cell, Session-cached == uncached bitwise, and
-           each kernel's time beside its bound, its plain version and a
-           library call at the main path's shapes, its rate with B counted
-           once against the card's streaming read rate (a sum over 4 GiB),
-           embedding_bag as SpMM's second yardstick, SpMM and SDDMM with
-           bfloat16 operands, and fused == sddmm then spmm bitwise;
+           median ms per cell, Session-cached == uncached bitwise, the
+           bulk form on every kernel of the path, and each kernel's time
+           beside its bound, its plain version, a library call and its
+           load form (timed in turns: load, bulk, bulk, load) at the main
+           path's shapes, its rate with B counted once against the card's
+           streaming read rate (a sum over 4 GiB), embedding_bag as
+           SpMM's second yardstick, each kernel with bfloat16 operands,
+           fused == sddmm then spmm bitwise; then the three kernels'
+           bulk forms and FusedMM's load form on a power-law matrix
+           (R-MAT, 16 edges a row, permuted, as
+           benchmarks/bench_fig8_strong_scaling.py draws it, at scale 21:
+           drawing and packing scale 22 on the host takes over 120 s);
   stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
            every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
@@ -34,8 +41,9 @@ Phases, each printing one JSON line:
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
-line.  ``--scale`` shrinks the main path (2^scale rows) for rehearsals;
-``--phases`` picks phases.
+line.  ``--scale`` shrinks the main path (2^scale rows) and
+``--rmat-scale`` the power-law timing for rehearsals; ``--phases`` picks
+phases.
 """
 from __future__ import annotations
 
@@ -61,13 +69,13 @@ SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
           (384, 512, 256, 2), (128, 640, 32, 16)]
 TILINGS = [(128, 1), (64, 1), (32, 2), (32, 4)]
 # (m, n, r, nonzeros per row, row_tile, nz_block, dtype name, the form the
-# spmm and sddmm wrappers must choose); the last two have windows of 8192
-# entries, eight staged index chunks each
-FORM_CASES = [(256, 192, 34, 6, 64, 32, "float32", "load"),
-              (256, 192, 36, 6, 64, 32, "bfloat16", "load"),
-              (256, 192, 36, 6, 64, 32, "float32", "bulk"),
-              (512, 4096, 128, 64, 128, 64, "float32", "bulk"),
-              (512, 4096, 128, 64, 128, 64, "bfloat16", "bulk")]
+# spmm and sddmm wrappers must choose, the fused kernel's route); the last
+# two have windows of 8192 entries, 32 staged index chunks each
+FORM_CASES = [(256, 192, 34, 6, 64, 32, "float32", "load", "two_pass"),
+              (256, 192, 36, 6, 64, 32, "bfloat16", "load", "load"),
+              (256, 192, 36, 6, 64, 32, "float32", "bulk", "bulk"),
+              (512, 4096, 128, 64, 128, 64, "float32", "bulk", "bulk"),
+              (512, 4096, 128, 64, 128, 64, "bfloat16", "bulk", "bulk")]
 
 
 def _misaligned(torch, x):
@@ -95,14 +103,14 @@ class Checker:
         self.torch = torch
         self.n = 0
 
-    def close(self, got, want, tol, what):
+    def close(self, got, want, tol, what, slack=0.0):
         t = self.torch
         got, want = got.float(), want.float()
         if got.shape != want.shape or not bool(t.isfinite(got).all()):
             raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
                                  f"{tuple(want.shape)} or non-finite")
         err = (got - want).abs()
-        bad = err > tol + tol * want.abs()
+        bad = err > tol + tol * want.abs() + slack
         if bool(bad.any()):
             raise AssertionError(f"{what}: max abs err "
                                  f"{float(err.max()):.3g} beyond tol {tol}")
@@ -113,6 +121,19 @@ class Checker:
         if not self.torch.equal(a, b):
             raise AssertionError(f"{what}: not bitwise equal")
         self.n += 1
+
+    # the same for one tensor or a tuple of them (fusedmm's (out, R))
+    def close_all(self, got, want, tol, what):
+        if isinstance(got, tuple):
+            return max(self.close(g, w, tol, f"{what} [{i}]")
+                       for i, (g, w) in enumerate(zip(got, want)))
+        return self.close(got, want, tol, what)
+
+    def equal_all(self, a, b, what):
+        if not isinstance(a, tuple):
+            a, b = (a,), (b,)
+        for i, (x, y) in enumerate(zip(a, b)):
+            self.equal(x, y, f"{what} [{i}]")
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -212,9 +233,12 @@ def phase_kernels(torch):
         for r_tile, bps in TILINGS:
             out, R = fusedmm_cuda(*args(S), A, B, row_tile=64, m=256,
                                   r_tile=r_tile, blocks_per_step=bps)
-            if fusedmm_cuda.last_two_pass != (r_tile < 128):
-                raise AssertionError(f"fusedmm r_tile={r_tile} took the "
-                                     f"wrong form")
+            route = "two_pass" if r_tile < 128 else "bulk"
+            if fusedmm_cuda.last_form != route or \
+                    fusedmm_cuda.last_two_pass != (r_tile < 128):
+                raise AssertionError(f"fusedmm r_tile={r_tile} took "
+                                     f"{fusedmm_cuda.last_form}, want "
+                                     f"{route}")
             tag = f"r_tile={r_tile} bps={bps} {dt}"
             worst["fusedmm"] = max(
                 worst["fusedmm"],
@@ -234,7 +258,8 @@ def phase_kernels(torch):
     # both forms of spmm and sddmm, and windows longer than one staged
     # index chunk, against the plain versions
     forms = []
-    for (m, n, r, per_row, row_tile, nz_block, dt, form) in FORM_CASES:
+    for (m, n, r, per_row, row_tile, nz_block, dt, form,
+         fused) in FORM_CASES:
         dt = getattr(torch, dt)
         S = _pack(sparse, m, n, per_row, m + r, row_tile, nz_block)
         rng = np.random.default_rng(m + r)
@@ -259,11 +284,19 @@ def phase_kernels(torch):
             f"spmm {tag}"))
         ck.equal(out, spmm_cuda(*args(S), B, row_tile=row_tile, m=m),
                  f"spmm twice {tag}")
+        fo = fusedmm_cuda(*args(S), A, B, row_tile=row_tile, m=m)
+        if fusedmm_cuda.last_form != fused:
+            raise AssertionError(f"{tag}: fused route "
+                                 f"{fusedmm_cuda.last_form}, want {fused}")
+        worst["fusedmm"] = max(worst["fusedmm"], ck.close_all(
+            fo, fusedmm_plain(*args(S), A, B, row_tile=row_tile, m=m),
+            2e-3 if f32 else 0.5, f"fusedmm {tag}"))
+        ck.equal_all(fo, fusedmm_cuda(*args(S), A, B, row_tile=row_tile,
+                                      m=m), f"fusedmm twice {tag}")
         if f32:
-            fo, fR = fusedmm_cuda(*args(S), A, B, row_tile=row_tile, m=m)
-            ck.equal(fR, got, f"fusedmm R == sddmm {tag}")
-            ck.equal(fo, spmm_cuda(S.tile_base, S.rows_local, S.cols, got,
-                                   B, row_tile=row_tile, m=m),
+            ck.equal(fo[1], got, f"fusedmm R == sddmm {tag}")
+            ck.equal(fo[0], spmm_cuda(S.tile_base, S.rows_local, S.cols,
+                                      got, B, row_tile=row_tile, m=m),
                      f"fusedmm out == spmm(sddmm) {tag}")
         if form == "bulk":
             # values at an unaligned base take the load form; A and B stay
@@ -273,10 +306,12 @@ def phase_kernels(torch):
                      f"sddmm bulk == load {tag}")
             ck.equal(out, spmm_cuda(*pk2, B, row_tile=row_tile, m=m),
                      f"spmm bulk == load {tag}")
-            if (sddmm_cuda.last_form, spmm_cuda.last_form) != ("load",
-                                                               "load"):
+            ck.equal_all(fo, fusedmm_cuda(*pk2, A, B, row_tile=row_tile,
+                                          m=m), f"fusedmm bulk == load {tag}")
+            if (sddmm_cuda.last_form, spmm_cuda.last_form,
+                    fusedmm_cuda.last_form) != ("load",) * 3:
                 raise AssertionError(f"{tag}: unaligned vals kept bulk")
-        forms.append(f"{form}: {tag}")
+        forms.append(f"{form}/{fused}: {tag}")
     # windows no block touches are exactly zero
     S = sparse.pack_row_tiled(np.array([0, 1, 2], np.int32),
                               np.array([5, 6, 7], np.int32),
@@ -345,7 +380,7 @@ def erdos_renyi_on_card(torch, m, n, per_row, seed):
             vals.cpu().numpy())
 
 
-def phase_main(torch, scale: int, reps: int):
+def phase_main(torch, scale: int, reps: int, rmat_scale: int):
     from repro_torch.core import api, sparse
     from repro_torch.kernels import ops
     from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
@@ -387,8 +422,10 @@ def phase_main(torch, scale: int, reps: int):
         if cnt <= 0:
             raise AssertionError(f"{name} kernel not launched on the main "
                                  f"path: {launches}")
+    # the fused cell runs last, so fusedmm's route is that cell's
     main_forms = {"spmm": spmm_cuda.last_form,
-                  "sddmm": sddmm_cuda.last_form}
+                  "sddmm": sddmm_cuda.last_form,
+                  "fusedmm": fusedmm_cuda.last_form}
     if set(main_forms.values()) != {"bulk"}:
         raise AssertionError(f"main path took forms {main_forms}")
 
@@ -439,55 +476,60 @@ def phase_main(torch, scale: int, reps: int):
     bag_idx, bag_off = csr.col_indices(), crow[:-1]
     # the same pack with its values at an unaligned base: the load form
     pkl = pk[:3] + (_misaligned(torch, S.vals),)
+    Xb, Yb = X.bfloat16(), Y.bfloat16()
     gbps = stream_read_gb_per_s(torch, reps)
     kernels = []
+    wrappers = {"spmm": spmm_cuda, "sddmm": sddmm_cuda,
+                "fusedmm": fusedmm_cuda}
+    # (name, source, TPU kernel, kernel, plain, library call, load form,
+    #  kernel and plain with bfloat16 dense operands (vals float32), the
+    #  tolerances in float32 and in bfloat16)
     specs = [
         ("spmm", "src/repro_torch/kernels/csrc/spmm.cu",
          "src/repro/kernels/spmm.py:52",
          lambda: spmm_cuda(*pk, Y, row_tile=rt, m=m),
          lambda: spmm_plain(*pk, Y, row_tile=rt, m=m),
-         lambda: torch.sparse.mm(csr, Y)),
+         lambda: torch.sparse.mm(csr, Y),
+         lambda: spmm_cuda(*pkl, Y, row_tile=rt, m=m),
+         lambda: spmm_cuda(*pk, Yb, row_tile=rt, m=m),
+         lambda: spmm_plain(*pk, Yb, row_tile=rt, m=m), 2e-3, 0.15),
         ("sddmm", "src/repro_torch/kernels/csrc/sddmm.cu",
          "src/repro/kernels/sddmm.py:49",
          lambda: sddmm_cuda(*pk, X, Y, row_tile=rt),
          lambda: sddmm_plain(*pk, X, Y, row_tile=rt),
          lambda: torch.sparse.sampled_addmm(csr, X, Yt, beta=0.0)
-         .values() * vals_dev),
+         .values() * vals_dev,
+         lambda: sddmm_cuda(*pkl, X, Y, row_tile=rt),
+         lambda: sddmm_cuda(*pk, Xb, Yb, row_tile=rt),
+         lambda: sddmm_plain(*pk, Xb, Yb, row_tile=rt), 2e-5,
+         0.12 * np.sqrt(r) / 8),
         ("fusedmm", "src/repro_torch/kernels/csrc/fusedmm.cu",
          "src/repro/kernels/fusedmm.py:92",
          lambda: fusedmm_cuda(*pk, X, Y, row_tile=rt, m=m),
          lambda: fusedmm_plain(*pk, X, Y, row_tile=rt, m=m),
-         None),
+         None,
+         lambda: fusedmm_cuda(*pkl, X, Y, row_tile=rt, m=m),
+         lambda: fusedmm_cuda(*pk, Xb, Yb, row_tile=rt, m=m),
+         lambda: fusedmm_plain(*pk, Xb, Yb, row_tile=rt, m=m), 2e-3, 0.5),
     ]
-    for name, src, repl, kern, plain, lib in specs:
+    for (name, src, repl, kern, plain, lib, load, kb, plain_b, tol,
+         tol_b) in specs:
+        wrap = wrappers[name]
         got = kern()
-        want = plain()
-        if name == "fusedmm":
-            err = max(ck.close(got[0], want[0], 2e-3, "fusedmm out"),
-                      ck.close(got[1], want[1], 2e-3, "fusedmm R"))
-        else:
-            err = ck.close(got, want, 2e-3 if name == "spmm" else 2e-5,
-                           name)
-        del got, want
-        if name == "fusedmm":
-            ms = time_ms(torch, kern, reps)
-        else:
-            # the load form (the first port's design) on the same inputs,
-            # in turns with the bulk form: load, bulk, bulk, load
-            if name == "spmm":
-                def load():
-                    return spmm_cuda(*pkl, Y, row_tile=rt, m=m)
-            else:
-                def load():
-                    return sddmm_cuda(*pkl, X, Y, row_tile=rt)
-            ck.equal(kern(), load(), f"{name} bulk == load, full size")
-            if (spmm_cuda if name == "spmm" else sddmm_cuda).last_form \
-                    != "load":
-                raise AssertionError(f"{name}: unaligned vals kept bulk")
-            load_ms = [time_ms(torch, load, reps)]
-            ms = statistics.median([time_ms(torch, kern, reps),
-                                    time_ms(torch, kern, reps)])
-            load_ms.append(time_ms(torch, load, reps))
+        if wrap.last_form != "bulk":
+            raise AssertionError(f"{name}: main shapes took "
+                                 f"{wrap.last_form}")
+        err = ck.close_all(got, plain(), tol, name)
+        # the load form (the first port's design) on the same inputs, in
+        # turns with the bulk form: load, bulk, bulk, load
+        ck.equal_all(got, load(), f"{name} bulk == load, full size")
+        if wrap.last_form != "load":
+            raise AssertionError(f"{name}: unaligned vals kept bulk")
+        del got
+        load_ms = [time_ms(torch, load, reps)]
+        ms = statistics.median([time_ms(torch, kern, reps),
+                                time_ms(torch, kern, reps)])
+        load_ms.append(time_ms(torch, load, reps))
         plain_ms = time_ms(torch, plain, 2)
         lib_ms = time_ms(torch, lib, reps) if lib is not None else None
         bound, by, gather, nbytes, flops, nnz, once = _bound(torch, S, r, m,
@@ -500,10 +542,8 @@ def phase_main(torch, scale: int, reps: int):
             "library_ms": lib_ms, "gather_bound_ms": gather,
             "bytes": nbytes, "flops": flops, "nnz": nnz,
             "bytes_once": once, "tb_per_s": once / ms / 1e9,
-            "ceiling_ms": once / gbps / 1e6}
-        if name != "fusedmm":
-            row["load_form_ms"] = load_ms
-            row["load_form_tb_per_s"] = once / statistics.median(load_ms) / 1e9
+            "ceiling_ms": once / gbps / 1e6, "load_form_ms": load_ms,
+            "load_form_tb_per_s": once / statistics.median(load_ms) / 1e9}
         if name == "spmm":
             # second yardstick: the same product as a weighted bag sum
             bag = torch.nn.functional.embedding_bag
@@ -515,30 +555,15 @@ def phase_main(torch, scale: int, reps: int):
                      "embedding_bag == spmm")
             row["library2"] = "embedding_bag(mode='sum', weights=vals)"
             row["library2_ms"] = time_ms(torch, lib2, reps)
-        if name != "fusedmm":
-            # bfloat16 dense operands at the same shapes (vals float32)
-            Xb, Yb = X.bfloat16(), Y.bfloat16()
-            if name == "spmm":
-                def kb():
-                    return spmm_cuda(*pk, Yb, row_tile=rt, m=m)
-                want = spmm_plain(*pk, Yb, row_tile=rt, m=m)
-                tol = 0.15
-            else:
-                def kb():
-                    return sddmm_cuda(*pk, Xb, Yb, row_tile=rt)
-                want = sddmm_plain(*pk, Xb, Yb, row_tile=rt)
-                tol = 0.12 * np.sqrt(r) / 8
-            ck.close(kb(), want, tol, f"{name} bf16")
-            del want
-            row["bf16_ms"] = time_ms(torch, kb, reps)
-            row["bf16_form"] = (spmm_cuda if name == "spmm"
-                                else sddmm_cuda).last_form
-            row["bf16_bytes_once"] = _bound(torch, S, r, m, name, isz=2)[-1]
-            row["bf16_tb_per_s"] = (row["bf16_bytes_once"] / row["bf16_ms"]
-                                    / 1e9)
-            del Xb, Yb
+        # bfloat16 dense operands at the same shapes (vals float32)
+        ck.close_all(kb(), plain_b(), tol_b, f"{name} bf16")
+        row["bf16_form"] = wrap.last_form
+        row["bf16_ms"] = time_ms(torch, kb, reps)
+        row["bf16_bytes_once"] = _bound(torch, S, r, m, name, isz=2)[-1]
+        row["bf16_tb_per_s"] = row["bf16_bytes_once"] / row["bf16_ms"] / 1e9
         kernels.append(row)
         torch.cuda.empty_cache()
+    del Xb, Yb
     # at full size, fused == sddmm then spmm, bit for bit (float32)
     fo, fR = fusedmm_cuda(*pk, X, Y, row_tile=rt, m=m)
     Rs = sddmm_cuda(*pk, X, Y, row_tile=rt)
@@ -547,11 +572,122 @@ def phase_main(torch, scale: int, reps: int):
              "full size fusedmm out == spmm(sddmm)")
     del fo, fR, Rs
     torch.cuda.empty_cache()
+    power_law = rmat_times(torch, ck, rmat_scale, r, reps, gbps)
     emit({"phase": "kernel_times", "m": m, "r": r, "nblocks": S.nblocks,
           "nz_block": S.nz_block, "row_tile": rt,
           "stream_read_gb_per_s": gbps, "checks": ck.n,
-          "kernels": kernels})
+          "kernels": kernels, "rmat": power_law})
     return kernels
+
+
+def rmat_times(torch, ck, scale: int, r: int, reps: int, gbps: float):
+    """The three kernels' bulk forms, and FusedMM's load form and
+    two-pass route, on a power-law matrix: R-MAT 2^scale, 16 edges a row (seed 7), rows and
+    columns permuted (seed 1), as benchmarks/bench_fig8_strong_scaling.py
+    draws it; the make_problem pack (row_tile = nz_block = 32), float32,
+    dense operands drawn on the card (seed 2).  Each kernel is held to
+    its plain version; FusedMM's forms are timed in turns."""
+    from repro_torch.core import sparse
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
+    from repro_torch.kernels.sddmm import sddmm_cuda, sddmm_plain
+    from repro_torch.kernels.spmm import spmm_cuda, spmm_plain
+    m = n = 1 << scale
+    t0 = time.perf_counter()
+    rows, cols, vals = sparse.rmat(scale, 16, seed=7)
+    rows, cols = sparse.random_permute(rows, cols, m, n, seed=1)
+    S = sparse.pack_row_tiled(rows, cols, vals, (m, n), row_tile=32,
+                              nz_block=32, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del rows, cols, vals
+    g = torch.Generator(device="cuda").manual_seed(2)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((n, r), generator=g, device="cuda")
+    pk = (S.tile_base, S.rows_local, S.cols, S.vals)
+    pkl = pk[:3] + (_misaligned(torch, S.vals),)
+    rt = S.row_tile
+    runs = [
+        ("spmm", spmm_cuda, lambda p: spmm_cuda(*p, Y, row_tile=rt, m=m),
+         lambda: spmm_plain(*pk, Y, row_tile=rt, m=m), 2e-3),
+        ("sddmm", sddmm_cuda, lambda p: sddmm_cuda(*p, X, Y, row_tile=rt),
+         lambda: sddmm_plain(*pk, X, Y, row_tile=rt), 2e-5),
+        ("fusedmm", fusedmm_cuda,
+         lambda p: fusedmm_cuda(*p, X, Y, row_tile=rt, m=m),
+         lambda: fusedmm_plain(*pk, X, Y, row_tile=rt, m=m), 2e-3),
+    ]
+
+    def magnitude(coef):
+        # sum over each output element's terms of |coef| * |B|: rows here
+        # hold up to ~10^5 nonzeros, and two float32 sums of the same
+        # terms in other orders (the kernel's pack order, the plain
+        # version's atomics) differ by about 2^-24 of it; 2^-20 of it is
+        # added to the tolerance of the scattered outputs
+        return spmm_plain(*pk[:3], coef.abs(), Y.abs(), row_tile=rt, m=m)
+    out = {}
+    for name, wrap, kern, plain, tol in runs:
+        got = kern(pk)
+        if wrap.last_form != "bulk":
+            raise AssertionError(f"rmat {name}: took {wrap.last_form}")
+        want = plain()
+        if name == "sddmm":
+            err = ck.close(got, want, tol, "rmat sddmm")
+        elif name == "spmm":
+            err = ck.close(got, want, tol, "rmat spmm",
+                           slack=2.0**-20 * magnitude(S.vals))
+        else:
+            err = max(ck.close(got[0], want[0], tol, "rmat fusedmm out",
+                               slack=2.0**-20 * magnitude(want[1])),
+                      ck.close(got[1], want[1], tol, "rmat fusedmm R"))
+            # the same bits as sddmm then spmm, and as the load form
+            Rs = sddmm_cuda(*pk, X, Y, row_tile=rt)
+            ck.equal(got[1], Rs, "rmat fusedmm R == sddmm")
+            ck.equal(got[0], spmm_cuda(*pk[:3], Rs, Y, row_tile=rt, m=m),
+                     "rmat fusedmm out == spmm(sddmm)")
+            del Rs
+        del want
+        row = {"max_abs_err": err}
+        if name == "fusedmm":
+            ck.equal_all(got, kern(pkl), "rmat fusedmm bulk == load")
+            if wrap.last_form != "load":
+                raise AssertionError("rmat fusedmm: unaligned vals kept "
+                                     "bulk")
+            load_ms = [time_ms(torch, lambda: kern(pkl), reps)]
+            row["ms"] = statistics.median(
+                [time_ms(torch, lambda: kern(pk), reps) for _ in range(2)])
+            load_ms.append(time_ms(torch, lambda: kern(pkl), reps))
+            row["load_form_ms"] = load_ms
+
+            # the two-pass route (sddmm, then spmm with its output)
+            def two():
+                return fusedmm_cuda(*pk, X, Y, row_tile=rt, m=m,
+                                    r_tile=r // 2)
+            ck.equal_all(got, two(), "rmat fusedmm bulk == two-pass")
+            if wrap.last_form != "two_pass":
+                raise AssertionError("rmat fusedmm: r_tile < r kept the "
+                                     "single pass")
+            row["two_pass_ms"] = time_ms(torch, two, reps)
+        else:
+            row["ms"] = time_ms(torch, lambda: kern(pk), reps)
+        del got
+        once = _bound(torch, S, r, m, name)[-1]
+        row["bytes_once"] = once
+        row["tb_per_s"] = once / row["ms"] / 1e9
+        row["ceiling_ms"] = once / gbps / 1e6
+        out[name] = row
+    # how uneven the windows are: entries per window
+    off = _build.window_offsets(S.tile_base, rt, m // rt)
+    per_win = (off[1:] - off[:-1]).double() * S.nz_block
+    live = per_win[per_win > 0]
+    stats = {"scale": scale, "setup_s": setup_s,
+             "nnz": int((S.vals != 0).sum()), "nblocks": S.nblocks,
+             "windows": m // rt, "empty_windows": int((per_win == 0).sum()),
+             "entries_per_window_mean": float(live.mean()),
+             "entries_per_window_max": float(live.max()),
+             "kernels": out}
+    del S, X, Y, pk, pkl
+    torch.cuda.empty_cache()
+    return stats
 
 
 def stream_read_gb_per_s(torch, reps: int) -> float:
@@ -639,6 +775,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rmat-scale", type=int, default=21)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -658,7 +795,8 @@ def main(argv=None) -> int:
         elif ph == "kernels":
             phase_kernels(torch)
         elif ph == "main":
-            kernels = phase_main(torch, args.scale, args.reps)
+            kernels = phase_main(torch, args.scale, args.reps,
+                                 args.rmat_scale)
         elif ph == "stacked":
             phase_stacked(torch)
         else:

@@ -127,34 +127,43 @@ DTYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel forms of the C interface (``csrc/bulk.cuh``)
 FORM_FLAG = {"load": 0, "bulk": 1}
-#: bulk-form limits, as ``csrc/bulk.cuh`` sets them
+#: routes the fused kernel reports (``csrc/fusedmm.cu``)
+FUSED_ROUTE = {0: "load", 1: "bulk", 2: "two_pass"}
+#: bulk-form limits, as ``csrc/bulk.cuh`` and ``csrc/fusedmm.cu`` set them
 SPMM_MAX_ROW_TILE = 512           # float32 accumulator of 32 columns
-SDDMM_MAX_ROW_BYTES = 1024        # one staged row of B
-SDDMM_MAX_A_WINDOW = 64 * 1024    # one staged window of A
+MAX_ROW_BYTES = 1024              # one staged row of B (sddmm, fusedmm)
+MAX_A_WINDOW = 64 * 1024          # one staged window of A (sddmm, fusedmm)
+FUSED_MAX_ACC = 64 * 1024         # float32 window accumulator (fusedmm)
 
 
 def choose_form(kind: str, *, r: int, k: int, row_tile: int, dense_dtype,
                 vals_dtype, addresses, a_rows: int | None = None,
                 n_windows: int | None = None) -> str:
-    """The form of the ``kind`` ("spmm" or "sddmm") kernel for a shape.
+    """The form of the ``kind`` ("spmm", "sddmm" or "fusedmm") kernel
+    for a shape.
 
     "bulk" moves rows, index runs and A's windows with bulk asynchronous
     copies, which take whole 16-byte units at 16-byte aligned addresses:
     rows of ``r * itemsize % 16 == 0`` bytes, ``k`` entries a multiple of
     16 bytes of every index and value array, and every base in
-    ``addresses`` aligned.  SDDMM's bulk form also stages a whole window
-    of A and whole rows of B, within the limits above, and needs A's rows
-    to be exactly ``n_windows`` windows.  Anything else takes "load".
+    ``addresses`` aligned.  The bulk forms of SDDMM and FusedMM also stage
+    a whole window of A and whole rows of B, within the limits above, and
+    need A's rows to be exactly ``n_windows`` windows; FusedMM's also
+    keeps the window's float32 accumulator in shared memory.  Anything
+    else takes "load" (FusedMM's two-pass route is decided apart from
+    this, by ``r_tile`` and the row width).
     """
     dsz, vsz = dense_dtype.itemsize, vals_dtype.itemsize
     ok = (r > 0 and (r * dsz) % 16 == 0 and (k * 4) % 16 == 0
           and (k * vsz) % 16 == 0 and all(a % 16 == 0 for a in addresses))
     if kind == "spmm":
         ok = ok and row_tile <= SPMM_MAX_ROW_TILE
-    elif kind == "sddmm":
-        ok = (ok and r * dsz <= SDDMM_MAX_ROW_BYTES
-              and row_tile * r * dsz <= SDDMM_MAX_A_WINDOW
+    elif kind in ("sddmm", "fusedmm"):
+        ok = (ok and r * dsz <= MAX_ROW_BYTES
+              and row_tile * r * dsz <= MAX_A_WINDOW
               and a_rows == n_windows * row_tile)
+        if kind == "fusedmm":
+            ok = ok and row_tile * r * 4 <= FUSED_MAX_ACC
     else:
         raise ValueError(f"no kernel forms for {kind!r}")
     return "bulk" if ok else "load"
