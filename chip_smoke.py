@@ -27,8 +27,9 @@ Phases, each printing one JSON line:
            load form (timed in turns: load, bulk, bulk, load) at the main
            path's shapes, its rate with B counted once against the card's
            streaming read rate (a sum over 4 GiB), embedding_bag as
-           SpMM's second yardstick, each kernel with bfloat16 operands,
-           fused == sddmm then spmm bitwise; then the three kernels'
+           SpMM's second yardstick, each kernel with bfloat16 operands
+           (against its load form, bitwise and timed in turns), fused
+           == sddmm then spmm bitwise; then the three kernels'
            bulk forms and FusedMM's load form on a power-law matrix
            (R-MAT, 16 edges a row, permuted, as
            benchmarks/bench_fig8_strong_scaling.py draws it, at scale 21:
@@ -482,8 +483,8 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
     wrappers = {"spmm": spmm_cuda, "sddmm": sddmm_cuda,
                 "fusedmm": fusedmm_cuda}
     # (name, source, TPU kernel, kernel, plain, library call, load form,
-    #  kernel and plain with bfloat16 dense operands (vals float32), the
-    #  tolerances in float32 and in bfloat16)
+    #  kernel, its load form and plain with bfloat16 dense operands (vals
+    #  float32), the tolerances in float32 and in bfloat16)
     specs = [
         ("spmm", "src/repro_torch/kernels/csrc/spmm.cu",
          "src/repro/kernels/spmm.py:52",
@@ -492,6 +493,7 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
          lambda: torch.sparse.mm(csr, Y),
          lambda: spmm_cuda(*pkl, Y, row_tile=rt, m=m),
          lambda: spmm_cuda(*pk, Yb, row_tile=rt, m=m),
+         lambda: spmm_cuda(*pkl, Yb, row_tile=rt, m=m),
          lambda: spmm_plain(*pk, Yb, row_tile=rt, m=m), 2e-3, 0.15),
         ("sddmm", "src/repro_torch/kernels/csrc/sddmm.cu",
          "src/repro/kernels/sddmm.py:49",
@@ -501,6 +503,7 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
          .values() * vals_dev,
          lambda: sddmm_cuda(*pkl, X, Y, row_tile=rt),
          lambda: sddmm_cuda(*pk, Xb, Yb, row_tile=rt),
+         lambda: sddmm_cuda(*pkl, Xb, Yb, row_tile=rt),
          lambda: sddmm_plain(*pk, Xb, Yb, row_tile=rt), 2e-5,
          0.12 * np.sqrt(r) / 8),
         ("fusedmm", "src/repro_torch/kernels/csrc/fusedmm.cu",
@@ -510,9 +513,10 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
          None,
          lambda: fusedmm_cuda(*pkl, X, Y, row_tile=rt, m=m),
          lambda: fusedmm_cuda(*pk, Xb, Yb, row_tile=rt, m=m),
+         lambda: fusedmm_cuda(*pkl, Xb, Yb, row_tile=rt, m=m),
          lambda: fusedmm_plain(*pk, Xb, Yb, row_tile=rt, m=m), 2e-3, 0.5),
     ]
-    for (name, src, repl, kern, plain, lib, load, kb, plain_b, tol,
+    for (name, src, repl, kern, plain, lib, load, kb, kbl, plain_b, tol,
          tol_b) in specs:
         wrap = wrappers[name]
         got = kern()
@@ -555,12 +559,27 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
                      "embedding_bag == spmm")
             row["library2"] = "embedding_bag(mode='sum', weights=vals)"
             row["library2_ms"] = time_ms(torch, lib2, reps)
-        # bfloat16 dense operands at the same shapes (vals float32)
-        ck.close_all(kb(), plain_b(), tol_b, f"{name} bf16")
+        # bfloat16 dense operands at the same shapes (vals float32): the
+        # form the wrapper picks against the load form, bit for bit and
+        # timed in turns (load, picked, picked, load)
+        got = kb()
         row["bf16_form"] = wrap.last_form
-        row["bf16_ms"] = time_ms(torch, kb, reps)
-        row["bf16_bytes_once"] = _bound(torch, S, r, m, name, isz=2)[-1]
-        row["bf16_tb_per_s"] = row["bf16_bytes_once"] / row["bf16_ms"] / 1e9
+        ck.close_all(got, plain_b(), tol_b, f"{name} bf16")
+        ck.equal_all(got, kbl(), f"{name} bf16 {row['bf16_form']} == load, "
+                     f"full size")
+        if wrap.last_form != "load":
+            raise AssertionError(f"{name} bf16: unaligned vals kept bulk")
+        del got
+        load_ms = [time_ms(torch, kbl, reps)]
+        row["bf16_ms"] = statistics.median([time_ms(torch, kb, reps),
+                                            time_ms(torch, kb, reps)])
+        load_ms.append(time_ms(torch, kbl, reps))
+        once = _bound(torch, S, r, m, name, isz=2)[-1]
+        row["bf16_bytes_once"] = once
+        row["bf16_tb_per_s"] = once / row["bf16_ms"] / 1e9
+        row["bf16_load_form_ms"] = load_ms
+        row["bf16_load_form_tb_per_s"] = (
+            once / statistics.median(load_ms) / 1e9)
         kernels.append(row)
         torch.cuda.empty_cache()
     del Xb, Yb

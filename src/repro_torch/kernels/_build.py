@@ -132,7 +132,7 @@ FUSED_ROUTE = {0: "load", 1: "bulk", 2: "two_pass"}
 #: bulk-form limits, as ``csrc/bulk.cuh`` and ``csrc/fusedmm.cu`` set them
 SPMM_MAX_ROW_TILE = 512           # float32 accumulator of 32 columns
 MAX_ROW_BYTES = 1024              # one staged row of B (sddmm, fusedmm)
-MAX_A_WINDOW = 64 * 1024          # one staged window of A (sddmm, fusedmm)
+SDDMM_MAX_A_WINDOW = 64 * 1024    # one staged window of A (sddmm)
 FUSED_MAX_ACC = 64 * 1024         # float32 window accumulator (fusedmm)
 
 
@@ -147,23 +147,25 @@ def choose_form(kind: str, *, r: int, k: int, row_tile: int, dense_dtype,
     rows of ``r * itemsize % 16 == 0`` bytes, ``k`` entries a multiple of
     16 bytes of every index and value array, and every base in
     ``addresses`` aligned.  The bulk forms of SDDMM and FusedMM also stage
-    a whole window of A and whole rows of B, within the limits above, and
-    need A's rows to be exactly ``n_windows`` windows; FusedMM's also
-    keeps the window's float32 accumulator in shared memory.  Anything
-    else takes "load" (FusedMM's two-pass route is decided apart from
-    this, by ``r_tile`` and the row width).
+    whole rows of B, within the limit above.  SDDMM's stages a whole
+    window of A too, and needs A's rows to be exactly ``n_windows``
+    windows; FusedMM's reads A's rows through the cache and keeps the
+    window's float32 accumulator in shared memory.  Anything else takes
+    "load" (FusedMM's two-pass route is decided apart from this, by
+    ``r_tile`` and the row width).
     """
     dsz, vsz = dense_dtype.itemsize, vals_dtype.itemsize
     ok = (r > 0 and (r * dsz) % 16 == 0 and (k * 4) % 16 == 0
           and (k * vsz) % 16 == 0 and all(a % 16 == 0 for a in addresses))
     if kind == "spmm":
         ok = ok and row_tile <= SPMM_MAX_ROW_TILE
-    elif kind in ("sddmm", "fusedmm"):
+    elif kind == "sddmm":
         ok = (ok and r * dsz <= MAX_ROW_BYTES
-              and row_tile * r * dsz <= MAX_A_WINDOW
+              and row_tile * r * dsz <= SDDMM_MAX_A_WINDOW
               and a_rows == n_windows * row_tile)
-        if kind == "fusedmm":
-            ok = ok and row_tile * r * 4 <= FUSED_MAX_ACC
+    elif kind == "fusedmm":
+        ok = (ok and r * dsz <= MAX_ROW_BYTES
+              and row_tile * r * 4 <= FUSED_MAX_ACC)
     else:
         raise ValueError(f"no kernel forms for {kind!r}")
     return "bulk" if ok else "load"

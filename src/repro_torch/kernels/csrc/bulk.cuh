@@ -1,7 +1,7 @@
 // The bulk form of the SpMM and SDDMM kernels, and the launchers that
 // choose between it and the load form of common.cuh.  The producer side
-// (index chunks, A windows and B rows staged with bulk copies) is shared
-// with the fused kernel's bulk form in fusedmm.cu.
+// (index chunks and B rows staged with bulk copies) is shared with the
+// fused kernel's bulk form in fusedmm.cu.
 //
 // Both bulk kernels are persistent: about (SMs x blocks per SM) thread
 // blocks, block i taking items i, i + gridDim.x, ... in that fixed order
@@ -129,13 +129,12 @@ struct Layout {
   int idx_off, a_slot, a_off, ring_off, acc_off, bytes;
 };
 
-// `a_slots` windows of A of `a_bytes` each (0, 1 or 2); a ring of at most
-// `ring_bytes`; `multiple`: the stage count is a multiple of it (each ring
-// slot of the sddmm kernel always goes to the same consumer warp).
+// `multiple`: the stage count is a multiple of it (each ring slot of the
+// sddmm kernel always goes to the same consumer warp); a ring of at most
+// `ring_bytes`.
 __host__ __device__ inline Layout bulk_layout(int vals_size, int group,
                                               int row_bytes, int a_bytes,
-                                              int a_slots, int acc_bytes,
-                                              int multiple,
+                                              int acc_bytes, int multiple,
                                               int ring_bytes = kRingBytes) {
   Layout L;
   int st = ring_bytes / (group * row_bytes);
@@ -146,7 +145,7 @@ __host__ __device__ inline Layout bulk_layout(int vals_size, int group,
   L.idx_off = kBarBytes;
   L.a_slot = align128(a_bytes);
   L.a_off = L.idx_off + 2 * L.idx_slot;
-  L.ring_off = L.a_off + a_slots * L.a_slot;
+  L.ring_off = L.a_off + 2 * L.a_slot;
   L.acc_off = L.ring_off + align128(L.stages * group * row_bytes);
   L.bytes = L.acc_off + align128(acc_bytes);
   return L;
@@ -189,22 +188,15 @@ struct ChunkSeq {
   }
 };
 
-// Stages the producer's index chunks (and A's windows into kASlots
-// slots, none for kASlots = 0) one chunk ahead of the chunk whose B rows
-// it issues.
-template <typename TV, typename TD, int kASlots>
+// Stages the producer's index chunks (and, kA, A's windows) one chunk
+// ahead of the chunk whose B rows it issues.
+template <typename TV, typename TD, bool kA>
 struct IndexStager {
   ChunkSeq seq;
   int jp = 0, ap = 0;   // index chunks and A windows staged
 
   __device__ IndexStager(const int64_t* off, int n_items, int nch, int k)
       : seq(off, n_items, nch, k) {}
-
-  // Whether the next chunk opens an item (and so, kASlots > 0, stages
-  // that item's window of A).
-  __device__ __forceinline__ bool opens_item() const {
-    return seq.e >= seq.e_hi;
-  }
 
   // Lane 0 copies the next chunk into its slot once the slot is free.
   __device__ __forceinline__ void next(
@@ -225,30 +217,26 @@ struct IndexStager {
       bulk_g2s(slot + kStageIdx * 4, cols + ce, cn * 4, bar + kIdxFull + s);
       bulk_g2s(slot + kStageIdx * 8, vals + ce, cn * (int)sizeof(TV),
                bar + kIdxFull + s);
-      if (kASlots > 0 && first) {
-        const int as = ap % kASlots;
+      if (kA && first) {
+        const int as = ap & 1;
         const uint32_t a_bytes = (uint32_t)row_tile * r * sizeof(TD);
-        mbar_wait(bar + kAEmpty + as,
-                  (uint32_t)((ap / kASlots) & 1) ^ 1u);
+        mbar_wait(bar + kAEmpty + as, (uint32_t)((ap >> 1) & 1) ^ 1u);
         mbar_expect_tx(bar + kAFull + as, a_bytes);
         bulk_g2s(smem + L.a_off + as * L.a_slot,
                  A + (int64_t)citem * row_tile * r, a_bytes,
                  bar + kAFull + as);
       }
     }
-    if (kASlots > 0 && first) ++ap;
+    if (kA && first) ++ap;
     ++jp;
   }
 };
 
 // The producer warp.  `chunk` columns per item (r for sddmm, nch = 1),
-// ring rows `row_stride` elements apart; kASlots > 0 stages A's windows
-// too.  Lanes 0 .. g-1 issue one bulk copy each, a stage's rows at once;
-// the stage's full barrier expects lane 0's arrival and the stage's
-// bytes.  With a single A slot a chunk that opens a window is staged only
-// once this chunk's rows are all issued: staging its A waits for the
-// consumers to finish the window before, which needs those rows.
-template <typename TV, typename TD, int kASlots, int group>
+// ring rows `row_stride` elements apart; kA stages A's windows too.  Lanes
+// 0 .. g-1 issue one bulk copy each, a stage's rows at once; the stage's
+// full barrier expects lane 0's arrival and the stage's bytes.
+template <typename TV, typename TD, bool kA, int group>
 __device__ __forceinline__ void produce(
     const int64_t* off, const int32_t* rows_local, const int32_t* cols,
     const TV* vals, const TD* A, const TD* B, int n_items, int nch,
@@ -258,7 +246,7 @@ __device__ __forceinline__ void produce(
   TD* ring = reinterpret_cast<TD*>(smem + L.ring_off);
   const int lane = threadIdx.x & 31;
   ChunkSeq use(off, n_items, nch, k);
-  IndexStager<TV, TD, kASlots> pre(off, n_items, nch, k);
+  IndexStager<TV, TD, kA> pre(off, n_items, nch, k);
   pre.next(rows_local, cols, vals, A, row_tile, r, L, smem, lane);
   int js = 0, rs = 0;
   uint32_t jph = 0, rph = 0;
@@ -273,7 +261,6 @@ __device__ __forceinline__ void produce(
     const int width = min(chunk, r - c0);
     const uint32_t row_bytes = (uint32_t)width * sizeof(TD);
     int ns = 0;
-    bool staged = false;
     for (int g0 = 0; g0 < cn; g0 += group) {
       mbar_wait(bar + kRingEmpty + rs, rph ^ 1u);
       const int g = min(group, cn - g0);
@@ -287,12 +274,10 @@ __device__ __forceinline__ void produce(
       if (++rs == L.stages) { rs = 0; rph ^= 1u; }
       // after one ring's worth of this chunk every earlier chunk is
       // consumed, so its slot takes the next chunk without a long wait
-      if (++ns == L.stages && (kASlots != 1 || !pre.opens_item())) {
+      if (++ns == L.stages)
         pre.next(rows_local, cols, vals, A, row_tile, r, L, smem, lane);
-        staged = true;
-      }
     }
-    if (!staged)
+    if (ns < L.stages)
       pre.next(rows_local, cols, vals, A, row_tile, r, L, smem, lane);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar + kIdxEmpty + js);
@@ -336,14 +321,14 @@ spmm_bulk_kernel(const int64_t* __restrict__ off,
   extern __shared__ __align__(128) unsigned char bulk_smem[];
   unsigned char* smem = bulk_smem;
   const Layout L = bulk_layout(sizeof(TV), kSpmmGroup, chunk * sizeof(TD),
-                               0, 0, row_tile * chunk * 4, 1);
+                               0, row_tile * chunk * 4, 1);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   const int nch = (r + chunk - 1) / chunk;
   const int n_items = n_windows * nch;
   const int n_cons = chunk / 32;
   init_bars(bar, L.stages, 1 + n_cons, 1, n_cons);
   if (threadIdx.x < 32) {
-    produce<TV, TD, 0, kSpmmGroup>(off, rows_local, cols, vals, nullptr,
+    produce<TV, TD, false, kSpmmGroup>(off, rows_local, cols, vals, nullptr,
                                        B, n_items, nch, chunk, chunk, k,
                                        row_tile, r, L, smem);
     return;
@@ -424,12 +409,12 @@ __device__ __forceinline__ void sddmm_bulk(
     float* __restrict__ out, int n_windows, int k, int row_tile, int r,
     unsigned char* smem) {
   const Layout L = bulk_layout(sizeof(TV), kSddmmGroup, r * sizeof(TD),
-                               row_tile * r * sizeof(TD), 2, 0,
+                               row_tile * r * sizeof(TD), 0,
                                kSddmmConsumers);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   init_bars(bar, L.stages, 1 + kSddmmConsumers, kSddmmConsumers, 1);
   if (threadIdx.x < 32) {
-    produce<TV, TD, 2, kSddmmGroup>(off, rows_local, cols, vals, A, B,
+    produce<TV, TD, true, kSddmmGroup>(off, rows_local, cols, vals, A, B,
                                        n_windows, 1, r, r, k, row_tile, r,
                                        L, smem);
     return;
@@ -595,7 +580,7 @@ int launch_spmm(int form, const int64_t* off, const int32_t* rl,
       (int64_t)row_tile * chunk * 4 > kMaxSpmmAcc || n_items > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   const Layout L = bulk_layout(sizeof(TV), kSpmmGroup, chunk * sizeof(TD),
-                               0, 0, row_tile * chunk * 4, 1);
+                               0, row_tile * chunk * 4, 1);
   const int threads = 32 + chunk;
   unsigned grid = 0;
   int err = persistent_grid(spmm_bulk_kernel<TV, TD>, threads, L.bytes,
@@ -624,7 +609,7 @@ int launch_sddmm(int form, const int32_t* tb, const int64_t* off,
     return (int)cudaErrorInvalidValue;
   if (n_windows == 0) return 0;
   const Layout L = bulk_layout(sizeof(TV), kSddmmGroup, r * sizeof(TD),
-                               (int)a_bytes, 2, 0, kSddmmConsumers);
+                               (int)a_bytes, 0, kSddmmConsumers);
   void (*kernel)(const int64_t*, const int32_t*, const int32_t*, const TV*,
                  const TD*, const TD*, float*, int, int, int, int);
   if constexpr (sizeof(TD) == 4)

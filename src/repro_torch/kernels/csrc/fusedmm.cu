@@ -16,8 +16,9 @@
 //             ring of mbarrier-tracked stages.  Each consumer warp owns
 //             rows of the window (row i to warp i % kFusedWarps) and
 //             takes its entries of every stage as the load form takes a
-//             row's: the sampled dot from the staged B row and A's row,
-//             then the scatter of coeff * B_row from the same registers.
+//             row's: the sampled dot from the staged B row and A's row
+//             (read through the cache), then the scatter of coeff * B_row
+//             from the same registers.
 //             The running row stays in registers, the window's other
 //             rows in a float32 accumulator in shared memory; each window
 //             is written once, zeros included.  No warp waits for another
@@ -47,38 +48,18 @@ constexpr int kFusedChunk = 1024;   // window nonzeros staged at a time
 constexpr int kTwoPass = 2;         // the route reported besides the forms
 
 // Sizes of the bulk form, chosen by a sweep on the H100 at the main
-// path's shapes (benchmarks/bench_torch_fusedmm_sweep.py, which sets each
-// at build time with -D; its times are in PERF.md).  The rate rose with
-// B rows in flight an SM: four blocks with 32 KB rings, A's rows read
-// through the cache, matched or beat three blocks that stage A's windows
-// (in one or two slots) with shallower rings; 16 rows a stage tied, and
-// 2 or 8 consumer warps were slower.
-#ifndef RT_FUSED_GROUP
-#define RT_FUSED_GROUP 8
-#endif
-#ifndef RT_FUSED_WARPS
-#define RT_FUSED_WARPS 4
-#endif
-#ifndef RT_FUSED_RING_KB
-#define RT_FUSED_RING_KB 32
-#endif
-#ifndef RT_FUSED_A_SLOTS
-#define RT_FUSED_A_SLOTS 0
-#endif
-#ifndef RT_FUSED_MIN_BLOCKS
-#define RT_FUSED_MIN_BLOCKS 4
-#endif
-constexpr int kFusedGroup = RT_FUSED_GROUP;          // B rows per stage
-constexpr int kFusedWarps = RT_FUSED_WARPS;          // consumer warps
-constexpr int kFusedRingBytes = RT_FUSED_RING_KB * 1024;
-// windows of A staged; 0: the consumers read A's rows through the cache
-constexpr int kFusedASlots = RT_FUSED_A_SLOTS;
-// blocks an SM that ptxas leaves registers for
-constexpr int kFusedMinBlocks = RT_FUSED_MIN_BLOCKS;
+// path's shapes (PERF.md).  The rate rose with B rows in flight an SM:
+// four blocks with 32 KB rings, A's rows read through the cache, matched
+// or beat three blocks that stage A's windows (in one or two slots) with
+// shallower rings; 16 rows a stage tied, and 2 or 8 consumer warps were
+// slower.
+constexpr int kFusedGroup = 8;                 // B rows per ring stage
+constexpr int kFusedWarps = 4;                 // consumer warps
+constexpr int kFusedRingBytes = 32 * 1024;     // ring of B rows per CTA
+constexpr int kFusedMinBlocks = 4;             // blocks an SM, for ptxas
 constexpr int kFusedBulkThreads = 32 * (1 + kFusedWarps);
 constexpr int kMaxFusedAcc = 64 * 1024;  // window accumulator of one CTA
 static_assert(kFusedGroup <= 32, "a stage's entries, one a lane");
-static_assert(kFusedASlots >= 0 && kFusedASlots <= 2, "0, 1 or 2 A slots");
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -234,11 +215,11 @@ int launch_rows(const int32_t* tb, const int32_t* rl, const int32_t* cl,
 // return to row 0).  No warp waits for another after set-up.
 // ---------------------------------------------------------------------------
 
-// bulk.cuh's layout for the fused kernel
+// bulk.cuh's layout for the fused kernel: no A windows staged
 __host__ __device__ inline Layout fused_layout(int vals_size, int row_bytes,
-                                               int a_bytes, int acc_bytes) {
-  return bulk_layout(vals_size, kFusedGroup, row_bytes, a_bytes,
-                     kFusedASlots, acc_bytes, 1, kFusedRingBytes);
+                                               int acc_bytes) {
+  return bulk_layout(vals_size, kFusedGroup, row_bytes, 0, acc_bytes, 1,
+                     kFusedRingBytes);
 }
 
 // J = 128-column slices per row (r <= 128 * J)
@@ -255,14 +236,13 @@ fusedmm_bulk_kernel(const int64_t* __restrict__ off,
   extern __shared__ __align__(128) unsigned char bulk_smem[];
   unsigned char* smem = bulk_smem;
   const Layout L = fused_layout(sizeof(TV), r * sizeof(TD),
-                                row_tile * r * sizeof(TD), row_tile * r * 4);
+                                row_tile * r * 4);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   init_bars(bar, L.stages, 1 + C, C, C);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == 0) {
-    produce<TV, TD, kFusedASlots, G>(off, rows_local, cols, vals, A, B,
-                                     n_windows, 1, r, r, k, row_tile, r, L,
-                                     smem);
+    produce<TV, TD, false, G>(off, rows_local, cols, vals, nullptr, B,
+                              n_windows, 1, r, r, k, row_tile, r, L, smem);
     return;
   }
   const int cw = warp - 1;
@@ -277,8 +257,8 @@ fusedmm_bulk_kernel(const int64_t* __restrict__ off,
       if (live[j])
         store4(acc + i * r + 4 * lane + 128 * j,
                make_float4(0.f, 0.f, 0.f, 0.f));
-  int js = 0, rs = 0, as = 0;
-  uint32_t jph = 0, rph = 0, aph = 0;
+  int js = 0, rs = 0;
+  uint32_t jph = 0, rph = 0;
   for (int w = blockIdx.x; w < n_windows; w += gridDim.x) {
     const int64_t e_lo = off[w] * k, e_hi = off[w + 1] * k;
     int cur = -1;
@@ -287,10 +267,6 @@ fusedmm_bulk_kernel(const int64_t* __restrict__ off,
     for (int j = 0; j < J; ++j) a4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (e_lo < e_hi) {
       const TD* s_a = A + (int64_t)w * row_tile * r;
-      if (kFusedASlots > 0) {
-        mbar_wait(bar + kAFull + as, aph);
-        s_a = reinterpret_cast<const TD*>(smem + L.a_off + as * L.a_slot);
-      }
       for (int64_t e = e_lo; e < e_hi; e += kStageIdx) {
         const int cn = e_hi - e < kStageIdx ? (int)(e_hi - e) : kStageIdx;
         mbar_wait(bar + kIdxFull + js, jph);
@@ -379,11 +355,6 @@ fusedmm_bulk_kernel(const int64_t* __restrict__ off,
         if (lane == 0) mbar_arrive(bar + kIdxEmpty + js);
         if (++js == 2) { js = 0; jph ^= 1u; }
       }
-      if (kFusedASlots > 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(bar + kAEmpty + as);
-        if (++as == kFusedASlots) { as = 0; aph ^= 1u; }
-      }
     }
     TD* o = out + (int64_t)w * row_tile * r;
     for (int i = cw; i < row_tile; i += C)
@@ -398,27 +369,13 @@ fusedmm_bulk_kernel(const int64_t* __restrict__ off,
   }
 }
 
-// Blocks an SM of the bulk kernel at these shapes (the occupancy the
-// launcher sizes its grid by).
-template <typename TV, typename TD, int J>
-int fused_bulk_blocks(int row_tile, int r, int* per_sm) {
-  const Layout L = fused_layout(sizeof(TV), r * sizeof(TD),
-                                row_tile * r * sizeof(TD), row_tile * r * 4);
-  cudaError_t err = cudaFuncSetAttribute(
-      fusedmm_bulk_kernel<TV, TD, J>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, fusedmm_bulk_kernel<TV, TD, J>, kFusedBulkThreads, L.bytes);
-}
-
 template <typename TV, typename TD, int J>
 int launch_fused_bulk(const int64_t* off, const int32_t* rl,
                       const int32_t* cl, const TV* vals, const TD* A,
                       const TD* B, TD* out, float* rvals, int n_windows,
                       int k, int row_tile, int r, cudaStream_t stream) {
   const Layout L = fused_layout(sizeof(TV), r * sizeof(TD),
-                                row_tile * r * sizeof(TD), row_tile * r * 4);
+                                row_tile * r * 4);
   unsigned grid = 0;
   int err = persistent_grid(fusedmm_bulk_kernel<TV, TD, J>,
                             kFusedBulkThreads, L.bytes, n_windows, &grid);
@@ -462,13 +419,11 @@ int launch_fusedmm(int form, const int32_t* tb, const int64_t* off,
     return launch_rows<TV, TD, 4>(tb, rl, cl, vals, A, B, out, rvals, nb, k,
                                   row_tile, m, r, stream);
   }
-  const int64_t a_bytes = (int64_t)row_tile * r * sizeof(TD);
   const int64_t n_windows = m / row_tile;
   if (form != kBulkForm ||
       !bulk_ok(rl, cl, vals, sizeof(TV), B, r, sizeof(TD), k) ||
-      !aligned16(A) || r * (int)sizeof(TD) > kMaxRowBytes ||
-      a_bytes > kMaxAWindow || (int64_t)row_tile * r * 4 > kMaxFusedAcc ||
-      n_windows > INT32_MAX)
+      r * (int)sizeof(TD) > kMaxRowBytes ||
+      (int64_t)row_tile * r * 4 > kMaxFusedAcc || n_windows > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (n_windows == 0) return 0;
   if (slices == 1)
@@ -487,20 +442,6 @@ int launch_fusedmm(int form, const int32_t* tb, const int64_t* off,
 }  // namespace rt
 
 RT_ERROR_STRING_FN
-
-extern "C" int rt_fusedmm_bulk_blocks(int row_tile, int r, int vals_bf16,
-                                      int dense_bf16, int* per_sm) {
-  int err = 0;
-  const int slices = (r + 127) / 128;
-  RT_DISPATCH(vals_bf16, dense_bf16,
-              err = slices == 1
-                        ? rt::fused_bulk_blocks<TV, TD, 1>(row_tile, r, per_sm)
-                    : slices == 2
-                        ? rt::fused_bulk_blocks<TV, TD, 2>(row_tile, r, per_sm)
-                        : rt::fused_bulk_blocks<TV, TD, 4>(row_tile, r,
-                                                           per_sm));
-  return err;
-}
 
 extern "C" int rt_fusedmm(const void* tile_base, const void* off,
                           const void* rows_local, const void* cols,

@@ -67,13 +67,13 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     # the single pass, and the two-pass route's sddmm and spmm launches
     idx = _build.addresses(rows_local, cols)
     shape = dict(r=r, k=k, row_tile=row_tile, dense_dtype=B.dtype)
-    windows = dict(a_rows=A.shape[0], n_windows=m // row_tile)
     form = _build.choose_form(
         "fusedmm", vals_dtype=vals.dtype,
-        addresses=idx + _build.addresses(vals, A, B), **windows, **shape)
+        addresses=idx + _build.addresses(vals, B), **shape)
     sddmm_form = _build.choose_form(
-        "sddmm", vals_dtype=vals.dtype,
-        addresses=idx + _build.addresses(vals, A, B), **windows, **shape)
+        "sddmm", vals_dtype=vals.dtype, a_rows=A.shape[0],
+        n_windows=m // row_tile,
+        addresses=idx + _build.addresses(vals, A, B), **shape)
     spmm_form = _build.choose_form(
         "spmm", vals_dtype=torch.float32,
         addresses=idx + _build.addresses(r_vals, B), **shape)

@@ -147,8 +147,9 @@ FUSED_FORMS = [  # (case, kwargs of _form, the form)
     ("accumulator of 64 KB", dict(r=512, dense=BF16), "bulk"),
     ("accumulator over 64 KB", dict(r=256, dense=BF16, row_tile=128),
      "load"),
-    ("A rows not the windows", dict(a_rows=100, n_windows=3), "load"),
-    ("A rows one window short", dict(a_rows=96, n_windows=4), "load"),
+    # A's rows are read through the cache, not staged by windows
+    ("A rows not the windows", dict(a_rows=100, n_windows=3), "bulk"),
+    ("A rows one window short", dict(a_rows=96, n_windows=4), "bulk"),
 ]
 
 
@@ -160,6 +161,9 @@ def test_fused_form_by_shape(case, kw, want):
         # A's window (64 KB of bf16) and B's rows fit: only the float32
         # accumulator sends this shape to the load form
         assert _form("sddmm", **kw) == "bulk"
+    if case.startswith("A rows"):
+        # only SDDMM's bulk form stages whole windows of A
+        assert _form("sddmm", **kw) == "load"
 
 
 def test_fused_two_pass_route_unchanged_on_cpu():
@@ -362,6 +366,25 @@ def test_cuda_fused_bulk_long_window(cuda, dt):
                                atol=tol)
     torch.testing.assert_close(R.float(), want[1].float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bulk_takes_a_beyond_the_windows(cuda):
+    # A with rows past the last window: SDDMM's bulk form (whole windows
+    # of A staged) refuses it, FusedMM's reads A's rows through the cache
+    pk, A, B = _fused_case(cuda, 256, 192, 128, 6, 32, 32, F32, seed=23)
+    extra = torch.randn((40, 128), device=cuda)
+    A2 = torch.cat([A, extra])
+    out, R = fusedmm_cuda(*pk, A2, B, row_tile=32, m=256)
+    assert fusedmm_cuda.last_form == "bulk"
+    Rs = sddmm_cuda(*pk, A2, B, row_tile=32)
+    assert sddmm_cuda.last_form == "load"
+    assert torch.equal(R, Rs)
+    assert torch.equal(out, spmm_cuda(*pk[:3], Rs, B, row_tile=32, m=256))
+    load = fusedmm_cuda(*pk[:3], _misaligned(pk[3]), A2, B, row_tile=32,
+                        m=256)
+    assert fusedmm_cuda.last_form == "load"
+    assert torch.equal(out, load[0]) and torch.equal(R, load[1])
 
 
 @pytest.mark.cuda
