@@ -34,17 +34,29 @@ Phases, each printing one JSON line:
            (R-MAT, 16 edges a row, permuted, as
            benchmarks/bench_fig8_strong_scaling.py draws it, at scale 21:
            drawing and packing scale 22 on the host takes over 120 s);
+  families the other three families at the main path's width and size
+           (--families-scale, 2^22 by default): make_problem with
+           algorithm="auto" on one card must choose the reference's
+           (s15, "fused", c = 1), timed and checked against
+           backend="ref" and d15's "fused" output; then s15, d25 and
+           s25 at p = 8, c = 2 stacked on the card, every cell each
+           family honours: host seconds to plan, launches and launches
+           per kernel form in one counted pass, each cell against
+           backend="ref", the bitwise cells against the family's
+           sddmm-then-spmm sequence, the collective log against
+           schedule_words, median ms per call and the memory peak;
   stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
-           every op and cell against p = 1, overlap == serial and
+           d15's every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
-           schedule_words model.
+           schedule_words model; then s15, d25 and s25 likewise
+           against d15 at p = 1, with d25's overlap == serial.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
-line.  ``--scale`` shrinks the main path (2^scale rows) and
-``--rmat-scale`` the power-law timing for rehearsals; ``--phases`` picks
-phases.
+line.  ``--scale`` shrinks the main path (2^scale rows),
+``--families-scale`` the families phase and ``--rmat-scale`` the
+power-law timing for rehearsals; ``--phases`` picks phases.
 """
 from __future__ import annotations
 
@@ -63,7 +75,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
-PHASES = ("build", "kernels", "main", "stacked")
+PHASES = ("build", "kernels", "main", "families", "stacked")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -720,6 +732,189 @@ def stream_read_gb_per_s(torch, reps: int) -> float:
     return rate
 
 
+# the cells each family honours, and those its executors hold bitwise
+# equal to the family's sddmm-then-spmm sequence (the rest reassociate)
+FAMILY_CELLS = {"s15": ("none", "reuse", "fused"),
+                "d25": ("none", "reuse", "fused"),
+                "s25": ("none", "reuse")}
+FAMILY_BITWISE = {"s15": {"none", "reuse", "fused"},
+                  "d25": {"none", "fused"},
+                  "s25": {"none", "reuse"}}
+
+
+def family_sequence(prob, X, Y):
+    """The family's unfused two-call sequence on the card: sddmm, then
+    the family's spmm executor on the same pack with R's values in its
+    value slots (what ``with_values(R.values()).spmm(Y)`` computes,
+    without the host round trip).  Returns (out (m, r), R raw)."""
+    import dataclasses
+    from repro_torch.core import d25, s15, s25
+    R = prob.sddmm(X, Y).raw
+    g, alg = prob.grid, prob.alg
+    plan = dataclasses.replace(prob.plan("normal"), vals=R)
+    if alg.name == "s15":
+        slabs = s15.spmma_s15(g, plan, alg.shard_y(prob, Y))
+        return s15.assemble_spmm_out(g, plan, slabs), R
+    if alg.name == "d25":
+        return d25.unshard_rows(g, d25.spmma_d25(
+            g, plan, d25.skew_b(g, Y))), R
+    return s25.unskew_out(g, plan, s25.spmma_s25(
+        g, plan, alg.shard_y(prob, Y))), R
+
+
+def words_match(ck, prob, op, el="none"):
+    """The collective log of the last call equals schedule_words."""
+    model = [(k, w) for (_, _, k, w) in prob.schedule_words(op, el)
+             if k and w]
+    logged = [(k, w) for k, w in prob.last_collectives.words() if w]
+    if model != logged:
+        raise AssertionError(f"{prob.alg.name} {op}/{el}: log {logged} != "
+                             f"model {model}")
+    ck.n += 1
+
+
+def device_breakdown(torch, fn):
+    """Device ms of one call of ``fn`` from torch.profiler's CUDA
+    activity: the port's kernels (names holding spmm, sddmm or fusedmm)
+    and every other kernel or copy; None where the profiler records no
+    device time (then the split is not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ours = other = 0.0
+    launches = 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if not t:
+            continue
+        if any(k in ev.key for k in ("spmm", "sddmm", "fusedmm")):
+            ours += t
+            launches += ev.count
+        else:
+            other += t
+    if ours == 0.0:
+        return None
+    return {"kernels_ms": ours / 1e3, "kernel_launches": launches,
+            "other_device_ms": other / 1e3}
+
+
+def run_family_cells(torch, ck, prob, X, Y, cells, reps, tag):
+    """One counted pass over ``cells`` (launches and forms), then each
+    cell against backend="ref", the bitwise cells against the sequence,
+    and the median ms per call."""
+    from repro_torch.kernels import ops
+    name = prob.alg.name
+    ops.reset_launch_counts()
+    outs = {}
+    for el in cells:
+        outs[el] = prob.fusedmm(X, Y, elision=el)
+        words_match(ck, prob, "fusedmm", el)
+    torch.cuda.synchronize()
+    launches, forms = ops.launch_counts(), ops.form_counts()
+    for k in ("sddmm", "spmm"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{tag}: {k} kernel not launched: "
+                                 f"{launches}")
+    err, ms, split = {}, {}, {}
+    seq = None
+    for el in cells:
+        out, R = outs.pop(el)
+        if tuple(out.shape) != (prob.m, prob.r):
+            raise AssertionError(f"{tag} {el}: out {tuple(out.shape)}")
+        want, wR = prob.fusedmm(X, Y, elision=el, backend="ref")
+        err[el] = max(ck.close(out, want, 2e-3, f"{tag} {el} out"),
+                      ck.close(R.raw, wR.raw, 2e-3, f"{tag} {el} R"))
+        del want, wR
+        if name in FAMILY_BITWISE and el in FAMILY_BITWISE[name]:
+            if seq is None:
+                seq = family_sequence(prob, X, Y)
+            ck.equal(out, seq[0], f"{tag} {el} == sddmm;spmm out")
+            ck.equal(R.raw, seq[1], f"{tag} {el} == sddmm;spmm R")
+        del out, R
+        ms[el] = time_ms(torch, lambda: prob.fusedmm(X, Y, elision=el),
+                         reps)
+        split[el] = device_breakdown(
+            torch, lambda: prob.fusedmm(X, Y, elision=el))
+        torch.cuda.empty_cache()
+    return launches, forms, err, ms, split
+
+
+def phase_families(torch, scale: int, reps: int, full_scale: int):
+    """The three other families on the card at the main path's width:
+    "auto" at p = 1, then s15, d25 and s25 at p = 8, c = 2 stacked."""
+    from repro_torch.core import api
+    ck = Checker(torch)
+    m = n = 1 << scale
+    r, per_row, seed = 128, 16, 0
+    dev = torch.device("cuda")
+    rows, cols, vals = erdos_renyi_on_card(torch, m, n, per_row, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((n, r), generator=g, device="cuda")
+    report = {"phase": "families", "m": m, "n": n, "r": r,
+              "nnz": int(len(vals)),
+              "cut": None if scale == full_scale else
+              f"m = n = 2^{scale}, not 2^{full_scale}: depth only, widths "
+              f"unchanged"}
+
+    # "auto" on one card: the reference's choice, s15 "fused", c = 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    auto = api.make_problem(rows, cols, vals, (m, n), r)
+    choice = (auto.alg.name, auto.resolve_elision("auto"), auto.c)
+    if choice != ("s15", "fused", 1) or auto.p != 1 \
+            or auto.grid.device.type != "cuda":
+        raise AssertionError(f"auto chose {choice} on p={auto.p}")
+    auto.plan("normal")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    launches, forms, err, ms, split = run_family_cells(
+        torch, ck, auto, X, Y, ("fused",), reps, "auto")
+    # against the d15 "fused" cell of the main path
+    d15p = api.make_problem(rows, cols, vals, (m, n), r, algorithm="d15")
+    want, _ = d15p.fusedmm(X, Y, elision="fused")
+    got, _ = auto.fusedmm(X, Y)
+    err["vs_d15_fused"] = ck.close(got, want, 2e-3, "auto vs d15 fused")
+    del d15p, want, got, auto
+    torch.cuda.empty_cache()
+    report["auto"] = {"choice": list(choice), "plan_s": plan_s,
+                      "launches": launches, "forms": forms,
+                      "max_abs_err": err, "ms": ms["fused"],
+                      "device": split["fused"],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    totals = {k: launches[k] for k in launches}
+
+    for name, cells in FAMILY_CELLS.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = api.make_problem(rows, cols, vals, (m, n), r,
+                                algorithm=name, c=2, devices=[dev] * 8)
+        for orient in (("normal", "transpose") if "reuse" in cells
+                       and name == "d25" else ("normal",)):
+            prob.plan(orient)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        launches, forms, err, ms, split = run_family_cells(
+            torch, ck, prob, X, Y, cells, reps, name)
+        for k in launches:
+            totals[k] += launches[k]
+        report[name] = {"p": prob.p, "c": prob.c, "plan_s": plan_s,
+                        "launches": launches, "forms": forms,
+                        "max_abs_err": err, "ms": ms, "device": split,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2**30}
+        del prob
+        torch.cuda.empty_cache()
+    report["checks"] = ck.n
+    emit(report)
+    return totals
+
+
 def phase_stacked(torch):
     from repro_torch.core import api, d15, sparse
     ck = Checker(torch)
@@ -734,25 +929,17 @@ def phase_stacked(torch):
     if (p8.p, p8.c, p8.grid.L) != (8, 2, 4):
         raise AssertionError("stacked grid is not 8 ranks, c = 2")
 
-    def words_match(prob, op, el="none"):
-        model = [(k, w) for (_, _, k, w) in prob.schedule_words(op, el)
-                 if k and w]
-        logged = [(k, w) for k, w in prob.last_collectives.words() if w]
-        if model != logged:
-            raise AssertionError(f"{op}/{el}: log {logged} != model {model}")
-        ck.n += 1
-
     ck.close(torch.from_numpy(p8.sddmm(X, Y).values()),
              torch.from_numpy(p1.sddmm(X, Y).values()), 2e-4,
              "sddmm p8 vs p1")
-    words_match(p8, "sddmm")
+    words_match(ck, p8, "sddmm")
     ck.close(p8.spmm(Y), p1.spmm(Y), 2e-4, "spmm p8 vs p1")
-    words_match(p8, "spmm")
+    words_match(ck, p8, "spmm")
     ck.close(p8.spmm_t(X), p1.spmm_t(X), 2e-4, "spmm_t p8 vs p1")
-    words_match(p8, "spmm_t")
+    words_match(ck, p8, "spmm_t")
     for el in ("none", "reuse", "fused"):
         o8, R8 = p8.fusedmm(X, Y, elision=el)
-        words_match(p8, "fusedmm", el)
+        words_match(ck, p8, "fusedmm", el)
         o1, R1 = p1.fusedmm(X, Y, elision=el)
         ck.close(o8, o1, 2e-3, f"fusedmm {el} p8 vs p1")
         ck.close(torch.from_numpy(R8.values()), torch.from_numpy(R1.values()),
@@ -784,9 +971,70 @@ def phase_stacked(torch):
     for what, fn in pairs:
         for a, b in zip(fn(True), fn(False)):
             ck.equal(a, b, f"{what} overlap == serial")
+    stacked_families(torch, ck, p1, rows, cols, vals, X, Y)
     torch.cuda.synchronize()
     emit({"phase": "stacked", "m": m, "r": r, "p": 8, "c": 2,
-          "checks": ck.n})
+          "families": ["d15"] + list(FAMILY_CELLS), "checks": ck.n})
+
+
+def stacked_families(torch, ck, p1, rows, cols, vals, X, Y):
+    """s15, d25 and s25 at p = 8, c = 2 on the card: every op and cell
+    against d15 at p = 1, the collective log against schedule_words, the
+    bitwise cells against the sequence, and d25's overlap == serial."""
+    from repro_torch.core import api, d25
+    from repro_torch.core.collectives import Stacked
+    m, n, r = p1.m, p1.n, p1.r
+    dev = torch.device("cuda")
+    base = {"sddmm": torch.from_numpy(p1.sddmm(X, Y).values()),
+            "spmm": p1.spmm(Y), "spmm_t": p1.spmm_t(X)}
+    want = p1.fusedmm(X, Y, elision="none")
+    want = (want[0], torch.from_numpy(want[1].values()))
+    for name, cells in FAMILY_CELLS.items():
+        fp = api.make_problem(rows, cols, vals, (m, n), r, algorithm=name,
+                              c=2, devices=[dev] * 8)
+        ck.close(torch.from_numpy(fp.sddmm(X, Y).values()), base["sddmm"],
+                 2e-4, f"{name} sddmm p8 vs d15 p1")
+        words_match(ck, fp, "sddmm")
+        ck.close(fp.spmm(Y), base["spmm"], 2e-4, f"{name} spmm p8")
+        words_match(ck, fp, "spmm")
+        ck.close(fp.spmm_t(X), base["spmm_t"], 2e-4, f"{name} spmm_t p8")
+        words_match(ck, fp, "spmm_t")
+        Xd, Yd = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+        seq = family_sequence(fp, Xd, Yd)
+        for el in cells:
+            o, R = fp.fusedmm(X, Y, elision=el)
+            words_match(ck, fp, "fusedmm", el)
+            ck.close(o, want[0], 2e-3, f"{name} fusedmm {el} p8")
+            ck.close(torch.from_numpy(R.values()), want[1], 2e-3,
+                     f"{name} fusedmm {el} R p8")
+            if el in FAMILY_BITWISE[name]:
+                ck.equal(o, seq[0], f"{name} {el} == sddmm;spmm out")
+                ck.equal(R.raw, seq[1], f"{name} {el} == sddmm;spmm R")
+        if name != "d25":
+            continue
+        g, alg = fp.grid, fp.alg
+        A, B = alg.shard_x(fp, Xd), d25.skew_b(g, Yd)
+        Ay, Bx = alg.shard_x(fp, Yd), d25.skew_b(g, Xd)
+        plan, planr = fp.plan("normal"), fp.plan("transpose")
+        planb = fp.transposed().plan("transpose")
+        runs = [("sddmm", lambda **k: (d25.sddmm_d25(g, plan, A, B, **k),)),
+                ("spmm", lambda **k: (d25.spmma_d25(g, plan, B, **k),)),
+                ("spmm_t", lambda **k: (d25.spmmb_d25(g, planb, A, **k),))]
+        for el, pl, a, b in (("none", plan, A, B), ("reuse", planr, Ay, Bx),
+                             ("fused", plan, A, B)):
+            runs.append((f"fusedmm/{el}", lambda el=el, pl=pl, a=a, b=b,
+                         **k: d25.fusedmm_d25(g, pl, a, b, elision=el,
+                                              **k)))
+        for what, run in runs:
+            outs, logs = [], []
+            for ov in (True, False):
+                coll = Stacked(g)
+                outs.append(run(overlap=ov, coll=coll))
+                logs.append(coll.words())
+            for a, b in zip(*outs):
+                ck.equal(a, b, f"d25 {what} overlap == serial")
+            if logs[0] != logs[1]:
+                raise AssertionError(f"d25 {what}: overlap log != serial")
 
 
 def main(argv=None) -> int:
@@ -795,6 +1043,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rmat-scale", type=int, default=21)
+    ap.add_argument("--families-scale", type=int, default=22)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -806,7 +1055,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    kernels = None
+    kernels, family_launches = None, None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -816,12 +1065,18 @@ def main(argv=None) -> int:
         elif ph == "main":
             kernels = phase_main(torch, args.scale, args.reps,
                                  args.rmat_scale)
+        elif ph == "families":
+            family_launches = phase_families(torch, args.families_scale,
+                                             args.reps, args.scale)
         elif ph == "stacked":
             phase_stacked(torch)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
     if kernels is not None:
+        for row in kernels:
+            row["families_launches"] = (None if family_launches is None
+                                        else family_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

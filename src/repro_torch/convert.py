@@ -2,8 +2,9 @@
 run the *same* pack.
 
 The functions take the reference's objects by duck typing: any object
-with the attributes of ``repro.core.sparse.RowTiledCOO`` or
-``repro.core.d15.PlanD15`` whose arrays ``numpy.asarray`` can read.
+with the attributes of ``repro.core.sparse.RowTiledCOO`` or of a
+family's plan (``repro.core.{d15,s15,d25,s25}.Plan*``) whose arrays
+``numpy.asarray`` can read.
 Nothing here imports the reference or its framework.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import common, costmodel, d15
+from repro_torch.core import common, costmodel, d15, d25, s15, s25
 from repro_torch.core import device as _device
 from repro_torch.core.sparse import RowTiledCOO
 
@@ -41,15 +42,61 @@ def plan_d15_from_numpy(plan, grid) -> d15.PlanD15:
                              f" ranks, grid has ({grid.L}, {grid.c})")
         return arrs
 
-    bm = plan.meta.block_meta
     meta = d15.MetaD15(int(plan.meta.cmA), int(plan.meta.nB),
-                       common.BlockMeta(np.asarray(bm.row_offsets),
-                                        np.asarray(bm.col_offsets),
-                                        tuple(bm.shape)))
-    tiling = costmodel.Tiling(r_tile=int(plan.tiling.r_tile),
-                              blocks_per_step=int(
-                                  plan.tiling.blocks_per_step))
+                       _block_meta(plan))
     return d15.PlanD15(phases("rows_local"), phases("cols"), phases("vals"),
                        phases("tile_base"), int(plan.m), int(plan.n),
                        int(plan.r), int(plan.row_tile), bool(plan.transpose),
-                       tiling, meta)
+                       _tiling(plan), meta)
+
+
+def _block_meta(plan) -> common.BlockMeta:
+    bm = plan.meta.block_meta
+    return common.BlockMeta(np.asarray(bm.row_offsets),
+                            np.asarray(bm.col_offsets), tuple(bm.shape))
+
+
+def _tiling(plan) -> costmodel.Tiling:
+    return costmodel.Tiling(r_tile=int(plan.tiling.r_tile),
+                            blocks_per_step=int(plan.tiling.blocks_per_step))
+
+
+def _pack(plan, grid):
+    """The plan's four stacked arrays on ``grid``'s device, checked
+    against the grid's rank axes."""
+    arrs = [_tensor(getattr(plan, f), grid.device)
+            for f in ("rows_local", "cols", "vals", "tile_base")]
+    if tuple(arrs[0].shape[:grid.ndim]) != tuple(grid.shape):
+        raise ValueError(f"plan is laid out for "
+                         f"{tuple(arrs[0].shape[:grid.ndim])} ranks, grid "
+                         f"has {tuple(grid.shape)}")
+    return arrs
+
+
+def _common(plan):
+    return int(plan.m), int(plan.n), int(plan.r), int(plan.row_tile)
+
+
+def plan_s15_from_numpy(plan, grid) -> s15.PlanS15:
+    """The port's PlanS15 holding the arrays of ``plan`` on ``grid``."""
+    meta = s15.MetaS15(int(plan.meta.mS), int(plan.meta.rc),
+                       _block_meta(plan))
+    return s15.PlanS15(*_pack(plan, grid), *_common(plan), _tiling(plan),
+                       meta)
+
+
+def plan_d25_from_numpy(plan, grid) -> d25.PlanD25:
+    """The port's PlanD25 holding the arrays of ``plan`` on ``grid``."""
+    mt = plan.meta
+    meta = d25.MetaD25(int(mt.mS), int(mt.nS), int(mt.mA), int(mt.rW),
+                       _block_meta(plan))
+    return d25.PlanD25(*_pack(plan, grid), *_common(plan),
+                       bool(plan.transpose), _tiling(plan), meta)
+
+
+def plan_s25_from_numpy(plan, grid) -> s25.PlanS25:
+    """The port's PlanS25 holding the arrays of ``plan`` on ``grid``."""
+    mt = plan.meta
+    meta = s25.MetaS25(int(mt.mS), int(mt.nS), int(mt.rc), _block_meta(plan))
+    return s25.PlanS25(*_pack(plan, grid), *_common(plan), _tiling(plan),
+                       meta)

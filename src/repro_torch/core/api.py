@@ -1,9 +1,10 @@
 """Unified distributed-algorithm API: Algorithm registry, DistProblem,
 Session (paper §V + §VI-E applications).
 
-Port of ``repro.core.api``, d15 slice: the registry holds the 1.5D
-dense-shifting family only (s15, d25 and s25 come with later slices), so
-``algorithm="auto"`` ranks the registered families alone.
+Port of ``repro.core.api``: the registry holds all four families of the
+reference (d15, s15, d25, s25), so ``algorithm="auto"`` ranks the same
+(family, elision, c) cells by the same Table-III words and chooses what
+the reference chooses.
 
 * **Algorithm** -- registry entry binding a family's planner and its
   sddmm/spmm/fusedmm executors to a shared signature with *FusedMMA
@@ -14,7 +15,10 @@ dense-shifting family only (s15, d25 and s25 come with later slices), so
   every orientation the chosen strategies need (built lazily).
 * **Session** -- caches the fiber-gathered copy of a dense operand
   across calls, keyed by content; cached calls equal uncached ones bit
-  for bit.
+  for bit.  Each family has its own gathered layout (d15: rows over
+  the layer axis; s15: column slabs over the layer axis; d25: rows over
+  the grid row axis); s25 replicates nothing dense, so a Session changes
+  nothing there.
 
 Dense results come back as torch tensors on the grid's device (the
 reference assembles numpy on the host); sampled results are
@@ -33,18 +37,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel, d15
+from repro_torch.core import costmodel, d15, d25, s15, s25
 from repro_torch.core.collectives import Stacked
-from repro_torch.core.grid import make_grid15
+from repro_torch.core.grid import make_grid15, make_grid25
 
 __all__ = [
     "ALGORITHMS", "Algorithm", "DistProblem", "Session", "SparseResult",
     "make_problem", "sddmm", "spmm", "spmm_t", "fusedmm",
 ]
-
-_LATER = ("the {} family is not ported yet: the registry of this slice "
-          "holds d15 only")
-
 
 # ---------------------------------------------------------------------------
 # Results
@@ -69,7 +69,8 @@ class SparseResult:
     """Sampled (SDDMM-shaped) output in its family's home layout.
 
     ``raw`` keeps the device tensors exactly as the executor returned
-    them (one (L, c, nb_t, k) tensor per phase for d15); ``_triples``
+    them (one (L, c, nb_t, k) tensor per phase for d15, one tensor in
+    the family's home layout for the others); ``_triples``
     assembles the flat global COO view on the host.
     """
     problem: "DistProblem"
@@ -145,6 +146,14 @@ class Algorithm:
     def _words_plan(self, prob, op, elision, session):
         raise NotImplementedError
 
+    def _gathered(self, prob, arr, slot, session):
+        """A replicated-slot operand and whether it is pre-gathered: from
+        the session's cache, else in the shard layout (the executor
+        gathers it)."""
+        if session is not None:
+            return session.replicate(prob, arr, slot), True
+        return self.shard_x(prob, arr), False
+
     def _run(self, prob, call, backend):
         fn, args, kwargs, post = call
         coll = Stacked(prob.grid)
@@ -196,6 +205,19 @@ def _dense(prob, x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
 
+def _sampled(prob, plan, rv) -> SparseResult:
+    """R values ``rv`` in ``plan``'s stacked home layout."""
+    return SparseResult(prob, rv, lambda: plan.meta.block_meta.to_triples(
+        plan.rows_local, plan.cols, rv, plan.tile_base))
+
+
+def _owned(prob, x) -> torch.Tensor:
+    """:func:`_dense`, never aliasing the caller's tensor: what a Session
+    caches must not change when the caller mutates its operand."""
+    full = _dense(prob, x)
+    return full.clone() if isinstance(x, torch.Tensor) else full
+
+
 # ---------------------------------------------------------------------------
 # 1.5D dense shifting
 # ---------------------------------------------------------------------------
@@ -226,9 +248,7 @@ class _D15(Algorithm):
 
     def replicate(self, prob, arr, slot):
         g = prob.grid
-        full = _dense(prob, arr)
-        if isinstance(arr, torch.Tensor):
-            full = full.clone()     # the cache owns its copy
+        full = _owned(prob, arr)
         lay = full.reshape(g.L, 1, full.shape[0] // g.L, full.shape[1])
         return lay.expand(g.L, g.c, *lay.shape[2:])
 
@@ -244,19 +264,10 @@ class _D15(Algorithm):
 
     def _sddmm_call(self, prob, X, Y, session):
         plan = prob.plan("normal")
-        if session is not None:
-            a, pre = session.replicate(prob, X, "x"), True
-        else:
-            a, pre = self.shard_x(prob, X), False
-
-        def post(rv):
-            return SparseResult(prob, rv,
-                                lambda: plan.meta.block_meta.to_triples(
-                                    plan.rows_local, plan.cols, rv,
-                                    plan.tile_base))
-
+        a, pre = self._gathered(prob, X, "x", session)
         return (d15.sddmm_d15, (prob.grid, plan, a, self.shard_y(prob, Y)),
-                dict(pre_gathered=pre), post)
+                dict(pre_gathered=pre),
+                lambda rv: _sampled(prob, plan, rv))
 
     def _spmm_call(self, prob, Y, vals, session):
         # B shifts and the output reduce-scatters: nothing inbound is
@@ -269,10 +280,7 @@ class _D15(Algorithm):
         # spmmb on S's transpose pack, which is the TRANSPOSED problem's
         # "transpose" orientation; the gather of A is Session-replayable
         plan = prob.transposed().injected_plan("transpose", vals)
-        if session is not None:
-            a, pre = session.replicate(prob, A, "x"), True
-        else:
-            a, pre = self.shard_x(prob, A), False
+        a, pre = self._gathered(prob, A, "x", session)
         return (d15.spmmb_d15, (prob.grid, plan, a),
                 dict(pre_gathered=pre), prob.grid.unstack)
 
@@ -288,19 +296,301 @@ class _D15(Algorithm):
             plan = prob.plan("normal")
             a_host, slot = X, "x"
             b = self.shard_y(prob, Y)
-        if session is not None:
-            a, pre = session.replicate(prob, a_host, slot), True
-        else:
-            a, pre = self.shard_x(prob, a_host), False
+        a, pre = self._gathered(prob, a_host, slot, session)
 
         def post(res):
             out, rvals = res
-            return grid.unstack(out), SparseResult(
-                prob, rvals, lambda: plan.meta.block_meta.to_triples(
-                    plan.rows_local, plan.cols, rvals, plan.tile_base))
+            return grid.unstack(out), _sampled(prob, plan, rvals)
 
         return (d15.fusedmm_d15, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
+
+
+# ---------------------------------------------------------------------------
+# 1.5D sparse shifting
+# ---------------------------------------------------------------------------
+
+def _columns(x: torch.Tensor, n_slabs: int) -> torch.Tensor:
+    """(rows, r) -> (n_slabs, rows, r / n_slabs): slab i holds the i-th
+    run of r / n_slabs columns."""
+    return x.reshape(x.shape[0], n_slabs, -1).transpose(0, 1).contiguous()
+
+
+@register
+class _S15(Algorithm):
+    name = "s15"
+    elisions = ("none", "reuse", "fused")
+    auto_elisions = ("fused", "reuse", "none")
+    _sched_mod = s15
+
+    def make_grid(self, c, devices):
+        return make_grid15(c, devices=devices)
+
+    def make_plan(self, prob, orient):
+        if orient != "normal":
+            raise ValueError("s15 keeps S stationary-by-row: the normal "
+                             "orientation only")
+        return s15.plan_s15(prob.grid, prob.rows, prob.cols, prob.vals,
+                            prob.m, prob.n, prob.r,
+                            row_tile=prob.row_tile, nz_block=prob.nz_block,
+                            comm=prob.comm, compress=prob.compress)
+
+    def min_r_multiple(self, grid):
+        return grid.p
+
+    def shard_x(self, prob, X):
+        # rank (u, v) holds the (u*c + v)-th column slice of width r/p
+        g = prob.grid
+        cols = _columns(_dense(prob, X), g.p)
+        return cols.reshape(g.L, g.c, *cols.shape[1:])
+
+    shard_y = shard_x
+
+    def replicate(self, prob, arr, slot):
+        # the gathered layout: layer u's column slab of width r*c/p,
+        # shared by its fiber
+        g = prob.grid
+        slabs = _columns(_owned(prob, arr), g.L)
+        return slabs[:, None].expand(g.L, g.c, *slabs.shape[1:])
+
+    def _words_plan(self, prob, op, elision, session):
+        pre = session is not None
+        if op == "spmm_t":
+            # A lands in the single-gather (B) slot of the transposed
+            # problem's plan, as in _spmm_t_call
+            return prob.transposed().plan("normal"), (False, pre)
+        if op == "spmm":
+            return prob.plan("normal"), (False, pre)
+        return prob.plan("normal"), (pre, pre)
+
+    def _both(self, prob, X, Y, session):
+        (a, pre_a), (b, pre_b) = (self._gathered(prob, X, "x", session),
+                                  self._gathered(prob, Y, "y", session))
+        return a, b, (pre_a, pre_b)
+
+    def _sddmm_call(self, prob, X, Y, session):
+        plan = prob.plan("normal")
+        a, b, pre = self._both(prob, X, Y, session)
+        return (s15.sddmm_s15, (prob.grid, plan, a, b),
+                dict(pre_gathered=pre),
+                lambda rv: _sampled(prob, plan, rv))
+
+    def _spmm_call(self, prob, Y, vals, session):
+        plan = prob.injected_plan("normal", vals)
+        b, pre = self._gathered(prob, Y, "y", session)
+        return (s15.spmma_s15, (prob.grid, plan, b),
+                dict(pre_gathered=pre),
+                lambda slabs: s15.assemble_spmm_out(prob.grid, plan, slabs))
+
+    def _spmm_t_call(self, prob, A, vals, session):
+        # S stays stationary-by-row, so the transpose runs on the S^T
+        # problem (same grid); its gather of A is Session-replayable
+        tp = prob.transposed()
+        plan = tp.injected_plan("normal", vals)
+        a, pre = self._gathered(tp, A, "x", session)
+        return (s15.spmma_s15, (tp.grid, plan, a), dict(pre_gathered=pre),
+                lambda slabs: s15.assemble_spmm_out(tp.grid, plan, slabs))
+
+    def _fusedmm_call(self, prob, X, Y, elision, session):
+        grid = prob.grid
+        plan = prob.plan("normal")
+        a, b, pre = self._both(prob, X, Y, session)
+
+        def post(res):
+            slabs, rvals = res
+            return (s15.assemble_spmm_out(grid, plan, slabs),
+                    _sampled(prob, plan, rvals))
+
+        return (s15.fusedmm_s15, (grid, plan, a, b),
+                dict(elision=elision, pre_gathered=pre), post)
+
+
+# ---------------------------------------------------------------------------
+# 2.5D dense replicating
+# ---------------------------------------------------------------------------
+
+@register
+class _D25(Algorithm):
+    name = "d25"
+    elisions = ("none", "reuse", "fused")
+    auto_elisions = ("fused", "reuse", "none")
+    _sched_mod = d25
+
+    def make_grid(self, c, devices):
+        return make_grid25(c, devices=devices)
+
+    def make_plan(self, prob, orient):
+        kw = dict(row_tile=prob.row_tile, nz_block=prob.nz_block,
+                  comm=prob.comm, compress=prob.compress)
+        if orient == "normal":
+            return d25.plan_d25(prob.grid, prob.rows, prob.cols, prob.vals,
+                                prob.m, prob.n, prob.r, **kw)
+        return d25.plan_d25(prob.grid, prob.cols, prob.rows, prob.vals,
+                            prob.n, prob.m, prob.r, transpose=True, **kw)
+
+    def min_r_multiple(self, grid):
+        return grid.G
+
+    def shard_x(self, prob, X):
+        # the replicated slot's layout; the shifting operand is skewed
+        # with d25.skew_b at the call sites below
+        return d25.shard_rows(prob.grid, _dense(prob, X))
+
+    shard_y = shard_x
+
+    def replicate(self, prob, arr, slot):
+        return d25.replicate_rows(prob.grid, _owned(prob, arr))
+
+    def _words_plan(self, prob, op, elision, session):
+        pre = session is not None
+        if op == "spmm":
+            return prob.plan("normal"), False   # Cannon-shifts, no gather
+        if op == "spmm_t":
+            return prob.transposed().plan("transpose"), pre
+        if op == "fusedmm" and elision == "reuse":
+            return prob.plan("transpose"), pre
+        return prob.plan("normal"), pre
+
+    def _sddmm_call(self, prob, X, Y, session):
+        plan = prob.plan("normal")
+        a, pre = self._gathered(prob, X, "x", session)
+        return (d25.sddmm_d25,
+                (prob.grid, plan, a, d25.skew_b(prob.grid,
+                                                _dense(prob, Y))),
+                dict(pre_gathered=pre),
+                lambda rv: _sampled(prob, plan, rv))
+
+    def _spmm_call(self, prob, Y, vals, session):
+        # B Cannon-shifts and the output reduce-scatters: no inbound
+        # replication for a session to serve
+        plan = prob.injected_plan("normal", vals)
+        return (d25.spmma_d25,
+                (prob.grid, plan, d25.skew_b(prob.grid, _dense(prob, Y))),
+                {}, lambda out: d25.unshard_rows(prob.grid, out))
+
+    def _spmm_t_call(self, prob, A, vals, session):
+        # the FusedMMB half on S's transpose pack, which is the
+        # TRANSPOSED problem's "transpose" orientation
+        plan = prob.transposed().injected_plan("transpose", vals)
+        a, pre = self._gathered(prob, A, "x", session)
+        return (d25.spmmb_d25, (prob.grid, plan, a),
+                dict(pre_gathered=pre),
+                lambda out: d25.unskew_out(prob.grid, plan, out))
+
+    def _fusedmm_call(self, prob, X, Y, elision, session):
+        grid = prob.grid
+        if elision == "reuse":
+            # FusedMMA(S, X, Y) = FusedMMB(S^T, Y, X)
+            plan = prob.plan("transpose")
+            a_host, slot, b_host = Y, "y", X
+        else:
+            plan = prob.plan("normal")
+            a_host, slot, b_host = X, "x", Y
+        a, pre = self._gathered(prob, a_host, slot, session)
+        b = d25.skew_b(grid, _dense(prob, b_host))
+
+        def post(res):
+            out, rvals = res
+            res_R = _sampled(prob, plan, rvals)
+            if elision == "reuse":
+                return d25.unskew_out(grid, plan, out), res_R
+            return d25.unshard_rows(grid, out), res_R
+
+        return (d25.fusedmm_d25, (grid, plan, a, b),
+                dict(elision=elision, pre_gathered=pre), post)
+
+
+# ---------------------------------------------------------------------------
+# 2.5D sparse replicating
+# ---------------------------------------------------------------------------
+
+@register
+class _S25(Algorithm):
+    name = "s25"
+    # "fused" is structurally impossible here: the cross-fiber partial-sum
+    # reduction separates the SDDMM and SpMM halves, and the stationary S
+    # ships no structure to elide.
+    elisions = ("none", "reuse")
+    auto_elisions = ("reuse", "none")
+    _sched_mod = s25
+
+    def make_grid(self, c, devices):
+        return make_grid25(c, devices=devices)
+
+    def make_plan(self, prob, orient):
+        if orient != "normal":
+            raise ValueError("s25 replicates the structure: the normal "
+                             "orientation only")
+        return s25.plan_s25(prob.grid, prob.rows, prob.cols, prob.vals,
+                            prob.m, prob.n, prob.r,
+                            row_tile=prob.row_tile, nz_block=prob.nz_block,
+                            comm=prob.comm, compress=prob.compress)
+
+    def min_r_multiple(self, grid):
+        return grid.G * grid.c
+
+    def shard_x(self, prob, X):
+        return s25.skew_dense(prob.grid, _dense(prob, X), along="row")
+
+    def shard_y(self, prob, Y):
+        return s25.skew_dense(prob.grid, _dense(prob, Y), along="col")
+
+    # nothing dense is replicated: Session caching changes nothing here
+    def replicate(self, prob, arr, slot):
+        return self.shard_x(prob, arr) if slot == "x" \
+            else self.shard_y(prob, arr)
+
+    @staticmethod
+    def _triples(prob, plan, rv):
+        def triples():
+            G = prob.grid.G
+            full = rv.reshape(G, G, plan.rows_local.shape[3], rv.shape[-1])
+            return plan.meta.block_meta.to_triples(
+                plan.rows_local[:, :, 0], plan.cols[:, :, 0], full,
+                plan.tile_base[:, :, 0])
+        return triples
+
+    def _words_plan(self, prob, op, elision, session):
+        del elision, session            # Session-inert, values-only fiber
+        if op == "spmm_t":
+            return prob.transposed().plan("normal"), False
+        return prob.plan("normal"), False
+
+    def _sddmm_call(self, prob, X, Y, session):
+        # nothing dense is replicated: session accepted and ignored
+        plan = prob.plan("normal")
+        return (s25.sddmm_s25,
+                (prob.grid, plan, self.shard_x(prob, X),
+                 self.shard_y(prob, Y)), {},
+                lambda rv: SparseResult(prob, rv,
+                                        self._triples(prob, plan, rv)))
+
+    def _spmm_call(self, prob, Y, vals, session):
+        plan = prob.injected_plan("normal", vals)
+        return (s25.spmma_s25, (prob.grid, plan, self.shard_y(prob, Y)),
+                {}, lambda out: s25.unskew_out(prob.grid, plan, out))
+
+    def _spmm_t_call(self, prob, A, vals, session):
+        # spmm on the transposed problem (structure re-replicated on the
+        # same grid); no gather for a Session to replay
+        tp = prob.transposed()
+        plan = tp.injected_plan("normal", vals)
+        return (s25.spmma_s25, (tp.grid, plan, self.shard_y(tp, A)), {},
+                lambda out: s25.unskew_out(tp.grid, plan, out))
+
+    def _fusedmm_call(self, prob, X, Y, elision, session):
+        grid = prob.grid
+        plan = prob.plan("normal")
+
+        def post(res):
+            out, rvals = res
+            return (s25.unskew_out(grid, plan, out),
+                    SparseResult(prob, rvals,
+                                 self._triples(prob, plan, rvals)))
+
+        return (s25.fusedmm_s25, (grid, plan, self.shard_x(prob, X),
+                                  self.shard_y(prob, Y)),
+                dict(elision=elision), post)
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +662,13 @@ class DistProblem:
             posvals = np.arange(1, self.nnz + 1, dtype=np.float32)
             tmp = self._derive(vals=posvals)
             pv = self.alg.make_plan(tmp, orient).vals
-            self._posmaps[orient] = tuple(
-                a.cpu().numpy().astype(np.int64) for a in pv)
+
+            def to_idx(a):
+                return a.cpu().numpy().astype(np.int64)
+
+            self._posmaps[orient] = (tuple(to_idx(a) for a in pv)
+                                     if isinstance(pv, tuple) else
+                                     to_idx(pv))
         return self._posmaps[orient]
 
     def injected_plan(self, orient: str, vals=None):
@@ -389,8 +684,13 @@ class DistProblem:
         base = self.plan(orient)
         pos = self._posmap(orient)
         lookup = np.concatenate([np.zeros(1, np.float32), vals])
-        new_vals = tuple(torch.from_numpy(lookup[p]).to(o.device)
-                         for p, o in zip(pos, base.vals))
+
+        def inject(p, old):
+            return torch.from_numpy(lookup[p]).to(old.device)
+
+        new_vals = (tuple(inject(p, o) for p, o in zip(pos, base.vals))
+                    if isinstance(base.vals, tuple) else
+                    inject(pos, base.vals))
         return dataclasses.replace(base, vals=new_vals)
 
     def coo_sort(self):
@@ -594,8 +894,10 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
 
     ``devices=None`` means one CUDA device (raises without one); pass
     ``[torch.device("cpu")] * p`` for p stacked ranks on the CPU.
-    algorithm="auto" ranks the registered families' feasible (family,
-    elision, c) by Table III; a family name pins it.  Only the dense wire
+    algorithm="auto" ranks every feasible (family, elision, c) of the
+    four families by Table III, as the reference does; a family name
+    pins the family and picks its best feasible c (or the caller's
+    ``c``).  Only the dense wire
     format is ported.
     """
     m, n = shape
@@ -612,13 +914,11 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
             "comm='sparse' and compress= are not ported yet; they come "
             "with the comm='sparse' slice")
     if algorithm != "auto" and algorithm not in ALGORITHMS:
-        if algorithm in costmodel.FAMILIES:
-            raise NotImplementedError(_LATER.format(algorithm))
         raise ValueError(f"unknown algorithm {algorithm!r}; registered: "
                          f"{sorted(ALGORITHMS)}")
     grid_devices = list(devices) if devices is not None else None
     p = len(grid_devices) if grid_devices is not None else 1
-    families = tuple(ALGORITHMS) if algorithm == "auto" else (algorithm,)
+    families = costmodel.FAMILIES if algorithm == "auto" else (algorithm,)
     choice = costmodel.choose_algorithm(m=m, n=n, nnz=len(vals), r=r, p=p,
                                         c=c, families=families)
     alg = ALGORITHMS[choice.family]
@@ -654,7 +954,8 @@ def fusedmm(problem: DistProblem, X, Y, elision: str = "auto",
             backend: str | None = None):
     """Distributed FusedMM with FusedMMA semantics,
     ``out = (S * (X @ Y.T)) @ Y``; returns ``(out, SparseResult R)``.
-    d15 honours the elisions none, reuse and fused; "auto" ranks them by
-    the Table-III words (steady-state words with a ``session``)."""
+    d15, s15 and d25 honour the elisions none, reuse and fused, s25 none
+    and reuse; "auto" ranks a family's cells by the Table-III words
+    (steady-state words with a ``session``)."""
     return problem.fusedmm(X, Y, elision=elision, session=session,
                            backend=backend)

@@ -21,6 +21,26 @@ from repro_torch.core.sparse import (RowTiledCOO, clamp_row_tile,
                                      pack_row_tiled_arrays)
 
 
+#: an empty COO block, for (row, col) blocks no nonzero falls in
+EMPTY = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+         np.zeros(0, np.float32))
+
+
+def dense_comm_only(comm: str, compress) -> None:
+    """Refuse the wire formats the port does not have yet."""
+    if comm != "dense" or compress is not None:
+        raise NotImplementedError(
+            "comm='sparse' (support-pruned sends) and compress= are not "
+            "ported yet; they come with the comm='sparse' slice")
+
+
+def put_ranks(a: np.ndarray, grid) -> torch.Tensor:
+    """Per-rank host arrays stacked (p, ...) in rank order -> a tensor
+    with the grid's rank axes in front, on the grid's device."""
+    a = np.ascontiguousarray(a.reshape(*grid.shape, *a.shape[1:]))
+    return torch.from_numpy(a).to(grid.device)
+
+
 def block_partition(rows, cols, vals, row_size, col_size, n_col_blocks):
     """Group nonzeros by (row-block, col-block) in one O(nnz log nnz) pass.
 
@@ -73,6 +93,12 @@ def plan_tiling(tile_base: np.ndarray, *, n_b: int, r: int, k: int,
     nb = tile_base.shape[-1]
     return costmodel.choose_tiling(n_b=n_b, r=r, nb=nb, k=k,
                                    row_tile=row_tile, tile_base=tile_base)
+
+
+def kernel_kwargs(plan, backend) -> dict:
+    """The local kernels' keyword arguments: the plan's static tiling and
+    the caller's backend."""
+    return dict(plan.tiling.kernel_kwargs(), backend=backend)
 
 
 def merge_tilings(tilings) -> costmodel.Tiling:

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import common, costmodel
-from repro_torch.core.collectives import Stacked
+from repro_torch.core.collectives import (Ring, Stacked, acc, on_ranks,
+                                          stacked)
 from repro_torch.core.grid import Grid15
 from repro_torch.kernels import ops
 
@@ -98,10 +99,7 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
     to ``group`` stays feasible.  Only the dense wire format is ported;
     ``comm="sparse"`` comes with a later slice.
     """
-    if comm != "dense" or compress is not None:
-        raise NotImplementedError(
-            "comm='sparse' (support-pruned sends) and compress= are not "
-            "ported yet; they come with the comm='sparse' slice")
+    common.dense_comm_only(comm, compress)
     L, c, p = grid.L, grid.c, grid.p
     if m % p or n % p:
         raise ValueError(f"d15 needs p={p} to divide m={m} and n={n}")
@@ -112,23 +110,16 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
 
     part = common.block_partition(np.asarray(rows), np.asarray(cols),
                                   np.asarray(vals), cmA, nB, p)
-    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
-             np.zeros(0, np.float32))
     rls, cls, vls, tbs, tilings = [], [], [], [], []
     row_off = np.zeros((L, L, c), np.int64)   # (phase, layer, fiber)
     col_off = np.zeros((L, L, c), np.int64)
     n_dense = cmA if transpose else nB        # rows of the gathered/shifted
-    dev = grid.device
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     for t in range(L):                        # dense operand fed to kernels
         blocks = []
         for u in range(L):
             for v in range(c):
                 j = ((u - t) % L) * c + v
-                br, bc, bv = part.get((u, j), empty)
+                br, bc, bv = part.get((u, j), common.EMPTY)
                 if transpose:
                     br, bc = bc, br
                     row_off[t, u, v], col_off[t, u, v] = j * nB, u * cmA
@@ -139,11 +130,10 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
                                                 nz_block, group=group)
         tilings.append(common.plan_tiling(tb, n_b=n_dense, r=r,
                                           k=nz_block, row_tile=row_tile))
-        shp = (L, c) + rl.shape[1:]
-        rls.append(put(rl.reshape(shp)))
-        cls.append(put(cl.reshape(shp)))
-        vls.append(put(vl.reshape(shp)))
-        tbs.append(put(tb.reshape((L, c) + tb.shape[1:])))
+        rls.append(common.put_ranks(rl, grid))
+        cls.append(common.put_ranks(cl, grid))
+        vls.append(common.put_ranks(vl, grid))
+        tbs.append(common.put_ranks(tb, grid))
 
     meta = MetaD15(cmA, nB, common.BlockMeta(
         row_off, col_off, (n, m) if transpose else (m, n)))
@@ -160,69 +150,19 @@ def _coo(plan: PlanD15, t: int, u: int, v: int, vals=None):
                          plan.row_tile)
 
 
-def _stack(grid: Grid15, outs):
-    if grid.p == 1:
-        return outs[0][0][None, None]
-    return torch.stack([torch.stack(row) for row in outs])
-
-
-def _on_ranks(grid: Grid15, fn):
-    """Stacked (L, c, ...) result(s) of ``fn(u, v)`` over every rank."""
-    outs = [[fn(u, v) for v in range(grid.c)] for u in range(grid.L)]
-    if isinstance(outs[0][0], tuple):
-        return tuple(_stack(grid, [[o[i] for o in row] for row in outs])
-                     for i in range(len(outs[0][0])))
-    return _stack(grid, outs)
-
-
-def _acc(total, contrib):
-    """Running sum of per-phase contributions (the first starts it)."""
-    return contrib if total is None else total + contrib
-
-
-class _Ring:
-    """The traveling operand of one round of L phases.
-
-    ``cur`` is the operand of the current phase; :meth:`advance` moves to
-    the next.  At most ``n_shifts`` shifts are issued: L - 1 when the
-    round's final position is dead, L when the operand must come home.
-    ``overlap`` issues each shift one phase ahead (before the kernel that
-    reads the current operand), as the reference's double buffer does.
-    """
-
-    def __init__(self, coll: Stacked, x, n_shifts: int, overlap: bool):
-        self.coll, self.n, self.overlap = coll, n_shifts, overlap
-        self.issued = 0
-        self.cur = x
-        self.nxt = self._shift(x) if overlap else None
-
-    def _shift(self, x):
-        if x is None or self.issued >= self.n:
-            return None
-        self.issued += 1
-        return self.coll.shift(x)
-
-    def advance(self):
-        if self.overlap:
-            self.cur = self.nxt
-            self.nxt = self._shift(self.nxt)
-        else:
-            self.cur = self._shift(self.cur)
-
-
-def _tk(plan: PlanD15, backend):
-    return dict(plan.tiling.kernel_kwargs(), backend=backend)
+def _ring(coll, x, n_shifts, overlap):
+    return Ring(lambda y, k: coll.shift(y), x, n_shifts, overlap)
 
 
 def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
     def one(u, v):
         args = (B_t[u, v], T[u, v]) if swap else (T[u, v], B_t[u, v])
         return ops.sddmm(*args, _coo(plan, t, u, v), **tk).vals
-    return _on_ranks(grid, one)
+    return on_ranks(grid, one)
 
 
 def _spmm_phase(grid, plan, t, vals, D, m, tk):
-    return _on_ranks(grid, lambda u, v: ops.spmm(
+    return on_ranks(grid, lambda u, v: ops.spmm(
         _coo(plan, t, u, v, vals), D[u, v], m=m, **tk))
 
 
@@ -232,7 +172,7 @@ def _sddmm_phases(grid, coll, plan, T, B0, overlap, tk, swap=False,
 
     ``keep_home`` issues the L-th shift, which brings B back home for a
     second round; otherwise the round's final position is dead."""
-    ring = _Ring(coll, B0, grid.L if keep_home else grid.L - 1, overlap)
+    ring = _ring(coll, B0, grid.L if keep_home else grid.L - 1, overlap)
     vals_out = []
     for t in range(grid.L):
         vals_out.append(_sddmm_phase(grid, plan, t, T, ring.cur, swap, tk))
@@ -323,9 +263,6 @@ def resolve_elision(elision: str, transpose: bool) -> str:
 # Unified Algorithm 1: SDDMM / SpMMA / SpMMB
 # ---------------------------------------------------------------------------
 
-def _coll(grid, coll):
-    return coll if coll is not None else Stacked(grid)
-
 
 def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
               pre_gathered: bool = False, *, coll: Stacked | None = None,
@@ -334,22 +271,22 @@ def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
 
     pre_gathered=True: A arrives already fiber-replicated, (L, c, c * m/p,
     r), and the all-gather is skipped."""
-    coll = _coll(grid, coll)
+    coll = stacked(grid, coll)
     T = _gather(coll, A, pre_gathered)                     # (c m/p, r)
     r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap,
-                              _tk(plan, backend))
+                              common.kernel_kwargs(plan, backend))
     return tuple(r_vals)
 
 
 def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
               coll: Stacked | None = None, backend: str | None = None):
     """A = S @ B with A replicated as output, reduce-scattered at the end."""
-    coll = _coll(grid, coll)
-    tk = _tk(plan, backend)
-    ring = _Ring(coll, B, grid.L - 1, overlap)
+    coll = stacked(grid, coll)
+    tk = common.kernel_kwargs(plan, backend)
+    ring = _ring(coll, B, grid.L - 1, overlap)
     T = None
     for t in range(grid.L):
-        T = _acc(T, _spmm_phase(grid, plan, t, None, ring.cur, plan.cmA,
+        T = acc(T, _spmm_phase(grid, plan, t, None, ring.cur, plan.cmA,
                                 tk))
         ring.advance()
     return coll.psum_scatter(T)
@@ -365,8 +302,8 @@ def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
     contribution before the current shift."""
     if not plan.transpose:
         raise ValueError("spmmb_d15 needs a transpose-packed plan")
-    coll = _coll(grid, coll)
-    tk = _tk(plan, backend)
+    coll = stacked(grid, coll)
+    tk = common.kernel_kwargs(plan, backend)
     T = _gather(coll, A, pre_gathered)
     return _traveling_spmm(grid, coll, plan, T, None, overlap, tk)
 
@@ -385,12 +322,12 @@ def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
     if overlap:
         nxt = contrib(0)
         for t in range(L):
-            B_cur = coll.shift(_acc(B_cur, nxt))
+            B_cur = coll.shift(acc(B_cur, nxt))
             if t + 1 < L:
                 nxt = contrib(t + 1)
     else:
         for t in range(L):
-            B_cur = coll.shift(_acc(B_cur, contrib(t)))
+            B_cur = coll.shift(acc(B_cur, contrib(t)))
     return B_cur
 
 
@@ -414,8 +351,8 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     Returns (stacked out, per-phase R vals tuple).
     """
     elision = resolve_elision(elision, plan.transpose)
-    coll = _coll(grid, coll)
-    tk = _tk(plan, backend)
+    coll = stacked(grid, coll)
+    tk = common.kernel_kwargs(plan, backend)
     L = grid.L
 
     if elision == "none":
@@ -424,10 +361,10 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         T = _gather(coll, A, pre_gathered)
         r_vals, B_home = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
                                        keep_home=True)
-        ring = _Ring(coll, B_home, L - 1, overlap)
+        ring = _ring(coll, B_home, L - 1, overlap)
         T2 = None
         for t in range(L):
-            T2 = _acc(T2, _spmm_phase(grid, plan, t, r_vals[t], ring.cur,
+            T2 = acc(T2, _spmm_phase(grid, plan, t, r_vals[t], ring.cur,
                                       plan.cmA, tk))
             ring.advance()
         return coll.psum_scatter(T2), tuple(r_vals)
@@ -446,12 +383,12 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         if plan.transpose:
             raise ValueError("elision='fused' needs a normal-packed plan")
         T = _gather(coll, A, pre_gathered)
-        ring = _Ring(coll, B, L - 1, overlap)
+        ring = _ring(coll, B, L - 1, overlap)
         T2, r_vals = None, []
         for t in range(L):
-            contrib, R_t = _on_ranks(grid, lambda u, v: _fused_local(
+            contrib, R_t = on_ranks(grid, lambda u, v: _fused_local(
                 plan, t, u, v, T, ring.cur, tk))
-            T2 = _acc(T2, contrib)
+            T2 = acc(T2, contrib)
             r_vals.append(R_t)
             ring.advance()
         return coll.psum_scatter(T2), tuple(r_vals)

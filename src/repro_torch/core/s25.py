@@ -1,0 +1,337 @@
+"""2.5D sparse-replicating algorithms (paper §V-D).
+
+Port of ``repro.core.s25`` over the stacked collective layer.
+
+Grid: ("row" = G, "col" = G, "fiber" = c), p = G^2 c.  The sparse matrix
+is STATIONARY and structure-replicated along the fiber; only its VALUES
+move along the fiber (all-gather / reduce-scatter).  Both dense matrices
+propagate within each layer, split into r-chunks of width r/(Gc):
+
+  rank (x, y, z) holds, at phase t, stacked (G, G, c, ...):
+    S block (x, y):            (m/G, n/G)  structure replicated over z (a
+                               broadcast view), values fiber-sharded by
+                               nonzero-block, (nb/c, k)
+    A chunk A[X_x, w_{k_t,z}]: (m/G, r/(Gc))  travels along the col axis
+    B chunk B[Y_y, w_{k_t,z}]: (n/G, r/(Gc))  travels along the row axis
+  with Cannon alignment k_t = (x + y + t) mod G (:func:`skew_dense`).
+
+SDDMM: each phase adds the partial dots over the resident r-chunk into a
+local accumulator; after the round the partials are summed across the
+fiber (reduce-scatter to the home value shards) and scaled by the
+original sample values.  SpMM: output chunks travel along the col axis
+and accumulate R @ B contributions from every column block.  FusedMM
+admits B-chunk reuse ("reuse": the SpMM round replays the B chunks of
+the SDDMM round); local fusion is impossible (the cross-fiber sum
+separates the halves), so "fused" is refused.
+
+Every shift is issued after the kernel that reads the current chunk (the
+serial form of the reference's double buffer), and a shift whose result
+no one reads is not issued, so the collective log equals
+:func:`schedule_words` event for event.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import common, costmodel
+from repro_torch.core.collectives import (Stacked, acc, cannon_ring,
+                                          on_ranks, stacked)
+from repro_torch.core.grid import Grid25
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanS25:
+    rows_local: torch.Tensor   # (G, G, c, nb, k), one block shared over z
+    cols: torch.Tensor         # (G, G, c, nb, k)
+    vals: torch.Tensor         # (G, G, c, nb/c, k), fiber-sharded by block
+    tile_base: torch.Tensor    # (G, G, c, nb)
+    m: int
+    n: int
+    r: int
+    row_tile: int
+    tiling: costmodel.Tiling
+    meta: "MetaS25"
+
+    @property
+    def mS(self):
+        return self.meta.mS
+
+    @property
+    def nS(self):
+        return self.meta.nS
+
+    @property
+    def rc(self):
+        return self.meta.rc
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MetaS25:
+    mS: int   # m/G
+    nS: int   # n/G
+    rc: int   # r/(Gc)
+    block_meta: common.BlockMeta
+
+
+def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
+             row_tile: int = 256, nz_block: int = 256, group: int = 1,
+             comm: str = "dense", compress=None) -> PlanS25:
+    """Pack the stationary S block per layer position (host, amortized).
+    Only the dense wire format is ported."""
+    common.dense_comm_only(comm, compress)
+    G, c = grid.G, grid.c
+    if m % G or n % G or r % (G * c):
+        raise ValueError(f"s25 needs G={G} to divide m={m} and n={n}, and "
+                         f"G*c={G * c} to divide r={r}")
+    mS, nS, rc = m // G, n // G, r // (G * c)
+    row_tile = common.choose_row_tile(mS, row_tile)
+    part = common.block_partition(np.asarray(rows), np.asarray(cols),
+                                  np.asarray(vals), mS, nS, G)
+    blocks = [part.get((x, y), common.EMPTY)
+              for x in range(G) for y in range(G)]
+    rl, cl, vl, tb = common.pack_block_list(blocks, (mS, nS), row_tile,
+                                            nz_block, group=group)
+    nb = rl.shape[1]
+    if nb % c:                       # pad so the value shards split evenly
+        pad = c - nb % c
+        rl = np.pad(rl, ((0, 0), (0, pad), (0, 0)))
+        cl = np.pad(cl, ((0, 0), (0, pad), (0, 0)))
+        vl = np.pad(vl, ((0, 0), (0, pad), (0, 0)))
+        tb = np.pad(tb, ((0, 0), (0, pad)), mode="edge")
+        nb += pad
+    tiling = common.plan_tiling(tb, n_b=nS, r=rc, k=nz_block,
+                                row_tile=row_tile)
+    dev = grid.device
+
+    def shared(a):   # one block per (x, y), the same on every fiber rank
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        t = t.reshape(G, G, 1, *a.shape[1:])
+        return t.expand(G, G, c, *a.shape[1:])
+
+    meta = MetaS25(mS, nS, rc, common.BlockMeta(
+        (np.arange(G) * mS)[:, None].repeat(G, 1),
+        (np.arange(G) * nS)[None, :].repeat(G, 0), (m, n)))
+    vshard = torch.from_numpy(np.ascontiguousarray(
+        vl.reshape(G, G, c, nb // c, vl.shape[-1]))).to(dev)
+    return PlanS25(shared(rl), shared(cl), vshard, shared(tb), m, n, r,
+                   row_tile, tiling, meta)
+
+
+def _skew_index(grid: Grid25, along: str, device):
+    """(row block, r-chunk) of every rank's start chunk."""
+    G, c = grid.G, grid.c
+    x, y, z = (torch.arange(s, device=device) for s in grid.shape)
+    kc = ((x[:, None, None] + y[None, :, None]) % G) * c + z[None, None, :]
+    rows = x[:, None, None] if along == "row" else y[None, :, None]
+    return rows.expand(G, G, c), kc
+
+
+def skew_dense(grid: Grid25, X: torch.Tensor, along: str) -> torch.Tensor:
+    """Pre-skew a dense (rows, r) matrix into Cannon start chunks on its
+    device: (G, G, c, rows/G, r/(Gc)).
+
+    along="row": X = A (rows follow the grid-row coordinate x)
+    along="col": X = B (rows follow the grid-col coordinate y)
+    """
+    G, c = grid.G, grid.c
+    nrows, r = X.shape
+    chunks = X.reshape(G, nrows // G, G * c, r // (G * c)).transpose(1, 2)
+    rows, kc = _skew_index(grid, along, X.device)
+    return chunks[rows, kc]
+
+
+def unskew_out(grid: Grid25, plan: PlanS25, stacked) -> torch.Tensor:
+    """Reassemble A-shaped outputs whose chunks ended in skewed-home
+    spots: out[X_x, w_{k,z}] += stacked[x, y, z] (each chunk once)."""
+    G, c = grid.G, grid.c
+    out = torch.zeros((G, G * c, plan.mS, plan.rc), dtype=stacked.dtype,
+                      device=stacked.device)
+    rows, kc = _skew_index(grid, "row", stacked.device)
+    out.index_put_((rows, kc), stacked, accumulate=True)
+    return out.transpose(1, 2).reshape(plan.m, plan.r)
+
+
+def _coo(plan, rl, cl, vl, tb, x, y, z):
+    return common.coo_of(rl[x, y, z], cl[x, y, z], vl[x, y, z],
+                         tb[x, y, z], (plan.mS, plan.nS), plan.row_tile)
+
+
+def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
+    """Cannon round over r-chunks; returns the fiber-local partial dots
+    (G, G, c, nb, k), B home (None unless ``keep_b``) and the per-phase
+    resident B chunks (replayed by the "reuse" cell)."""
+    G = grid.G
+    rl, cl, tb = plan.rows_local, plan.cols, plan.tile_base
+    ones = torch.ones(rl.shape[-2:], dtype=plan.vals.dtype,
+                      device=rl.device).expand(rl.shape)
+    aring = cannon_ring(coll, A0, "col", G - 1)
+    bring = cannon_ring(coll, B0, "row", G if keep_b else G - 1)
+    partial, bchunks = None, []
+    for t in range(G):
+        A_t, B_t = aring.cur, bring.cur
+        bchunks.append(B_t)
+        partial = acc(partial, on_ranks(grid, lambda x, y, z: ops.sddmm(
+            A_t[x, y, z], B_t[x, y, z], _coo(plan, rl, cl, ones, tb, x, y, z),
+            **tk).vals))
+        aring.advance()
+        bring.advance()
+    return partial, bring.cur, bchunks
+
+
+def _spmm_round(grid, coll, plan, vals, B0, tk, start=0, bchunks=None):
+    """Cannon round for SpMM: the output chunk travels along col and
+    accumulates (every hop live); B travels along row (final position
+    dead) unless ``bchunks`` replays the SDDMM round's B chunks."""
+    G = grid.G
+    rl, cl, tb = plan.rows_local, plan.cols, plan.tile_base
+    bring = None if bchunks is not None else cannon_ring(
+        coll, B0, "row", G - 1, start=start)
+    out = None
+    for t in range(G):
+        B_t = bchunks[t] if bchunks is not None else bring.cur
+        contrib = on_ranks(grid, lambda x, y, z: ops.spmm(
+            _coo(plan, rl, cl, vals, tb, x, y, z), B_t[x, y, z],
+            m=plan.mS, **tk))
+        out = coll.shift(acc(out, contrib), "col", back=True,
+                         point=("shift", start + t))
+        if bring is not None:
+            bring.advance()
+    return out
+
+
+def resolve_elision(elision: str) -> str:
+    """``"auto"`` is B-chunk "reuse": the same fiber value traffic as
+    "none", one fewer dense-chunk trip."""
+    if elision != "auto":
+        return elision
+    return "reuse"
+
+
+def schedule_events(grid: Grid25, op: str, elision: str = "none"):
+    """Ordered (point, phase) boundaries of one executor round: no
+    gather events (nothing dense is replicated), G phase/shift pairs per
+    round, the SDDMM half ending in the cross-fiber partial-sum
+    reduce-scatter."""
+    G = grid.G
+
+    def passes(n, start=0):
+        out = []
+        for t in range(start, start + n * G):
+            out += [("phase", t), ("shift", t)]
+        return out
+
+    if op == "sddmm":
+        return passes(1) + [("reduce", G - 1)]
+    if op in ("spmm", "spmm_t"):     # spmm_t = spmm on the S^T problem
+        return passes(1)
+    if op == "fusedmm":              # SDDMM pass, RS barrier, SpMM pass
+        return passes(1) + [("reduce", G - 1)] + passes(1, start=G)
+    raise ValueError(f"unknown op {op!r}")
+
+
+def schedule_words(grid: Grid25, plan: PlanS25, op: str,
+                   elision: str = "none", pre_gathered: bool = False):
+    """Per-device wire words for each schedule event, aligned 1:1 with
+    :func:`schedule_events` (the reference's model).  ``pre_gathered``
+    changes nothing: the fiber traffic is values only.  SpMM's opening
+    value all-gather rides the first phase; FusedMM's reduce event
+    carries the partial-sum reduce-scatter and the value re-broadcast."""
+    del pre_gathered
+    G, c = grid.G, grid.c
+    nb, k = plan.rows_local.shape[-2:]
+    fiber = float((c - 1) * (nb // c) * k)
+    a_ch = float(plan.mS * plan.rc)    # A chunk / traveling output chunk
+    b_ch = float(plan.nS * plan.rc)
+    if op == "sddmm":
+        def shift_w(t):
+            return (a_ch + b_ch) if t < G - 1 else 0.0
+    elif op in ("spmm", "spmm_t"):
+        def shift_w(t):
+            return a_ch + (b_ch if t < G - 1 else 0.0)
+    elif op == "fusedmm":
+        if resolve_elision(elision) == "none":
+            def shift_w(t):
+                if t < G:
+                    return b_ch + (a_ch if t < G - 1 else 0.0)
+                return a_ch + (b_ch if t - G < G - 1 else 0.0)
+        else:
+            def shift_w(t):
+                if t < G:
+                    return (a_ch + b_ch) if t < G - 1 else 0.0
+                return a_ch
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    out = []
+    for point, t in schedule_events(grid, op, elision):
+        if point == "reduce":
+            out.append((point, t, "reduce-scatter",
+                        2 * fiber if op == "fusedmm" else fiber))
+        elif point == "phase" and t == 0 and op in ("spmm", "spmm_t"):
+            out.append((point, t, "all-gather", fiber))
+        elif point == "shift":
+            out.append((point, t, "collective-permute", float(shift_w(t))))
+        else:
+            out.append((point, t, None, 0.0))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Executors
+# ---------------------------------------------------------------------------
+
+def sddmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk, *,
+              coll: Stacked | None = None, backend: str | None = None):
+    """R = S * (A @ B.T); values end fiber-sharded at home,
+    (G, G, c, nb/c, k).  A_sk, B_sk from :func:`skew_dense`."""
+    coll = stacked(grid, coll)
+    partial, _, _ = _sddmm_round(grid, coll, plan, A_sk, B_sk,
+                                 common.kernel_kwargs(plan, backend))
+    mine = coll.psum_scatter(partial, point=("reduce", grid.G - 1))
+    return plan.vals * mine
+
+
+def spmma_s25(grid: Grid25, plan: PlanS25, B_sk, *,
+              coll: Stacked | None = None, backend: str | None = None):
+    """A = S @ B; output chunks end in skewed-home layout,
+    (G, G, c, m/G, r/(Gc)) (:func:`unskew_out`)."""
+    coll = stacked(grid, coll)
+    vals = coll.all_gather(plan.vals, point=("phase", 0))   # (nb, k)
+    return _spmm_round(grid, coll, plan, vals, B_sk,
+                       common.kernel_kwargs(plan, backend))
+
+
+def fusedmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk,
+                elision: str = "auto", *, coll: Stacked | None = None,
+                backend: str | None = None):
+    """FusedMMA on the 2.5D sparse-replicating grid.
+
+    elision="auto" : resolves to "reuse"
+    elision="none" : A and B travel in the SDDMM round, the output and B
+                     in the SpMM round: 4 dense-chunk trips
+    elision="reuse": the SpMM round replays the B chunks of the SDDMM
+                     round: 3 trips, the same bits as "none"
+    elision="fused": refused -- local fusion is impossible here.
+
+    Returns (out chunks (G, G, c, m/G, r/(Gc)) skewed-home, R values
+    fiber-sharded (G, G, c, nb/c, k)).
+    """
+    elision = resolve_elision(elision)
+    if elision not in ("none", "reuse"):
+        raise ValueError(f"s25 supports ('none', 'reuse'), got "
+                         f"{elision!r} (local fusion is structurally "
+                         f"impossible here)")
+    coll = stacked(grid, coll)
+    tk = common.kernel_kwargs(plan, backend)
+    G = grid.G
+    partial, B_home, bchunks = _sddmm_round(grid, coll, plan, A_sk, B_sk,
+                                            tk, keep_b=elision == "none")
+    mine = coll.psum_scatter(partial, point=("reduce", G - 1))      # RS
+    r_mine = plan.vals * mine
+    r_vals = coll.all_gather(r_mine, point=("reduce", G - 1))       # AG
+    out = _spmm_round(grid, coll, plan, r_vals, B_home, tk, start=G,
+                      bchunks=bchunks if elision == "reuse" else None)
+    return out, r_mine

@@ -7,7 +7,7 @@ PyTorch version.  ``fusedmm_cuda.launches`` counts calls that launched
 the kernel (one or, on the two-pass route, two launches each), and
 ``fusedmm_cuda.last_form`` names the route of the last one: "bulk" or
 "load" (the single pass, in the form ``_build.choose_form`` picked), or
-"two_pass".
+"two_pass"; ``fusedmm_cuda.forms`` counts the calls of each route.
 """
 from __future__ import annotations
 
@@ -90,6 +90,8 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     _build.check(_build.load("fusedmm"), code, "fusedmm")
     fusedmm_cuda.launches += 1
     fusedmm_cuda.last_form = _build.FUSED_ROUTE[used.value]
+    fusedmm_cuda.forms[fusedmm_cuda.last_form] = \
+        fusedmm_cuda.forms.get(fusedmm_cuda.last_form, 0) + 1
     fusedmm_cuda.last_two_pass = fusedmm_cuda.last_form == "two_pass"
     return out, r_vals.to(vals.dtype)
 
@@ -97,3 +99,4 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
 fusedmm_cuda.launches = 0
 fusedmm_cuda.last_form = None
 fusedmm_cuda.last_two_pass = False
+fusedmm_cuda.forms = {}

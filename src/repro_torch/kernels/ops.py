@@ -40,9 +40,16 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def form_counts() -> dict:
+    """Kernel launches per kernel and form (or FusedMM route) since the
+    last reset."""
+    return {name: dict(fn.forms) for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.forms = {}
 
 
 def _backend(backend: str | None) -> str:

@@ -5,7 +5,8 @@ replaces ``repro.kernels.sddmm.sddmm_pallas``) for tensors on the card;
 for tensors on the CPU it returns :func:`sddmm_plain`, the plain PyTorch
 version.  ``sddmm_cuda.launches`` counts kernel launches and
 ``sddmm_cuda.last_form`` names the form of the last one ("bulk" or
-"load", see ``_build.choose_form``).
+"load", see ``_build.choose_form``); ``sddmm_cuda.forms`` counts the
+launches of each form.
 """
 from __future__ import annotations
 
@@ -72,8 +73,10 @@ def sddmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     _build.check(_build.load("sddmm"), code, "sddmm")
     sddmm_cuda.launches += 1
     sddmm_cuda.last_form = form
+    sddmm_cuda.forms[form] = sddmm_cuda.forms.get(form, 0) + 1
     return out.to(vals.dtype)
 
 
 sddmm_cuda.launches = 0
 sddmm_cuda.last_form = None
+sddmm_cuda.forms = {}

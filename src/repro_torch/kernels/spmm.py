@@ -5,7 +5,8 @@ replaces ``repro.kernels.spmm.spmm_pallas``) for tensors on the card;
 for tensors on the CPU it returns :func:`spmm_plain`, the plain PyTorch
 version.  ``spmm_cuda.launches`` counts kernel launches and
 ``spmm_cuda.last_form`` names the form of the last one ("bulk" or
-"load", see ``_build.choose_form``).
+"load", see ``_build.choose_form``); ``spmm_cuda.forms`` counts the
+launches of each form.
 """
 from __future__ import annotations
 
@@ -68,8 +69,10 @@ def spmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     _build.check(_build.load("spmm"), code, "spmm")
     spmm_cuda.launches += 1
     spmm_cuda.last_form = form
+    spmm_cuda.forms[form] = spmm_cuda.forms.get(form, 0) + 1
     return out
 
 
 spmm_cuda.launches = 0
 spmm_cuda.last_form = None
+spmm_cuda.forms = {}

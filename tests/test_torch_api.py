@@ -1,10 +1,16 @@
-"""The port's distributed api, d15 slice (the d15 subset of
-tests/test_api.py), on stacked CPU ranks, plus the port's boundaries:
-the card is the default device, and nothing in the port imports jax or
-the reference package.
+"""The port's distributed api (after tests/test_api.py) on stacked CPU
+ranks: the registry of all four families, algorithm="auto" choosing what
+the reference's make_problem chooses (the reference runs in a subprocess
+with 8 forced host devices, this file run as a script), Sessions and
+spmm_t per family, plus the port's boundaries: the card is the default
+device, and nothing in the port imports jax or the reference package.
 """
 import ast
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,22 +41,88 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def test_registry_is_the_d15_slice():
-    assert set(api.ALGORITHMS) == {"d15"}
-    alg = api.ALGORITHMS["d15"]
-    assert alg.elisions == CELLS and set(alg.auto_elisions) <= set(CELLS)
+def test_registry_holds_the_four_families():
+    assert set(api.ALGORITHMS) == {"d15", "s15", "d25", "s25"}
+    assert set(api.ALGORITHMS) == set(japi.ALGORITHMS)
     cells = set(costmodel.FAMILY_ELISION.values())
-    assert all(("d15", el) in cells for el in alg.elisions)
+    for name, alg in api.ALGORITHMS.items():
+        ref = japi.ALGORITHMS[name]
+        assert alg.elisions == ref.elisions, name
+        assert alg.auto_elisions == ref.auto_elisions, name
+        assert all((name, el) in cells for el in alg.elisions)
     rows, cols, vals, *_ = _problem_data()
-    with pytest.raises(NotImplementedError, match="s15"):
-        _make(rows, cols, vals, (64, 64), 8, algorithm="s15")
     with pytest.raises(ValueError, match="unknown algorithm"):
         _make(rows, cols, vals, (64, 64), 8, algorithm="nope")
-    auto = _make(rows, cols, vals, (64, 64), 8, p=4)
-    assert auto.alg.name == "d15"
-    want = costmodel.choose_algorithm(m=64, n=64, nnz=len(vals), r=8, p=4,
-                                      families=("d15",))
-    assert auto.c == want.c
+    for name in api.ALGORITHMS:
+        prob = _make(rows, cols, vals, (64, 64), 8, p=4, algorithm=name)
+        assert prob.alg.name == name
+        want = costmodel.choose_algorithm(m=64, n=64, nnz=len(vals), r=8,
+                                          p=4, families=(name,))
+        assert prob.c == want.c
+
+
+# (m = n, nonzeros, r, p): low and high phi = nnz / (n r), r = 32 and
+# 128; then sizes p does not divide, where only the 2.5D grids are
+# feasible, so the choice is between d25 and s25
+AUTO_CASES = ([(1 << 14, nnz, r, p) for nnz in (1 << 12, 1 << 16, 1 << 20)
+               for r in (32, 128) for p in (1, 4, 8)]
+              + [(16388, nnz, r, 8) for nnz in (1 << 12, 1 << 20)
+                 for r in (32, 128)]
+              + [(16386, nnz, 64, 4) for nnz in (1 << 12, 1 << 20)])
+
+
+def _auto_choices():
+    """Subprocess body: the reference's make_problem(algorithm="auto") on
+    8 forced host devices, (family, elision, c) per AUTO_CASES entry."""
+    out = []
+    for m, nnz, r, p in AUTO_CASES:
+        z = np.zeros(nnz, np.int32)
+        prob = japi.make_problem(z, z, np.ones(nnz, np.float32), (m, m),
+                                 r, devices=jax.devices()[:p])
+        out.append([prob.alg.name, prob.resolve_elision("auto"), prob.c])
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_choices():
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, __file__], capture_output=True,
+                          text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", range(len(AUTO_CASES)))
+def test_auto_choice_matches_reference(reference_choices, case):
+    m, nnz, r, p = AUTO_CASES[case]
+    z = np.zeros(nnz, np.int32)
+    prob = _make(z, z, np.ones(nnz, np.float32), (m, m), r, p=p)
+    got = [prob.alg.name, prob.resolve_elision("auto"), prob.c]
+    assert got == reference_choices[case], (m, nnz, r, p)
+
+
+def test_main_path_auto_is_s15_fused():
+    """At the paper's Fig. 6 point (m = n = 2^22, 2^26 nonzeros) the
+    cost model chooses s15 "fused" at r = 128 and d15 at r = 32, as the
+    reference's does."""
+    from repro.core import costmodel as jcost
+    for r in (32, 128):
+        for p in (1, 4, 8):
+            kw = dict(m=1 << 22, n=1 << 22, nnz=1 << 26, r=r, p=p)
+            got = costmodel.choose_algorithm(**kw)
+            want = jcost.choose_algorithm(**kw)
+            assert (got.family, got.elision, got.c) == \
+                (want.family, want.elision, want.c), (r, p)
+            if r == 128:
+                assert (got.family, got.elision) == ("s15", "fused")
+            if r == 128 and p == 1:
+                assert got.c == 1
+            if r == 32:
+                assert got.family == "d15"
 
 
 def test_comm_and_device_plumbing():
@@ -124,6 +196,51 @@ def test_session_caching_bitwise(el):
     model = prob.schedule_words("fusedmm", el, session=sess)
     assert [(k, w) for (_, _, k, w) in model if k and w] == \
         [(k, w) for k, w in prob.last_collectives.words() if w]
+
+
+FAMILY_CELLS = [(f, el) for f in ("s15", "d25")
+                for el in api.ALGORITHMS[f].elisions]
+
+
+@pytest.mark.parametrize("family,el", FAMILY_CELLS)
+def test_family_session_caching_bitwise(family, el):
+    rows, cols, vals, X, Y, _ = _problem_data(seed=2)
+    prob = _make(rows, cols, vals, (64, 64), 8, p=8, algorithm=family,
+                 c=2)
+    sess = api.Session()
+    base, Rb = prob.fusedmm(X, Y, elision=el)
+    one, _ = prob.fusedmm(X, Y, elision=el, session=sess)
+    two, R2 = prob.fusedmm(X, Y, elision=el, session=sess)
+    assert torch.equal(base, one) and torch.equal(base, two)
+    np.testing.assert_array_equal(Rb.values(), R2.values())
+    assert sess.stats()["hits"] >= 1
+    model = prob.schedule_words("fusedmm", el, session=sess)
+    assert [(k, w) for (_, _, k, w) in model if k and w] == \
+        [(k, w) for k, w in prob.last_collectives.words() if w]
+    base_s = prob.sddmm(X, Y)
+    np.testing.assert_array_equal(base_s.values(),
+                                  prob.sddmm(X, Y, session=sess).values())
+
+
+@pytest.mark.parametrize("family", ["d15", "s15", "d25", "s25"])
+def test_spmm_t_every_family(family):
+    rows, cols, vals, X, Y, Sd = _problem_data(seed=7)
+    prob = _make(rows, cols, vals, Sd.shape, 8, p=8, algorithm=family, c=2)
+    g = np.random.default_rng(11).standard_normal((64, 8)).astype(
+        np.float32)
+    np.testing.assert_allclose(_np(prob.spmm_t(g)), Sd.T @ g, rtol=2e-4,
+                               atol=2e-4)
+    v2 = (np.arange(len(vals)) * 0.01).astype(np.float32)
+    S2 = np.zeros(Sd.shape, np.float32)
+    S2[rows, cols] = v2
+    base = prob.spmm_t(g, vals=v2)
+    np.testing.assert_allclose(_np(base), S2.T @ g, rtol=2e-4, atol=2e-4)
+    model = prob.schedule_words("spmm_t")
+    assert [(k, w) for (_, _, k, w) in model if k and w] == \
+        [(k, w) for k, w in prob.last_collectives.words() if w]
+    sess = api.Session()
+    assert torch.equal(base, prob.spmm_t(g, vals=v2, session=sess))
+    assert torch.equal(base, prob.spmm_t(g, vals=v2, session=sess))
 
 
 def test_sparse_result_values_without_dense():
@@ -266,3 +383,7 @@ def test_port_imports_neither_jax_nor_reference():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+if __name__ == "__main__":
+    print(json.dumps(_auto_choices()))
