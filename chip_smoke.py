@@ -49,14 +49,30 @@ Phases, each printing one JSON line:
            d15's every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
            schedule_words model; then s15, d25 and s25 likewise
-           against d15 at p = 1, with d25's overlap == serial.
+           against d15 at p = 1, with d25's overlap == serial;
+  dist     one process per visible card, one rank each, over NCCL (the
+           torch.distributed backend), at the main path's size
+           (--scale).  On one card (world size 1) it runs d15's
+           "fused" cell alone, against backend="ref", to show that NCCL
+           starts and the path runs.  On more: d15's three cells,
+           "auto" and another cell of its family, d25's and s25's
+           "auto" cell, each family at the c the cost model picks at p;
+           each rank's blocks against the stacked run of the same p on
+           card 0 bit for bit, each log against schedule_words and the
+           stacked log, the stacked run against backend="ref"; launches per
+           rank in one counted pass, ms per call (beside the stacked
+           run's), the device split, each collective kind's ms and GB/s
+           in a serial pass, and d15's overlap against serial (bitwise
+           and timed).  A rank that fails, or any still running after
+           DIST_TIMEOUT_S, fails the phase, and every rank is stopped.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
-line.  ``--scale`` shrinks the main path (2^scale rows),
-``--families-scale`` the families phase and ``--rmat-scale`` the
-power-law timing for rehearsals; ``--phases`` picks phases.
+line.  ``--scale`` shrinks the main path and the dist phase (2^scale
+rows), ``--families-scale`` the families phase and ``--rmat-scale`` the
+power-law timing for rehearsals;
+``--phases`` picks phases.
 """
 from __future__ import annotations
 
@@ -75,7 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
-PHASES = ("build", "kernels", "main", "families", "stacked")
+PHASES = ("build", "kernels", "main", "families", "stacked", "dist")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -775,16 +791,16 @@ def words_match(ck, prob, op, el="none"):
 
 def device_breakdown(torch, fn):
     """Device ms of one call of ``fn`` from torch.profiler's CUDA
-    activity: the port's kernels (names holding spmm, sddmm or fusedmm)
-    and every other kernel or copy; None where the profiler records no
-    device time (then the split is not measured)."""
+    activity: the port's kernels (names holding spmm, sddmm or fusedmm),
+    NCCL's kernels, and every other kernel or copy; None where the
+    profiler records no device time (then the split is not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ours = other = 0.0
+    ours = other = nccl = 0.0
     launches = 0
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
@@ -795,12 +811,14 @@ def device_breakdown(torch, fn):
         if any(k in ev.key for k in ("spmm", "sddmm", "fusedmm")):
             ours += t
             launches += ev.count
+        elif "nccl" in ev.key.lower():
+            nccl += t
         else:
             other += t
     if ours == 0.0:
         return None
     return {"kernels_ms": ours / 1e3, "kernel_launches": launches,
-            "other_device_ms": other / 1e3}
+            "other_device_ms": other / 1e3, "nccl_ms": nccl / 1e3}
 
 
 def run_family_cells(torch, ck, prob, X, Y, cells, reps, tag):
@@ -1037,6 +1055,313 @@ def stacked_families(torch, ck, p1, rows, cols, vals, X, Y):
                 raise AssertionError(f"d25 {what}: overlap log != serial")
 
 
+# ---------------------------------------------------------------------------
+# dist: one rank per card over NCCL
+# ---------------------------------------------------------------------------
+
+NVLINK_GB_PER_S = 450.0   # H100 SXM NVLink 4, each direction (data sheet)
+DIST_TIMEOUT_S = 600      # the dist phase's ranks, spawn to exit
+#: (algorithm, cells): d15's three cells are the main path on the cards;
+#: then "auto" and one more cell of its family (s15 at the main path's
+#: point), d25's and s25's "auto" cell, each family at the c the cost
+#: model picks for it at the group's p
+DIST_PROBLEMS = [("d15", ("none", "reuse", "fused")),
+                 ("auto", ("auto", "reuse")),
+                 ("d25", ("auto",)), ("s25", ("auto",))]
+#: at world size 1 no collective crosses a rank: one cell shows that NCCL
+#: starts and the path runs
+DIST_PROBLEMS_ONE = [("d15", ("fused",))]
+
+
+def _timed_backend(torch):
+    """The torch.distributed backend with CUDA events around each
+    collective, in a serial pass: the ranks are lined up first (the card
+    idle, then an all-reduce of one word), so a span holds the transfer
+    and not a wait for a peer's kernel."""
+    import torch.distributed as dist
+    from repro_torch.core.collectives import Dist
+
+    class Timed(Dist):
+        def __init__(self, grid):
+            super().__init__(grid)
+            self.spans = []
+
+        def _span(self, fn, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            dist.all_reduce(torch.zeros(1, device=self.grid.device),
+                            group=self.grid.group)
+            torch.cuda.synchronize()
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            ev = self.log[-1]
+            crossed = self.grid.shape[self.grid.dim(ev.axis)] > 1
+            self.spans.append((ev.kind, ev.words, crossed, e0, e1))
+            return out
+
+        def shift(self, *args, **kwargs):
+            return self._span(super().shift, *args, **kwargs)
+
+        def all_gather(self, *args, **kwargs):
+            return self._span(super().all_gather, *args, **kwargs)
+
+        def psum_scatter(self, *args, **kwargs):
+            return self._span(super().psum_scatter, *args, **kwargs)
+
+        def by_kind(self):
+            """{kind: ms, bytes, moves, GB/s and share of NVLink's rate}
+            over the collectives that crossed a rank (4-byte words)."""
+            torch.cuda.synchronize()
+            out = {}
+            for kind, words, crossed, e0, e1 in self.spans:
+                if not crossed:
+                    continue
+                k = out.setdefault(kind, {"ms": 0.0, "bytes": 0.0,
+                                          "moves": 0})
+                k["ms"] += e0.elapsed_time(e1)
+                k["bytes"] += 4 * words
+                k["moves"] += 1
+            for k in out.values():
+                k["gb_per_s"] = k["bytes"] / k["ms"] / 1e6 if k["ms"] else None
+                k["nvlink_share"] = (k["gb_per_s"] / NVLINK_GB_PER_S
+                                     if k["gb_per_s"] else None)
+            return out
+
+    return Timed
+
+
+def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
+              out_dir: str) -> None:
+    """One rank of the dist phase, on card ``rank``, over NCCL; writes its
+    report to ``out_dir``.  Any failed check raises (a non-zero exit)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=init, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        report = _dist_rank(torch, dist, rank, world, scale, reps)
+    finally:
+        dist.destroy_process_group()
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def _leaves(res):
+    if isinstance(res, (tuple, list)):
+        return [t for r in res for t in _leaves(r)]
+    return [res]
+
+
+def _dist_rank(torch, dist, rank, world, scale, reps):
+    from repro_torch.core import api, costmodel
+    from repro_torch.kernels import ops
+    ck = Checker(torch)
+    dev = torch.device("cuda", rank)
+    m = n = 1 << scale
+    r, per_row, seed = 128, 16, 0
+    rows, cols, vals = erdos_renyi_on_card(torch, m, n, per_row, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((n, r), generator=g, device="cuda")
+    Timed = _timed_backend(torch)
+    report = {"rank": rank, "world": world, "m": m, "r": r,
+              "nnz": int(len(vals)), "problems": {}}
+    for algorithm, cells in DIST_PROBLEMS if world > 1 \
+            else DIST_PROBLEMS_ONE:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = api.make_problem(rows, cols, vals, (m, n), r,
+                                algorithm=algorithm, group=dist.group.WORLD)
+        els = [prob.resolve_elision(el) for el in cells]
+        orients = ("normal", "transpose") if "reuse" in els \
+            and prob.alg.name in ("d15", "d25") else ("normal",)
+        for o in orients:
+            prob.plan(o)
+        torch.cuda.synchronize()
+        row = {"family": prob.alg.name, "c": prob.c,
+               "plan_s": time.perf_counter() - t0, "cells": {}}
+        want = costmodel.choose_algorithm(
+            m=m, n=n, nnz=len(vals), r=r, p=world,
+            families=costmodel.FAMILIES if algorithm == "auto"
+            else (algorithm,))
+        if (prob.alg.name, prob.c) != (want.family, want.c):
+            raise AssertionError(f"{algorithm}: chose {prob.alg.name} "
+                                 f"c={prob.c}, the cost model {want}")
+        stacked = None
+        if rank == 0 and world > 1:   # the same problem stacked on card 0
+            t0 = time.perf_counter()
+            stacked = api.make_problem(rows, cols, vals, (m, n), r,
+                                       algorithm=prob.alg.name, c=prob.c,
+                                       devices=[dev] * world)
+            for o in orients:
+                stacked.plan(o)
+            torch.cuda.synchronize()
+            row["stacked_plan_s"] = time.perf_counter() - t0
+        # the counted pass: every cell once, launches on this rank
+        ops.reset_launch_counts()
+        outs, logs = {}, {}
+        for el in els:
+            outs[el] = prob.fusedmm(X, Y, elision=el)
+            words_match(ck, prob, "fusedmm", el)     # == schedule_words
+            logs[el] = prob.last_collectives.words()
+        torch.cuda.synchronize()
+        row["launches"] = ops.launch_counts()
+        row["forms"] = ops.form_counts()
+        need = ("fusedmm",) if world == 1 else \
+            ("spmm", "sddmm", "fusedmm") if algorithm == "d15" \
+            else ("spmm", "sddmm")
+        for k in need:
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"{algorithm}: {k} kernel not launched "
+                                     f"on rank {rank}: {row['launches']}")
+        for el in els:
+            cell = {}
+            blk, R = outs.pop(el)
+            got = blk.gather()
+            got_R = prob.grid.gather_stacked(R.raw)
+            del blk, R
+            if stacked is not None:
+                # every rank's blocks == the stacked run's, bit for bit
+                wo, wR = stacked.fusedmm(X, Y, elision=el)
+                if tuple(wo.shape) != (m, r) or \
+                        not bool(torch.isfinite(wo).all()):
+                    raise AssertionError(f"{algorithm} {el}: stacked out")
+                ck.equal(got, wo, f"{algorithm} {el} out == stacked")
+                for a, b in zip(_leaves(got_R), _leaves(wR.raw)):
+                    ck.equal(a, b, f"{algorithm} {el} R == stacked")
+                if stacked.last_collectives.words() != logs[el]:
+                    raise AssertionError(f"{algorithm} {el}: log != "
+                                         f"stacked log")
+                del wR
+                ref, _ = stacked.fusedmm(X, Y, elision=el, backend="ref")
+                cell["max_abs_err_vs_ref"] = ck.close(
+                    wo, ref, 2e-3, f"{algorithm} {el} stacked vs ref")
+                del wo, ref
+                cell["stacked_ms"] = time_ms(
+                    torch, lambda: stacked.fusedmm(X, Y, elision=el), reps)
+            elif world == 1:   # held to the plain version instead
+                ref, _ = prob.fusedmm(X, Y, elision=el, backend="ref")
+                cell["max_abs_err_vs_ref"] = ck.close(
+                    got, ref.gather(), 2e-3, f"{algorithm} {el} vs ref")
+                del ref
+            del got, got_R
+            torch.cuda.empty_cache()
+            cell["ms"] = time_ms(
+                torch, lambda: prob.fusedmm(X, Y, elision=el), reps)
+            cell["device"] = device_breakdown(
+                torch, lambda: prob.fusedmm(X, Y, elision=el))
+            # a serial pass with each collective timed
+            fn, args, kwargs, _ = prob.alg._fusedmm_call(prob, X, Y, el,
+                                                         None)
+            over = {"overlap": False} if prob.alg.name in ("d15", "d25") \
+                else {}
+            coll = Timed(prob.grid)
+            fn(*args, **kwargs, **over, coll=coll)
+            cell["comm"] = coll.by_kind()
+            cell["comm_ms"] = sum(k["ms"] for k in cell["comm"].values())
+            if prob.alg.name == "d15":
+                # overlap == serial bit for bit; timed in turns
+                a = _leaves(fn(*args, **kwargs, overlap=True))
+                b = _leaves(fn(*args, **kwargs, overlap=False))
+                for x, y in zip(a, b):
+                    ck.equal(x, y, f"d15 {el} overlap == serial")
+                del a, b
+                t = [time_ms(torch, lambda ov=ov: fn(*args, **kwargs,
+                                                     overlap=ov), reps)
+                     for ov in (True, False, False, True)]
+                cell["overlap_ms"] = [t[0], t[3]]
+                cell["serial_ms"] = [t[1], t[2]]
+            del fn, args, kwargs
+            row["cells"][el] = cell
+            torch.cuda.empty_cache()
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report["problems"][algorithm] = row
+        del prob, stacked
+        torch.cuda.empty_cache()
+    report["checks"] = ck.n
+    return report
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch, scale: int, reps: int):
+    """One process per visible card over NCCL (``dist_rank``); fails if
+    a rank fails or any outlives DIST_TIMEOUT_S (all are stopped)."""
+    import multiprocessing
+    import signal
+    import tempfile
+    world = torch.cuda.device_count()
+    # the link matrix, where nvidia-smi can read it on this machine
+    topo = []
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "-s"]):
+        got = subprocess.run(cmd, capture_output=True, text=True)
+        topo += (got.stdout + got.stderr).splitlines() + [
+            f"({' '.join(cmd)} exited {got.returncode})"]
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    for ln in topo:
+        log(f"[topo] {ln}")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        init = f"tcp://localhost:{_free_port()}"
+        procs = [ctx.Process(target=dist_rank, args=(rk, world, init, scale,
+                                                     reps, out_dir))
+                 for rk in range(world)]
+        # a SIGTERM (a time limit around the script) unwinds through the
+        # finally below, which stops every rank
+        old = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while any(p.is_alive() for p in procs):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"dist: a rank ran past "
+                                         f"{DIST_TIMEOUT_S} s")
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            signal.signal(signal.SIGTERM, old)
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"dist: ranks exited {codes}")
+        ranks = [json.loads((pathlib.Path(out_dir) / f"rank{rk}.json")
+                            .read_text()) for rk in range(world)]
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
+             for j in range(world)] for i in range(world)]
+    report = {"phase": "dist", "world": world, "cards": cards,
+              "topology": topo, "peer_access": peer, "rank0": ranks[0],
+              "ranks": [{"rank": rr["rank"], "checks": rr["checks"], "ms": {
+                  a: {el: c["ms"] for el, c in pr["cells"].items()}
+                  for a, pr in rr["problems"].items()},
+                  "launches": {a: pr["launches"]
+                               for a, pr in rr["problems"].items()}}
+                  for rr in ranks]}
+    emit(report)
+    return ranks[0]["problems"]["d15"]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1055,7 +1380,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    kernels, family_launches = None, None
+    kernels, family_launches, dist_launches = None, None, None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -1070,6 +1395,8 @@ def main(argv=None) -> int:
                                              args.reps, args.scale)
         elif ph == "stacked":
             phase_stacked(torch)
+        elif ph == "dist":
+            dist_launches = phase_dist(torch, args.scale, args.reps)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
@@ -1077,6 +1404,8 @@ def main(argv=None) -> int:
         for row in kernels:
             row["families_launches"] = (None if family_launches is None
                                         else family_launches[row["name"]])
+            row["dist_launches"] = (None if dist_launches is None
+                                    else dist_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -25,6 +25,14 @@ reference assembles numpy on the host); sampled results are
 :class:`SparseResult` with host (numpy) COO views.  Every executor call
 records its collectives in ``DistProblem.last_collectives``.  The fault
 guard and the tracer hooks of the reference come with their slices.
+
+``make_problem(..., group=pg)`` builds this process's rank of a problem
+over a ``torch.distributed`` process group (one rank per process: NCCL
+across cards, gloo on the CPU; every process of the group makes the same
+call).  Each rank keeps only its own blocks of the plans and operands;
+a dense result is this rank's :class:`RankBlock`, and
+:meth:`RankBlock.gather` assembles the global result (the stacked run's,
+bit for bit) on every rank.
 """
 from __future__ import annotations
 
@@ -38,12 +46,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel, d15, d25, s15, s25
-from repro_torch.core.collectives import Stacked
+from repro_torch.core.collectives import Backend, coll_for
 from repro_torch.core.grid import make_grid15, make_grid25
 
 __all__ = [
-    "ALGORITHMS", "Algorithm", "DistProblem", "Session", "SparseResult",
-    "make_problem", "sddmm", "spmm", "spmm_t", "fusedmm",
+    "ALGORITHMS", "Algorithm", "DistProblem", "RankBlock", "Session",
+    "SparseResult", "make_problem", "sddmm", "spmm", "spmm_t", "fusedmm",
 ]
 
 # ---------------------------------------------------------------------------
@@ -70,8 +78,10 @@ class SparseResult:
 
     ``raw`` keeps the device tensors exactly as the executor returned
     them (one (L, c, nb_t, k) tensor per phase for d15, one tensor in
-    the family's home layout for the others); ``_triples``
-    assembles the flat global COO view on the host.
+    the family's home layout for the others; this rank's blocks under a
+    process group); ``_triples`` assembles the flat global COO view on
+    the host (under a process group a collective: every rank calls
+    :meth:`to_coo`, :meth:`values` or :meth:`to_dense` together).
     """
     problem: "DistProblem"
     raw: object
@@ -105,6 +115,32 @@ class SparseResult:
         return self._vals
 
 
+@dataclasses.dataclass(frozen=True)
+class RankBlock:
+    """This rank's share of a dense result computed over a process group.
+
+    ``local`` is the executor's output held here, with the grid's rank
+    dimensions (each of size 1): the stacked run's block of this rank,
+    bit for bit.  :meth:`gather` assembles the global result on every
+    rank (a collective: every rank of the group calls it)."""
+    grid: Any
+    local: torch.Tensor
+    assemble: Callable
+
+    def gather(self) -> torch.Tensor:
+        g = self.grid
+        return self.assemble(g.stacked(), g.gather_stacked(self.local))
+
+
+def _assembled(grid, assemble):
+    """The post step of a dense result: ``assemble(stacked grid, stacked
+    output)`` gives the global result; under a process group the call
+    returns this rank's :class:`RankBlock` instead."""
+    if grid.group is None:
+        return lambda x: assemble(grid, x)
+    return lambda x: RankBlock(grid, x, assemble)
+
+
 # ---------------------------------------------------------------------------
 # Algorithm registry
 # ---------------------------------------------------------------------------
@@ -121,7 +157,7 @@ class Algorithm:
     auto_elisions: Tuple[str, ...] = ()
     _sched_mod: Any = None
 
-    def make_grid(self, c: int, devices):
+    def make_grid(self, c: int, devices, group=None):
         raise NotImplementedError
 
     def make_plan(self, prob, orient: str):
@@ -156,7 +192,7 @@ class Algorithm:
 
     def _run(self, prob, call, backend):
         fn, args, kwargs, post = call
-        coll = Stacked(prob.grid)
+        coll = coll_for(prob.grid)
         res = fn(*args, **kwargs, coll=coll, backend=backend)
         prob.last_collectives = coll
         return post(res)
@@ -206,9 +242,10 @@ def _dense(prob, x) -> torch.Tensor:
 
 
 def _sampled(prob, plan, rv) -> SparseResult:
-    """R values ``rv`` in ``plan``'s stacked home layout."""
+    """R values ``rv`` in ``plan``'s home layout."""
     return SparseResult(prob, rv, lambda: plan.meta.block_meta.to_triples(
-        plan.rows_local, plan.cols, rv, plan.tile_base))
+        *prob.grid.gather_stacked((plan.rows_local, plan.cols, rv,
+                                   plan.tile_base))))
 
 
 def _owned(prob, x) -> torch.Tensor:
@@ -229,8 +266,8 @@ class _D15(Algorithm):
     auto_elisions = ("none", "reuse", "fused")
     _sched_mod = d15
 
-    def make_grid(self, c, devices):
-        return make_grid15(c, devices=devices)
+    def make_grid(self, c, devices, group=None):
+        return make_grid15(c, devices=devices, group=group)
 
     def make_plan(self, prob, orient):
         kw = dict(row_tile=prob.row_tile, nz_block=prob.nz_block,
@@ -250,7 +287,7 @@ class _D15(Algorithm):
         g = prob.grid
         full = _owned(prob, arr)
         lay = full.reshape(g.L, 1, full.shape[0] // g.L, full.shape[1])
-        return lay.expand(g.L, g.c, *lay.shape[2:])
+        return g.local(lay.expand(g.L, g.c, *lay.shape[2:]))
 
     def _words_plan(self, prob, op, elision, session):
         pre = session is not None
@@ -274,7 +311,7 @@ class _D15(Algorithm):
         # replicated, so there is no gather for a session to serve
         plan = prob.injected_plan("normal", vals)
         return (d15.spmma_d15, (prob.grid, plan, self.shard_y(prob, Y)),
-                {}, prob.grid.unstack)
+                {}, _assembled(prob.grid, lambda g, x: g.unstack(x)))
 
     def _spmm_t_call(self, prob, A, vals, session):
         # spmmb on S's transpose pack, which is the TRANSPOSED problem's
@@ -282,7 +319,8 @@ class _D15(Algorithm):
         plan = prob.transposed().injected_plan("transpose", vals)
         a, pre = self._gathered(prob, A, "x", session)
         return (d15.spmmb_d15, (prob.grid, plan, a),
-                dict(pre_gathered=pre), prob.grid.unstack)
+                dict(pre_gathered=pre),
+                _assembled(prob.grid, lambda g, x: g.unstack(x)))
 
     def _fusedmm_call(self, prob, X, Y, elision, session):
         grid = prob.grid
@@ -297,10 +335,11 @@ class _D15(Algorithm):
             a_host, slot = X, "x"
             b = self.shard_y(prob, Y)
         a, pre = self._gathered(prob, a_host, slot, session)
+        dense = _assembled(grid, lambda g, x: g.unstack(x))
 
         def post(res):
             out, rvals = res
-            return grid.unstack(out), _sampled(prob, plan, rvals)
+            return dense(out), _sampled(prob, plan, rvals)
 
         return (d15.fusedmm_d15, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -323,8 +362,8 @@ class _S15(Algorithm):
     auto_elisions = ("fused", "reuse", "none")
     _sched_mod = s15
 
-    def make_grid(self, c, devices):
-        return make_grid15(c, devices=devices)
+    def make_grid(self, c, devices, group=None):
+        return make_grid15(c, devices=devices, group=group)
 
     def make_plan(self, prob, orient):
         if orient != "normal":
@@ -342,7 +381,7 @@ class _S15(Algorithm):
         # rank (u, v) holds the (u*c + v)-th column slice of width r/p
         g = prob.grid
         cols = _columns(_dense(prob, X), g.p)
-        return cols.reshape(g.L, g.c, *cols.shape[1:])
+        return g.local(cols.reshape(g.L, g.c, *cols.shape[1:]))
 
     shard_y = shard_x
 
@@ -351,7 +390,7 @@ class _S15(Algorithm):
         # shared by its fiber
         g = prob.grid
         slabs = _columns(_owned(prob, arr), g.L)
-        return slabs[:, None].expand(g.L, g.c, *slabs.shape[1:])
+        return g.local(slabs[:, None].expand(g.L, g.c, *slabs.shape[1:]))
 
     def _words_plan(self, prob, op, elision, session):
         pre = session is not None
@@ -380,7 +419,8 @@ class _S15(Algorithm):
         b, pre = self._gathered(prob, Y, "y", session)
         return (s15.spmma_s15, (prob.grid, plan, b),
                 dict(pre_gathered=pre),
-                lambda slabs: s15.assemble_spmm_out(prob.grid, plan, slabs))
+                _assembled(prob.grid, lambda g, slabs:
+                           s15.assemble_spmm_out(g, plan, slabs)))
 
     def _spmm_t_call(self, prob, A, vals, session):
         # S stays stationary-by-row, so the transpose runs on the S^T
@@ -389,17 +429,19 @@ class _S15(Algorithm):
         plan = tp.injected_plan("normal", vals)
         a, pre = self._gathered(tp, A, "x", session)
         return (s15.spmma_s15, (tp.grid, plan, a), dict(pre_gathered=pre),
-                lambda slabs: s15.assemble_spmm_out(tp.grid, plan, slabs))
+                _assembled(tp.grid, lambda g, slabs:
+                           s15.assemble_spmm_out(g, plan, slabs)))
 
     def _fusedmm_call(self, prob, X, Y, elision, session):
         grid = prob.grid
         plan = prob.plan("normal")
         a, b, pre = self._both(prob, X, Y, session)
+        dense = _assembled(grid, lambda g, slabs:
+                           s15.assemble_spmm_out(g, plan, slabs))
 
         def post(res):
             slabs, rvals = res
-            return (s15.assemble_spmm_out(grid, plan, slabs),
-                    _sampled(prob, plan, rvals))
+            return dense(slabs), _sampled(prob, plan, rvals)
 
         return (s15.fusedmm_s15, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -416,8 +458,8 @@ class _D25(Algorithm):
     auto_elisions = ("fused", "reuse", "none")
     _sched_mod = d25
 
-    def make_grid(self, c, devices):
-        return make_grid25(c, devices=devices)
+    def make_grid(self, c, devices, group=None):
+        return make_grid25(c, devices=devices, group=group)
 
     def make_plan(self, prob, orient):
         kw = dict(row_tile=prob.row_tile, nz_block=prob.nz_block,
@@ -466,7 +508,7 @@ class _D25(Algorithm):
         plan = prob.injected_plan("normal", vals)
         return (d25.spmma_d25,
                 (prob.grid, plan, d25.skew_b(prob.grid, _dense(prob, Y))),
-                {}, lambda out: d25.unshard_rows(prob.grid, out))
+                {}, _assembled(prob.grid, d25.unshard_rows))
 
     def _spmm_t_call(self, prob, A, vals, session):
         # the FusedMMB half on S's transpose pack, which is the
@@ -475,7 +517,8 @@ class _D25(Algorithm):
         a, pre = self._gathered(prob, A, "x", session)
         return (d25.spmmb_d25, (prob.grid, plan, a),
                 dict(pre_gathered=pre),
-                lambda out: d25.unskew_out(prob.grid, plan, out))
+                _assembled(prob.grid, lambda g, out:
+                           d25.unskew_out(g, plan, out)))
 
     def _fusedmm_call(self, prob, X, Y, elision, session):
         grid = prob.grid
@@ -488,13 +531,12 @@ class _D25(Algorithm):
             a_host, slot, b_host = X, "x", Y
         a, pre = self._gathered(prob, a_host, slot, session)
         b = d25.skew_b(grid, _dense(prob, b_host))
+        dense = _assembled(grid, (lambda g, out: d25.unskew_out(g, plan, out))
+                           if elision == "reuse" else d25.unshard_rows)
 
         def post(res):
             out, rvals = res
-            res_R = _sampled(prob, plan, rvals)
-            if elision == "reuse":
-                return d25.unskew_out(grid, plan, out), res_R
-            return d25.unshard_rows(grid, out), res_R
+            return dense(out), _sampled(prob, plan, rvals)
 
         return (d25.fusedmm_d25, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -514,8 +556,8 @@ class _S25(Algorithm):
     auto_elisions = ("reuse", "none")
     _sched_mod = s25
 
-    def make_grid(self, c, devices):
-        return make_grid25(c, devices=devices)
+    def make_grid(self, c, devices, group=None):
+        return make_grid25(c, devices=devices, group=group)
 
     def make_plan(self, prob, orient):
         if orient != "normal":
@@ -544,10 +586,11 @@ class _S25(Algorithm):
     def _triples(prob, plan, rv):
         def triples():
             G = prob.grid.G
-            full = rv.reshape(G, G, plan.rows_local.shape[3], rv.shape[-1])
+            rl, cl, tb, full = prob.grid.gather_stacked(
+                (plan.rows_local, plan.cols, plan.tile_base, rv))
+            full = full.reshape(G, G, rl.shape[3], full.shape[-1])
             return plan.meta.block_meta.to_triples(
-                plan.rows_local[:, :, 0], plan.cols[:, :, 0], full,
-                plan.tile_base[:, :, 0])
+                rl[:, :, 0], cl[:, :, 0], full, tb[:, :, 0])
         return triples
 
     def _words_plan(self, prob, op, elision, session):
@@ -568,7 +611,8 @@ class _S25(Algorithm):
     def _spmm_call(self, prob, Y, vals, session):
         plan = prob.injected_plan("normal", vals)
         return (s25.spmma_s25, (prob.grid, plan, self.shard_y(prob, Y)),
-                {}, lambda out: s25.unskew_out(prob.grid, plan, out))
+                {}, _assembled(prob.grid, lambda g, out:
+                               s25.unskew_out(g, plan, out)))
 
     def _spmm_t_call(self, prob, A, vals, session):
         # spmm on the transposed problem (structure re-replicated on the
@@ -576,17 +620,18 @@ class _S25(Algorithm):
         tp = prob.transposed()
         plan = tp.injected_plan("normal", vals)
         return (s25.spmma_s25, (tp.grid, plan, self.shard_y(tp, A)), {},
-                lambda out: s25.unskew_out(tp.grid, plan, out))
+                _assembled(tp.grid, lambda g, out:
+                           s25.unskew_out(g, plan, out)))
 
     def _fusedmm_call(self, prob, X, Y, elision, session):
         grid = prob.grid
         plan = prob.plan("normal")
+        dense = _assembled(grid, lambda g, out: s25.unskew_out(g, plan, out))
 
         def post(res):
             out, rvals = res
-            return (s25.unskew_out(grid, plan, out),
-                    SparseResult(prob, rvals,
-                                 self._triples(prob, plan, rvals)))
+            return dense(out), SparseResult(prob, rvals,
+                                            self._triples(prob, plan, rvals))
 
         return (s25.fusedmm_s25, (grid, plan, self.shard_x(prob, X),
                                   self.shard_y(prob, Y)),
@@ -624,7 +669,7 @@ class DistProblem:
     _coo_sort: Optional[tuple] = None
     _transposed: Optional["DistProblem"] = None
     #: the collective log of the last executor call on this problem
-    last_collectives: Optional[Stacked] = None
+    last_collectives: Optional[Backend] = None
 
     # -- metadata ------------------------------------------------------------
     @property
@@ -887,16 +932,20 @@ class Session:
 
 def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
                  algorithm: str = "auto", c: int | None = None,
-                 devices=None, row_tile: int = 32,
+                 devices=None, group=None, row_tile: int = 32,
                  nz_block: int = 32, comm: str = "dense",
                  compress: Optional[str] = None) -> DistProblem:
     """Build a DistProblem, dispatching the algorithm by the cost model.
 
     ``devices=None`` means one CUDA device (raises without one); pass
     ``[torch.device("cpu")] * p`` for p stacked ranks on the CPU.
+    ``group``: a ``torch.distributed`` process group of p processes, each
+    of which makes this call with the same arguments and gets its own
+    rank's problem; ``devices`` then names each rank's device (default:
+    every process's current card; NCCL for cards, gloo for the CPU).
     algorithm="auto" ranks every feasible (family, elision, c) of the
-    four families by Table III, as the reference does; a family name
-    pins the family and picks its best feasible c (or the caller's
+    four families by Table III at p, as the reference does; a family
+    name pins the family and picks its best feasible c (or the caller's
     ``c``).  Only the dense wire
     format is ported.
     """
@@ -917,12 +966,16 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
         raise ValueError(f"unknown algorithm {algorithm!r}; registered: "
                          f"{sorted(ALGORITHMS)}")
     grid_devices = list(devices) if devices is not None else None
-    p = len(grid_devices) if grid_devices is not None else 1
+    if group is not None:
+        import torch.distributed as dist
+        p = dist.get_world_size(group)
+    else:
+        p = len(grid_devices) if grid_devices is not None else 1
     families = costmodel.FAMILIES if algorithm == "auto" else (algorithm,)
     choice = costmodel.choose_algorithm(m=m, n=n, nnz=len(vals), r=r, p=p,
                                         c=c, families=families)
     alg = ALGORITHMS[choice.family]
-    grid = alg.make_grid(choice.c, grid_devices)
+    grid = alg.make_grid(choice.c, grid_devices, group)
     return DistProblem(alg, grid, np.asarray(rows), np.asarray(cols),
                        np.asarray(vals, np.float32), m, n, r,
                        row_tile=row_tile, nz_block=nz_block, comm=comm,

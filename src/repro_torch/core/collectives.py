@@ -1,10 +1,13 @@
-"""Stacked collectives: the p ranks of a grid in one process.
+"""The collective layer of the executors: two backends, one interface.
 
 Stands in for the ``jax.lax`` collectives of the reference's
 ``shard_map`` bodies.  Every distributed tensor carries the grid's rank
 axes in front (``grid.shape``: ``(L, c)`` for ``Grid15``, ``(G, G, c)``
-for ``Grid25``, "fiber" always last), and each collective is a fixed
-tensor operation on them:
+for ``Grid25``, "fiber" always last), with the blocks this process holds
+(``grid.local_shape``).
+
+:class:`Stacked` runs the p ranks of a grid in one process, and each
+collective is a fixed tensor operation on the rank axes:
 
   shift        ``ppermute`` over one rank axis: a roll of its dimension,
                i -> i+1, or i -> i-1 with ``back=True`` (Cannon)
@@ -14,6 +17,13 @@ tensor operation on them:
                columns (a broadcast view over the fiber either way)
   psum_scatter tiled over "fiber": the c partials of each fiber summed
                in fiber order 0..c-1, then split back into c row blocks
+
+:class:`Dist` runs one rank per process over ``torch.distributed``
+(NCCL across cards, gloo on the CPU) and gives each rank the same bits:
+a shift is a point-to-point exchange with the neighbours on the axis,
+the all-gather ``all_gather_into_tensor`` on the fiber subgroup, and the
+reduce-scatter an ``all_to_all_single`` followed by a local sum in fiber
+order 0..c-1 (a reduce-scatter of the backend would not fix the order).
 
 Every call appends one :class:`Event` to ``log`` with the words one
 device receives (all_gather, shift) or sends (psum_scatter) -- the
@@ -40,8 +50,9 @@ class Event:
     point: Optional[Tuple[str, int]] = None   # schedule event it belongs to
 
 
-class Stacked:
-    """The stacked collective backend of one grid, with its event log."""
+class Backend:
+    """The event log both backends keep, and the issue/wait pair of an
+    overlapped move."""
 
     def __init__(self, grid):
         self.grid = grid
@@ -51,8 +62,35 @@ class Stacked:
         self.log.append(Event(kind, axis, float(words), point))
 
     def _rank(self, x: torch.Tensor) -> torch.Tensor:
-        """One rank's block of a stacked tensor."""
+        """One rank's block of a tensor in local storage."""
         return x[(0,) * self.grid.ndim]
+
+    def issue(self, fn: Callable):
+        """``(fn(), works)``: the moves ``fn`` makes, still in flight in
+        ``works`` (none on the stacked backend); :meth:`wait` them before
+        their results are read."""
+        return fn(), ()
+
+    def wait(self, works) -> None:
+        del works
+
+    def words(self):
+        """Per-event (kind, words) in issue order; the moves tagged with
+        one schedule point count as one event, where the first was."""
+        out, at = [], {}
+        for e in self.log:
+            if e.point is not None and e.point in at:
+                kind, w = out[at[e.point]]
+                out[at[e.point]] = (kind, w + e.words)
+                continue
+            if e.point is not None:
+                at[e.point] = len(out)
+            out.append((e.kind, e.words))
+        return out
+
+
+class Stacked(Backend):
+    """The stacked collective backend of one grid, with its event log."""
 
     def shift(self, x: torch.Tensor, axis: str | None = None, *,
               back: bool = False, point=None) -> torch.Tensor:
@@ -95,24 +133,116 @@ class Stacked:
             acc = acc + x.select(nd - 1, v)
         return acc.reshape(*x.shape[:nd], rows, *x.shape[nd + 1:])
 
-    def words(self):
-        """Per-event (kind, words) in issue order; the moves tagged with
-        one schedule point count as one event, where the first was."""
-        out, at = [], {}
-        for e in self.log:
-            if e.point is not None and e.point in at:
-                kind, w = out[at[e.point]]
-                out[at[e.point]] = (kind, w + e.words)
-                continue
-            if e.point is not None:
-                at[e.point] = len(out)
-            out.append((e.kind, e.words))
+
+class Dist(Backend):
+    """The ``torch.distributed`` backend: this process's rank of a grid
+    made with a process group, one rank per process, with the event log
+    of :class:`Stacked` and the same bits on every rank.
+
+    Each shift is one ``batch_isend_irecv`` on global ranks.  Inside
+    :meth:`issue` its works are handed back unfinished, so an overlapped
+    ring runs it beside the kernel in flight; elsewhere each collective
+    is waited on before it returns.  On NCCL a wait orders the current
+    stream after the collective and does not block the host."""
+
+    def __init__(self, grid):
+        if grid.group is None:
+            raise ValueError("the torch.distributed backend needs a grid "
+                             "made with a process group")
+        super().__init__(grid)
+        self._inflight = None     # the works of an issue() in progress
+        self._tag = 0             # one tag per shift, the same on all ranks
+
+    def issue(self, fn: Callable):
+        self._inflight = []
+        try:
+            return fn(), self._inflight
+        finally:
+            self._inflight = None
+
+    def wait(self, works) -> None:
+        for w in works:
+            w.wait()
+
+    def _done(self, works) -> None:
+        if self._inflight is not None:
+            self._inflight.extend(works)
+        else:
+            self.wait(works)
+
+    def shift(self, x: torch.Tensor, axis: str | None = None, *,
+              back: bool = False, point=None) -> torch.Tensor:
+        """Cyclic shift over ``axis`` (default: the grid's first): this
+        rank receives rank i-1's block, or rank i+1's with ``back=True``."""
+        import torch.distributed as dist
+        g = self.grid
+        axis = axis or g.axes[0]
+        d = g.dim(axis)
+        self._note("collective-permute", axis, self._rank(x).numel(), point)
+        size = g.shape[d]
+        if size == 1:
+            return x
+        step = -1 if back else 1
+        me = g.coords
+        to = me[:d] + ((me[d] + step) % size,) + me[d + 1:]
+        frm = me[:d] + ((me[d] - step) % size,) + me[d + 1:]
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        self._tag += 1
+        self._done(dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, g.global_rank(to), g.group, self._tag),
+            dist.P2POp(dist.irecv, out, g.global_rank(frm), g.group,
+                       self._tag)]))
         return out
 
+    def all_gather(self, x: torch.Tensor, *, cols: bool = False,
+                   point=None) -> torch.Tensor:
+        """Tiled all-gather over "fiber": this rank's (rows, r) block ->
+        (c*rows, r), or with ``cols`` (rows, c*r), in local storage."""
+        import torch.distributed as dist
+        g, c = self.grid, self.grid.c
+        blk = self._rank(x)
+        self._note("all-gather", g.fiber, (c - 1) * blk.numel(), point)
+        if c == 1:
+            return x
+        blk = blk.contiguous()
+        out = blk.new_empty((c * blk.shape[0], *blk.shape[1:]))
+        self.wait([dist.all_gather_into_tensor(out, blk, group=g.fiber_group,
+                                               async_op=True)])
+        if cols:
+            out = out.reshape(c, *blk.shape).movedim(0, 1).reshape(
+                blk.shape[0], c * blk.shape[1])
+        return out.reshape(*g.local_shape, *out.shape)
 
-def stacked(grid, coll: Stacked | None = None) -> Stacked:
-    """The caller's collective backend, else a fresh one for ``grid``."""
-    return coll if coll is not None else Stacked(grid)
+    def psum_scatter(self, x: torch.Tensor, *, point=None) -> torch.Tensor:
+        """Tiled reduce-scatter over "fiber": this rank's (c*rows, r)
+        partial -> its (rows, r) block of the sum, summed in fiber order."""
+        import torch.distributed as dist
+        g, c = self.grid, self.grid.c
+        blk = self._rank(x)
+        rows = blk.shape[0] // c
+        self._note("reduce-scatter", g.fiber,
+                   (c - 1) * rows * blk.shape[1:].numel(), point)
+        if c == 1:
+            return x
+        blk = blk.contiguous()
+        parts = torch.empty_like(blk)
+        self.wait([dist.all_to_all_single(parts, blk, group=g.fiber_group,
+                                          async_op=True)])
+        parts = parts.reshape(c, rows, *blk.shape[1:])
+        acc = parts[0]
+        for v in range(1, c):
+            acc = acc + parts[v]
+        return acc.reshape(*g.local_shape, *acc.shape)
+
+
+def coll_for(grid, coll: Backend | None = None) -> Backend:
+    """The caller's collective backend, else a fresh one for ``grid``:
+    :class:`Dist` for a grid made with a process group, else
+    :class:`Stacked`."""
+    if coll is not None:
+        return coll
+    return Stacked(grid) if grid.group is None else Dist(grid)
 
 
 class Ring:
@@ -124,14 +254,19 @@ class Ring:
     round's final position is dead, as many when the operand must come
     home.  ``overlap`` issues each shift one phase ahead (before the
     kernel that reads the current operand), as the reference's double
-    buffer does; on one stream that changes the order, not the result.
+    buffer does: on the stacked backend that changes the order, not the
+    result; under :class:`Dist` the shift is in flight while the kernel
+    runs, and :meth:`advance` waits on it before its operand is read.
     """
 
-    def __init__(self, move: Callable, x, n_shifts: int, overlap: bool):
-        self.move, self.n, self.overlap = move, n_shifts, overlap
+    def __init__(self, coll: Backend, move: Callable, x, n_shifts: int,
+                 overlap: bool):
+        self.coll, self.move, self.n = coll, move, n_shifts
+        self.overlap = overlap
         self.issued = 0
         self.cur = x
-        self.nxt = self._shift(x) if overlap else None
+        self.nxt, self.works = coll.issue(lambda: self._shift(x)) \
+            if overlap else (None, ())
 
     def _shift(self, x):
         if x is None or self.issued >= self.n:
@@ -141,25 +276,28 @@ class Ring:
 
     def advance(self):
         if self.overlap:
+            self.coll.wait(self.works)
             self.cur = self.nxt
-            self.nxt = self._shift(self.nxt)
+            self.nxt, self.works = self.coll.issue(
+                lambda: self._shift(self.cur))
         else:
             self.cur = self._shift(self.cur)
 
 
-def cannon_ring(coll: Stacked, x, axis: str, n_shifts: int, *,
+def cannon_ring(coll: Backend, x, axis: str, n_shifts: int, *,
                 overlap: bool = False, start: int = 0) -> Ring:
     """A tensor traveling back (i -> i-1) along ``axis``, as the 2.5D
     Cannon rounds move them; its k-th shift is the schedule's shift
     event ``start + k``."""
-    return Ring(lambda y, k: coll.shift(y, axis, back=True,
-                                        point=("shift", start + k)),
+    return Ring(coll, lambda y, k: coll.shift(y, axis, back=True,
+                                              point=("shift", start + k)),
                 x, n_shifts, overlap)
 
 
 def on_ranks(grid, fn):
-    """Stacked result(s) of ``fn(*rank)`` over every rank of ``grid``:
-    the local kernels of one phase, one call per rank."""
+    """Result(s) of ``fn(*rank)`` over the ranks this process holds, in
+    local storage: the local kernels of one phase, one call per rank
+    (one call per process under a process group)."""
     outs = [fn(*rank) for rank in grid.ranks()]
     if isinstance(outs[0], tuple):
         return tuple(_stack(grid, [o[i] for o in outs])
@@ -169,8 +307,8 @@ def on_ranks(grid, fn):
 
 def _stack(grid, outs):
     if len(outs) == 1:
-        return outs[0].reshape(*grid.shape, *outs[0].shape)
-    return torch.stack(outs).reshape(*grid.shape, *outs[0].shape)
+        return outs[0].reshape(*grid.local_shape, *outs[0].shape)
+    return torch.stack(outs).reshape(*grid.local_shape, *outs[0].shape)
 
 
 def acc(total, contrib):

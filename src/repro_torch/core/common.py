@@ -36,8 +36,10 @@ def dense_comm_only(comm: str, compress) -> None:
 
 def put_ranks(a: np.ndarray, grid) -> torch.Tensor:
     """Per-rank host arrays stacked (p, ...) in rank order -> a tensor
-    with the grid's rank axes in front, on the grid's device."""
-    a = np.ascontiguousarray(a.reshape(*grid.shape, *a.shape[1:]))
+    with the grid's rank axes in front, on the grid's device (this
+    process's share under a process group)."""
+    a = np.ascontiguousarray(grid.local(a.reshape(*grid.shape,
+                                                  *a.shape[1:])))
     return torch.from_numpy(a).to(grid.device)
 
 
@@ -102,7 +104,9 @@ def kernel_kwargs(plan, backend) -> dict:
 
 
 def merge_tilings(tilings) -> costmodel.Tiling:
-    """Conservative merge across phases: knobs every phase supports."""
+    """Conservative merge across phases: knobs every phase supports (a
+    divisor of a group size every aligned run of which shares one row
+    window is one too, so the gcd stays proved)."""
     tilings = list(tilings)
     r_tile = tilings[0].r_tile
     bps = tilings[0].blocks_per_step
@@ -112,9 +116,14 @@ def merge_tilings(tilings) -> costmodel.Tiling:
     return costmodel.Tiling(r_tile=r_tile, blocks_per_step=bps)
 
 
-def coo_of(rows_local, cols, vals, tile_base, shape, row_tile) -> RowTiledCOO:
-    """Assemble a RowTiledCOO from raw per-rank tensors."""
-    return RowTiledCOO(rows_local, cols, vals, tile_base, shape, row_tile)
+def coo_of(rows_local, cols, vals, tile_base, shape, row_tile,
+           tiling: costmodel.Tiling | None = None) -> RowTiledCOO:
+    """Assemble a RowTiledCOO from raw per-rank tensors; ``tiling`` is
+    the plan's, whose ``blocks_per_step`` the planner proved for every
+    pack of the plan (so the kernel wrappers need not check it again)."""
+    return RowTiledCOO(rows_local, cols, vals, tile_base, shape, row_tile,
+                       window_groups=1 if tiling is None
+                       else tiling.blocks_per_step)
 
 
 def choose_row_tile(height: int, want: int = 256) -> int:

@@ -1,6 +1,7 @@
 """1.5D dense-shifting, dense-replicating algorithms (paper Algorithm 1).
 
-Port of ``repro.core.d15`` over the stacked collective layer.
+Port of ``repro.core.d15`` over the collective layer
+(``core/collectives.py``: stacked, or one rank per process).
 
 Grid: ("layer" = p/c, "fiber" = c).  The sparse matrix S is STATIONARY
 (block (u, j) lives on rank (u, j % c)), one dense matrix is REPLICATED
@@ -13,15 +14,16 @@ block ((u - t) mod L) * c + v.  The planner packs, for every (rank,
 phase), the RowTiledCOO of the S block the local kernel needs, padded
 per phase, plus a static kernel tiling chosen from the pack statistics.
 
-Executors take and return *stacked* tensors: every dense operand has
-leading (L, c) rank axes (``Grid15.stack``), a pre-gathered operand is
+Executors take and return tensors with leading (L, c) rank axes (the
+blocks this process holds, ``Grid15.stack``): a pre-gathered operand is
 (L, c, c * rows, r), and sampled values come back as one (L, c, nb_t, k)
-tensor per phase.  Each phase runs the local kernel once per rank.  The
-phase loops keep the reference's issue order: with ``overlap=True`` the
-shift of the *next* B is issued before the current phase's kernel (on
-one stream it cannot hide yet; the order is kept for the distributed
-backend), and a traveling accumulator precomputes the next phase's
-contribution before its shift.  Shifts whose result no one reads (the
+tensor per phase.  Each phase runs the local kernel once per rank held.
+The phase loops keep the reference's issue order: with ``overlap=True``
+the shift of the *next* B is issued before the current phase's kernel
+(in flight beside it under the torch.distributed backend; on the
+stacked one only the order changes), and a traveling accumulator
+precomputes the next phase's contribution while its shift is in
+flight.  Shifts whose result no one reads (the
 cycle-closing ones the reference's compiler drops) are not issued, so
 the collective log equals :func:`schedule_words` event for event.
 
@@ -40,8 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import common, costmodel
-from repro_torch.core.collectives import (Ring, Stacked, acc, on_ranks,
-                                          stacked)
+from repro_torch.core.collectives import (Backend, Ring, acc, coll_for,
+                                          on_ranks)
 from repro_torch.core.grid import Grid15
 from repro_torch.kernels import ops
 
@@ -142,28 +144,32 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
                    common.merge_tilings(tilings), meta)
 
 
-def _coo(plan: PlanD15, t: int, u: int, v: int, vals=None):
-    """Rank (u, v)'s phase-t pack, optionally with new values."""
-    return common.coo_of(plan.rows_local[t][u, v], plan.cols[t][u, v],
-                         plan.vals[t][u, v] if vals is None else vals[u, v],
-                         plan.tile_base[t][u, v], plan.block_shape,
-                         plan.row_tile)
+def _coo(plan: PlanD15, t: int, i, vals=None):
+    """The phase-t pack at storage index ``i``, optionally with new
+    values."""
+    return common.coo_of(plan.rows_local[t][i], plan.cols[t][i],
+                         plan.vals[t][i] if vals is None else vals[i],
+                         plan.tile_base[t][i], plan.block_shape,
+                         plan.row_tile, plan.tiling)
 
 
 def _ring(coll, x, n_shifts, overlap):
-    return Ring(lambda y, k: coll.shift(y), x, n_shifts, overlap)
+    return Ring(coll, lambda y, k: coll.shift(y), x, n_shifts, overlap)
 
 
 def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
     def one(u, v):
-        args = (B_t[u, v], T[u, v]) if swap else (T[u, v], B_t[u, v])
-        return ops.sddmm(*args, _coo(plan, t, u, v), **tk).vals
+        i = grid.at(u, v)
+        args = (B_t[i], T[i]) if swap else (T[i], B_t[i])
+        return ops.sddmm(*args, _coo(plan, t, i), **tk).vals
     return on_ranks(grid, one)
 
 
 def _spmm_phase(grid, plan, t, vals, D, m, tk):
-    return on_ranks(grid, lambda u, v: ops.spmm(
-        _coo(plan, t, u, v, vals), D[u, v], m=m, **tk))
+    def one(u, v):
+        i = grid.at(u, v)
+        return ops.spmm(_coo(plan, t, i, vals), D[i], m=m, **tk)
+    return on_ranks(grid, one)
 
 
 def _sddmm_phases(grid, coll, plan, T, B0, overlap, tk, swap=False,
@@ -220,8 +226,8 @@ def schedule_words(grid: Grid15, plan: PlanD15, op: str,
     Returns ``(point, phase, kind, words)`` tuples aligned 1:1 with
     :func:`schedule_events`; ``kind`` names the collective (None for
     compute phases), and a cycle-closing shift whose result no one reads
-    costs 0 words.  The executors' collective log
-    (``collectives.Stacked.log``) holds exactly the events with words.
+    costs 0 words.  The executors' collective log (``log`` of either
+    backend in ``collectives``) holds exactly the events with words.
     """
     L, c, p = grid.L, grid.c, grid.p
     ag = 0.0 if pre_gathered else float((c - 1) * (plan.m // p) * plan.r)
@@ -265,13 +271,13 @@ def resolve_elision(elision: str, transpose: bool) -> str:
 
 
 def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
-              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              pre_gathered: bool = False, *, coll: Backend | None = None,
               backend: str | None = None):
     """R = S * (A @ B.T); returns per-phase vals, T x (L, c, nb_t, k).
 
     pre_gathered=True: A arrives already fiber-replicated, (L, c, c * m/p,
     r), and the all-gather is skipped."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     T = _gather(coll, A, pre_gathered)                     # (c m/p, r)
     r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap,
                               common.kernel_kwargs(plan, backend))
@@ -279,9 +285,9 @@ def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
 
 
 def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
-              coll: Stacked | None = None, backend: str | None = None):
+              coll: Backend | None = None, backend: str | None = None):
     """A = S @ B with A replicated as output, reduce-scattered at the end."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     ring = _ring(coll, B, grid.L - 1, overlap)
     T = None
@@ -293,7 +299,7 @@ def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
 
 
 def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
-              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              pre_gathered: bool = False, *, coll: Backend | None = None,
               backend: str | None = None):
     """B = S.T @ A: A replicated-in; the shifting B buffer accumulates.
 
@@ -302,7 +308,7 @@ def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
     contribution before the current shift."""
     if not plan.transpose:
         raise ValueError("spmmb_d15 needs a transpose-packed plan")
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     T = _gather(coll, A, pre_gathered)
     return _traveling_spmm(grid, coll, plan, T, None, overlap, tk)
@@ -322,9 +328,10 @@ def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
     if overlap:
         nxt = contrib(0)
         for t in range(L):
-            B_cur = coll.shift(acc(B_cur, nxt))
+            B_cur, works = coll.issue(lambda: coll.shift(acc(B_cur, nxt)))
             if t + 1 < L:
                 nxt = contrib(t + 1)
+            coll.wait(works)
     else:
         for t in range(L):
             B_cur = coll.shift(acc(B_cur, contrib(t)))
@@ -337,7 +344,7 @@ def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
 
 def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
                 overlap: bool = True, pre_gathered: bool = False, *,
-                coll: Stacked | None = None, backend: str | None = None):
+                coll: Backend | None = None, backend: str | None = None):
     """FusedMM on the 1.5D dense-shifting grid.
 
     elision="auto"  : resolve via the cost model (see resolve_elision)
@@ -351,7 +358,7 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     Returns (stacked out, per-phase R vals tuple).
     """
     elision = resolve_elision(elision, plan.transpose)
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     L = grid.L
 
@@ -387,7 +394,7 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         T2, r_vals = None, []
         for t in range(L):
             contrib, R_t = on_ranks(grid, lambda u, v: _fused_local(
-                plan, t, u, v, T, ring.cur, tk))
+                plan, t, grid.at(u, v), T, ring.cur, tk))
             T2 = acc(T2, contrib)
             r_vals.append(R_t)
             ring.advance()
@@ -396,7 +403,6 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     raise ValueError(f"unknown elision {elision!r}")
 
 
-def _fused_local(plan, t, u, v, T, B_t, tk):
-    out, R = ops.fusedmm(T[u, v], B_t[u, v], _coo(plan, t, u, v),
-                         m=plan.cmA, **tk)
+def _fused_local(plan, t, i, T, B_t, tk):
+    out, R = ops.fusedmm(T[i], B_t[i], _coo(plan, t, i), m=plan.cmA, **tk)
     return out, R.vals

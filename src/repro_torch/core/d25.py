@@ -1,6 +1,7 @@
 """2.5D dense-replicating algorithms (paper Algorithm 2).
 
-Port of ``repro.core.d25`` over the stacked collective layer.
+Port of ``repro.core.d25`` over the collective layer
+(``core/collectives.py``: stacked, or one rank per process).
 
 Grid: ("row" = G, "col" = G, "fiber" = c) with p = G^2 c.  Each fiber
 layer runs a concurrent Cannon pass on its G x G grid: the sparse matrix
@@ -36,8 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import common, costmodel
-from repro_torch.core.collectives import (Ring, Stacked, acc, cannon_ring,
-                                          on_ranks, stacked)
+from repro_torch.core.collectives import (Backend, Ring, acc, cannon_ring,
+                                          coll_for, on_ranks)
 from repro_torch.core.grid import Grid25
 from repro_torch.kernels import ops
 
@@ -91,7 +92,7 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
     part = common.block_partition(np.asarray(rows), np.asarray(cols),
                                   np.asarray(vals), mS, nS, G * c)
     blocks, row_off, col_off = [], [], []
-    for x, y, z in grid.ranks():
+    for x, y, z in grid.all_ranks():
         j = ((x + y) % G) * c + z              # Cannon pre-skew
         br, bc, bv = part.get((x, j), common.EMPTY)
         if transpose:
@@ -115,17 +116,17 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
 
 
 def _skew_index(grid: Grid25, device):
-    """(j, y) of every rank's B block: j = ((x + y) mod G)*c + z."""
+    """(j, y) of the B block of every rank held: j = ((x + y) mod G)*c +
+    z."""
     G, c = grid.G, grid.c
-    x, y, z = (torch.arange(s, device=device) for s in grid.shape)
-    j = ((x[:, None, None] + y[None, :, None]) % G) * c + z[None, None, :]
-    return j, y[None, :, None].expand(G, G, c)
+    x, y, z = grid.held_coords(device)
+    return ((x + y) % G) * c + z, y
 
 
 def skew_b(grid: Grid25, B: torch.Tensor) -> torch.Tensor:
     """Pre-skew B (n, r) into its Cannon start position, on its device:
     (G, G, c, n/(Gc), r/G), rank (x, y, z) holding B[j-th row block,
-    y-th column slice]."""
+    y-th column slice] (the blocks this process holds)."""
     G, c = grid.G, grid.c
     n, r = B.shape
     blocks = B.reshape(G * c, n // (G * c), G, r // G).transpose(1, 2)
@@ -146,11 +147,12 @@ def unskew_out(grid: Grid25, plan: PlanD25, stacked) -> torch.Tensor:
 
 def shard_rows(grid: Grid25, X: torch.Tensor) -> torch.Tensor:
     """(m, r) -> the replicated slot's layout (G, G, c, m/(Gc), r/G):
-    rank (x, y, z) holds A[(x*c + z)-th row block, y-th column slice]."""
+    rank (x, y, z) holds A[(x*c + z)-th row block, y-th column slice]
+    (the blocks this process holds)."""
     G, c = grid.G, grid.c
     m, r = X.shape
-    return X.reshape(G, c, m // (G * c), G, r // G).permute(0, 3, 1, 2, 4)\
-        .contiguous()
+    return grid.local(X.reshape(G, c, m // (G * c), G, r // G)
+                      .permute(0, 3, 1, 2, 4)).contiguous()
 
 
 def unshard_rows(grid: Grid25, x: torch.Tensor) -> torch.Tensor:
@@ -162,11 +164,12 @@ def unshard_rows(grid: Grid25, x: torch.Tensor) -> torch.Tensor:
 
 def replicate_rows(grid: Grid25, X: torch.Tensor) -> torch.Tensor:
     """(m, r) -> the gathered layout (G, G, c, m/G, r/G): rows split over
-    the grid row axis, columns over the col axis, shared by the fiber."""
+    the grid row axis, columns over the col axis, shared by the fiber
+    (the blocks this process holds)."""
     G, c = grid.G, grid.c
     m, r = X.shape
     lay = X.reshape(G, m // G, G, r // G).transpose(1, 2).contiguous()
-    return lay[:, :, None].expand(G, G, c, m // G, r // G)
+    return grid.local(lay[:, :, None].expand(G, G, c, m // G, r // G))
 
 
 def _tb_travels(plan: PlanD25) -> bool:
@@ -174,10 +177,10 @@ def _tb_travels(plan: PlanD25) -> bool:
     return plan.row_tile < plan.block_shape[0]
 
 
-def _coo(plan, struct, vals, x, y, z):
+def _coo(plan, struct, vals, i):
     rl, cl, tb = struct
-    return common.coo_of(rl[x, y, z], cl[x, y, z], vals[x, y, z],
-                         tb[x, y, z], plan.block_shape, plan.row_tile)
+    return common.coo_of(rl[i], cl[i], vals[i], tb[i], plan.block_shape,
+                         plan.row_tile, plan.tiling)
 
 
 def _pack_ring(coll, plan, pack, n_shifts, overlap, start=0):
@@ -190,7 +193,7 @@ def _pack_ring(coll, plan, pack, n_shifts, overlap, start=0):
             tb = coll.shift(tb, "col", back=True, point=pt)
         return (*(coll.shift(a, "col", back=True, point=pt)
                   for a in arrs), tb)
-    return Ring(move, pack, n_shifts, overlap)
+    return Ring(coll, move, pack, n_shifts, overlap)
 
 
 def _gather(coll, A, pre_gathered):
@@ -220,10 +223,9 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
         bchunks.append(Bt)
 
         def one(x, y, z):
-            dense = (Bt[x, y, z], T[x, y, z]) if plan.transpose \
-                else (T[x, y, z], Bt[x, y, z])
-            return ops.sddmm(*dense, _coo(plan, st, ones, x, y, z),
-                             **tk).vals
+            i = grid.at(x, y, z)
+            dense = (Bt[i], T[i]) if plan.transpose else (T[i], Bt[i])
+            return ops.sddmm(*dense, _coo(plan, st, ones, i), **tk).vals
 
         dots = on_ranks(grid, one)
         partial = coll.shift(acc(partial, dots), "col", back=True,
@@ -234,8 +236,10 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
 
 
 def _spmm_phase(grid, plan, struct, vals, D, m, tk):
-    return on_ranks(grid, lambda x, y, z: ops.spmm(
-        _coo(plan, struct, vals, x, y, z), D[x, y, z], m=m, **tk))
+    def one(x, y, z):
+        i = grid.at(x, y, z)
+        return ops.spmm(_coo(plan, struct, vals, i), D[i], m=m, **tk)
+    return on_ranks(grid, one)
 
 
 def _cannon_spmm(grid, coll, plan, pack, B0, overlap, tk, start=0):
@@ -269,11 +273,16 @@ def _traveling_spmm(grid, coll, plan, T, pack, overlap, tk, start=0):
 
     out, c_t = None, contrib()
     for t in range(G):
-        out = coll.shift(acc(out, c_t), "row", back=True,
-                         point=("shift", start + t))
+        # the accumulator's shift is in flight while the next phase's
+        # contribution is computed (when overlapping)
+        def move():
+            return coll.shift(acc(out, c_t), "row", back=True,
+                              point=("shift", start + t))
+        out, works = coll.issue(move) if overlap else (move(), ())
         if t + 1 < G:
             pring.advance()
             c_t = contrib()
+        coll.wait(works)
     return out
 
 
@@ -373,7 +382,7 @@ def resolve_elision(elision: str, transpose: bool) -> str:
 # ---------------------------------------------------------------------------
 
 def sddmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, overlap: bool = True,
-              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              pre_gathered: bool = False, *, coll: Backend | None = None,
               backend: str | None = None):
     """R = S * (A @ B.T); values return to the skewed-home layout,
     (G, G, c, nb, k).
@@ -381,7 +390,7 @@ def sddmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, overlap: bool = True,
     A: (G, G, c, m/(Gc), r/G) (:func:`shard_rows`), or with
     ``pre_gathered`` already fiber-replicated, (G, G, c, m/G, r/G)
     (:func:`replicate_rows`), and the all-gather skipped."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     T = _gather(coll, A, pre_gathered)
     partial, *_ = _sddmm_round(grid, coll, plan, T, B_sk, overlap,
                                common.kernel_kwargs(plan, backend))
@@ -389,10 +398,10 @@ def sddmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, overlap: bool = True,
 
 
 def spmma_d25(grid: Grid25, plan: PlanD25, B_sk, overlap: bool = True, *,
-              coll: Stacked | None = None, backend: str | None = None):
+              coll: Backend | None = None, backend: str | None = None):
     """A = S @ B, the output reduce-scattered over the fiber:
     (G, G, c, m/(Gc), r/G) (:func:`unshard_rows`)."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     pack = (plan.rows_local, plan.cols, plan.vals, plan.tile_base)
     T2 = _cannon_spmm(grid, coll, plan, pack, B_sk, overlap,
                       common.kernel_kwargs(plan, backend))
@@ -400,14 +409,14 @@ def spmma_d25(grid: Grid25, plan: PlanD25, B_sk, overlap: bool = True, *,
 
 
 def spmmb_d25(grid: Grid25, plan: PlanD25, A, overlap: bool = True,
-              pre_gathered: bool = False, *, coll: Stacked | None = None,
+              pre_gathered: bool = False, *, coll: Backend | None = None,
               backend: str | None = None):
     """B = S.T @ A on a transpose pack: AG(A) in, the output travels home
     with the propagated pack.  Returns output chunks (G, G, c, n/(Gc),
     r/G) in skewed-home layout (:func:`unskew_out`)."""
     if not plan.transpose:
         raise ValueError("spmmb_d25 needs a transpose-packed plan")
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     T = _gather(coll, A, pre_gathered)
     pack = (plan.rows_local, plan.cols, plan.vals, plan.tile_base)
     return _traveling_spmm(grid, coll, plan, T, pack, overlap,
@@ -416,7 +425,7 @@ def spmmb_d25(grid: Grid25, plan: PlanD25, A, overlap: bool = True,
 
 def fusedmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, elision: str = "auto",
                 overlap: bool = True, pre_gathered: bool = False, *,
-                coll: Stacked | None = None, backend: str | None = None):
+                coll: Backend | None = None, backend: str | None = None):
     """FusedMM on the 2.5D dense-replicating grid.
 
     elision="auto" : resolve by the pack (see resolve_elision)
@@ -442,7 +451,7 @@ def fusedmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, elision: str = "auto",
         raise ValueError(f"elision={elision!r} needs a "
                          f"{'transpose' if elision == 'reuse' else 'normal'}"
                          f"-packed plan")
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     G = grid.G
     T = _gather(coll, A, pre_gathered)

@@ -1,6 +1,7 @@
 """1.5D sparse-shifting, dense-replicating algorithms (paper §V-B).
 
-Port of ``repro.core.s15`` over the stacked collective layer.
+Port of ``repro.core.s15`` over the collective layer
+(``core/collectives.py``: stacked, or one rank per process).
 
 Grid: ("layer" = p/c, "fiber" = c).  The DENSE matrices are stationary,
 column-split across ranks and replicated (all-gathered) along the fiber;
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import common, costmodel
-from repro_torch.core.collectives import Stacked, on_ranks, stacked
+from repro_torch.core.collectives import Backend, coll_for, on_ranks
 from repro_torch.core.grid import Grid15
 from repro_torch.kernels import ops
 
@@ -102,10 +103,10 @@ def _tb_travels(plan: PlanS15) -> bool:
     return plan.row_tile < plan.mS
 
 
-def _coo(plan, struct, u, v, vals):
+def _coo(plan, struct, i, vals):
     rl, cl, tb = struct
-    return common.coo_of(rl[u, v], cl[u, v], vals[u, v], tb[u, v],
-                         (plan.mS, plan.n), plan.row_tile)
+    return common.coo_of(rl[i], cl[i], vals[i], tb[i], (plan.mS, plan.n),
+                         plan.row_tile, plan.tiling)
 
 
 def _shift_pack(coll, plan, xs, t):
@@ -135,13 +136,14 @@ def _sddmm_round(grid, coll, plan, T_A, T_B, tk, keep_struct):
     L, c, mS = grid.L, grid.c, plan.mS
     struct = (plan.rows_local, plan.cols, plan.tile_base)
     ones = torch.ones_like(plan.vals[0, 0])
-    ones = ones.expand(L, c, *ones.shape)
+    ones = ones.expand(*grid.local_shape, *ones.shape)
     partial, structs = None, []
 
     def one(u, v):
+        i = grid.at(u, v)
         off = (((u - t) % L) * c + v) * mS   # resident block's rows
-        return ops.sddmm(T_A[u, v, off:off + mS], T_B[u, v],
-                         _coo(plan, struct, u, v, ones), **tk).vals
+        return ops.sddmm(T_A[i][off:off + mS], T_B[i],
+                         _coo(plan, struct, i, ones), **tk).vals
 
     for t in range(L):
         structs.append(struct)
@@ -162,8 +164,8 @@ def _spmm_round(grid, coll, plan, T_B, pack, tk, start=0):
     for t in range(L):
         rl, cl, vl, tb = pack
         slabs.append(on_ranks(grid, lambda u, v: ops.spmm(
-            _coo(plan, (rl, cl, tb), u, v, vl), T_B[u, v], m=plan.mS,
-            **tk)))
+            _coo(plan, (rl, cl, tb), grid.at(u, v), vl),
+            T_B[grid.at(u, v)], m=plan.mS, **tk)))
         if t < L - 1:
             pack = _shift_pack(coll, plan, pack, start + t)
     return _stack_phases(slabs)
@@ -178,8 +180,8 @@ def _spmm_round_cached(grid, coll, plan, T_B, vals, structs, tk):
     slabs = []
     for t in range(L):
         slabs.append(on_ranks(grid, lambda u, v: ops.spmm(
-            _coo(plan, structs[t], u, v, vals), T_B[u, v], m=plan.mS,
-            **tk)))
+            _coo(plan, structs[t], grid.at(u, v), vals),
+            T_B[grid.at(u, v)], m=plan.mS, **tk)))
         if t < L - 1:
             vals = coll.shift(vals, point=("shift", t))
     return _stack_phases(slabs)
@@ -280,13 +282,13 @@ def schedule_words(grid: Grid15, plan: PlanS15, op: str,
 
 def sddmm_s15(grid: Grid15, plan: PlanS15, A, B,
               pre_gathered: tuple = (False, False), *,
-              coll: Stacked | None = None, backend: str | None = None):
+              coll: Backend | None = None, backend: str | None = None):
     """R = S * (A @ B.T); R values return home, (L, c, nb, k).
 
     A, B: column slices (L, c, rows, r/p), or with ``pre_gathered``
     (a, b) the corresponding operand already fiber-replicated, (L, c,
     rows, r*c/p), and its all-gather skipped (Session reuse)."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     pre_a, pre_b = pre_gathered
     T_A = _gather(coll, A, pre_a, 0)
     T_B = _gather(coll, B, pre_b, 1)
@@ -297,12 +299,12 @@ def sddmm_s15(grid: Grid15, plan: PlanS15, A, B,
 
 
 def spmma_s15(grid: Grid15, plan: PlanS15, B, pre_gathered: bool = False,
-              *, coll: Stacked | None = None, backend: str | None = None):
+              *, coll: Backend | None = None, backend: str | None = None):
     """A = S @ B; output slabs stacked by phase, (L, c, L, mS, r*c/p).
 
     pre_gathered=True: B's column slices arrive already fiber-replicated
     and the all-gather is skipped."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     T_B = _gather(coll, B, pre_gathered, 0)
     pack = (plan.rows_local, plan.cols, plan.vals, plan.tile_base)
     return _spmm_round(grid, coll, plan, T_B, pack,
@@ -311,7 +313,7 @@ def spmma_s15(grid: Grid15, plan: PlanS15, B, pre_gathered: bool = False,
 
 def fusedmm_s15(grid: Grid15, plan: PlanS15, A, B, elision: str = "auto",
                 pre_gathered: tuple = (False, False), *,
-                coll: Stacked | None = None, backend: str | None = None):
+                coll: Backend | None = None, backend: str | None = None):
     """FusedMMA = SpMMA(SDDMM(A, B, S), B) with sparse shifting.
 
     elision="auto" : resolves to "fused"
@@ -331,7 +333,7 @@ def fusedmm_s15(grid: Grid15, plan: PlanS15, A, B, elision: str = "auto",
         elision = "fused"
     if elision not in ("none", "reuse", "fused"):
         raise ValueError(f"unknown elision {elision!r}")
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     pre_a, pre_b = pre_gathered
     T_A = _gather(coll, A, pre_a, 0)
@@ -347,8 +349,8 @@ def fusedmm_s15(grid: Grid15, plan: PlanS15, A, B, elision: str = "auto",
         # the unoptimized baseline: each rank takes its own slice back
         # out of the gathered buffer and the fiber gathers it again
         w = T_B.shape[-1] // grid.c
-        B_back = torch.stack([T_B[:, v, :, v * w:(v + 1) * w]
-                              for v in range(grid.c)], dim=1)
+        B_back = on_ranks(grid, lambda u, v:
+                          T_B[grid.at(u, v)][:, v * w:(v + 1) * w])
         T_B = _gather(coll, B_back, False, 2)
     rl, cl, tb = struct
     slabs = _spmm_round(grid, coll, plan, T_B, (rl, cl, r_vals, tb), tk,

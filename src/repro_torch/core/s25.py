@@ -1,6 +1,7 @@
 """2.5D sparse-replicating algorithms (paper §V-D).
 
-Port of ``repro.core.s25`` over the stacked collective layer.
+Port of ``repro.core.s25`` over the collective layer
+(``core/collectives.py``: stacked, or one rank per process).
 
 Grid: ("row" = G, "col" = G, "fiber" = c), p = G^2 c.  The sparse matrix
 is STATIONARY and structure-replicated along the fiber; only its VALUES
@@ -37,8 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import common, costmodel
-from repro_torch.core.collectives import (Stacked, acc, cannon_ring,
-                                          on_ranks, stacked)
+from repro_torch.core.collectives import (Backend, acc, cannon_ring,
+                                          coll_for, on_ranks)
 from repro_torch.core.grid import Grid25
 from repro_torch.kernels import ops
 
@@ -108,31 +109,32 @@ def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
     dev = grid.device
 
     def shared(a):   # one block per (x, y), the same on every fiber rank
+        a = a.reshape(G, G, 1, *a.shape[1:])
+        if grid.group is not None:   # this process's (x, y) block alone
+            x, y, _ = grid.coords
+            a = a[x:x + 1, y:y + 1]
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        t = t.reshape(G, G, 1, *a.shape[1:])
-        return t.expand(G, G, c, *a.shape[1:])
+        return t.expand(*grid.local_shape, *a.shape[3:])
 
     meta = MetaS25(mS, nS, rc, common.BlockMeta(
         (np.arange(G) * mS)[:, None].repeat(G, 1),
         (np.arange(G) * nS)[None, :].repeat(G, 0), (m, n)))
-    vshard = torch.from_numpy(np.ascontiguousarray(
-        vl.reshape(G, G, c, nb // c, vl.shape[-1]))).to(dev)
+    vshard = torch.from_numpy(np.ascontiguousarray(grid.local(
+        vl.reshape(G, G, c, nb // c, vl.shape[-1])))).to(dev)
     return PlanS25(shared(rl), shared(cl), vshard, shared(tb), m, n, r,
                    row_tile, tiling, meta)
 
 
 def _skew_index(grid: Grid25, along: str, device):
-    """(row block, r-chunk) of every rank's start chunk."""
+    """(row block, r-chunk) of the start chunk of every rank held."""
     G, c = grid.G, grid.c
-    x, y, z = (torch.arange(s, device=device) for s in grid.shape)
-    kc = ((x[:, None, None] + y[None, :, None]) % G) * c + z[None, None, :]
-    rows = x[:, None, None] if along == "row" else y[None, :, None]
-    return rows.expand(G, G, c), kc
+    x, y, z = grid.held_coords(device)
+    return (x if along == "row" else y), ((x + y) % G) * c + z
 
 
 def skew_dense(grid: Grid25, X: torch.Tensor, along: str) -> torch.Tensor:
     """Pre-skew a dense (rows, r) matrix into Cannon start chunks on its
-    device: (G, G, c, rows/G, r/(Gc)).
+    device: (G, G, c, rows/G, r/(Gc)) (the chunks this process holds).
 
     along="row": X = A (rows follow the grid-row coordinate x)
     along="col": X = B (rows follow the grid-col coordinate y)
@@ -155,9 +157,9 @@ def unskew_out(grid: Grid25, plan: PlanS25, stacked) -> torch.Tensor:
     return out.transpose(1, 2).reshape(plan.m, plan.r)
 
 
-def _coo(plan, rl, cl, vl, tb, x, y, z):
-    return common.coo_of(rl[x, y, z], cl[x, y, z], vl[x, y, z],
-                         tb[x, y, z], (plan.mS, plan.nS), plan.row_tile)
+def _coo(plan, rl, cl, vl, tb, i):
+    return common.coo_of(rl[i], cl[i], vl[i], tb[i], (plan.mS, plan.nS),
+                         plan.row_tile, plan.tiling)
 
 
 def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
@@ -175,8 +177,8 @@ def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
         A_t, B_t = aring.cur, bring.cur
         bchunks.append(B_t)
         partial = acc(partial, on_ranks(grid, lambda x, y, z: ops.sddmm(
-            A_t[x, y, z], B_t[x, y, z], _coo(plan, rl, cl, ones, tb, x, y, z),
-            **tk).vals))
+            A_t[grid.at(x, y, z)], B_t[grid.at(x, y, z)],
+            _coo(plan, rl, cl, ones, tb, grid.at(x, y, z)), **tk).vals))
         aring.advance()
         bring.advance()
     return partial, bring.cur, bchunks
@@ -194,8 +196,8 @@ def _spmm_round(grid, coll, plan, vals, B0, tk, start=0, bchunks=None):
     for t in range(G):
         B_t = bchunks[t] if bchunks is not None else bring.cur
         contrib = on_ranks(grid, lambda x, y, z: ops.spmm(
-            _coo(plan, rl, cl, vals, tb, x, y, z), B_t[x, y, z],
-            m=plan.mS, **tk))
+            _coo(plan, rl, cl, vals, tb, grid.at(x, y, z)),
+            B_t[grid.at(x, y, z)], m=plan.mS, **tk))
         out = coll.shift(acc(out, contrib), "col", back=True,
                          point=("shift", start + t))
         if bring is not None:
@@ -284,10 +286,10 @@ def schedule_words(grid: Grid25, plan: PlanS25, op: str,
 # ---------------------------------------------------------------------------
 
 def sddmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk, *,
-              coll: Stacked | None = None, backend: str | None = None):
+              coll: Backend | None = None, backend: str | None = None):
     """R = S * (A @ B.T); values end fiber-sharded at home,
     (G, G, c, nb/c, k).  A_sk, B_sk from :func:`skew_dense`."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     partial, _, _ = _sddmm_round(grid, coll, plan, A_sk, B_sk,
                                  common.kernel_kwargs(plan, backend))
     mine = coll.psum_scatter(partial, point=("reduce", grid.G - 1))
@@ -295,17 +297,17 @@ def sddmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk, *,
 
 
 def spmma_s25(grid: Grid25, plan: PlanS25, B_sk, *,
-              coll: Stacked | None = None, backend: str | None = None):
+              coll: Backend | None = None, backend: str | None = None):
     """A = S @ B; output chunks end in skewed-home layout,
     (G, G, c, m/G, r/(Gc)) (:func:`unskew_out`)."""
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     vals = coll.all_gather(plan.vals, point=("phase", 0))   # (nb, k)
     return _spmm_round(grid, coll, plan, vals, B_sk,
                        common.kernel_kwargs(plan, backend))
 
 
 def fusedmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk,
-                elision: str = "auto", *, coll: Stacked | None = None,
+                elision: str = "auto", *, coll: Backend | None = None,
                 backend: str | None = None):
     """FusedMMA on the 2.5D sparse-replicating grid.
 
@@ -324,7 +326,7 @@ def fusedmm_s25(grid: Grid25, plan: PlanS25, A_sk, B_sk,
         raise ValueError(f"s25 supports ('none', 'reuse'), got "
                          f"{elision!r} (local fusion is structurally "
                          f"impossible here)")
-    coll = stacked(grid, coll)
+    coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     G = grid.G
     partial, B_home, bchunks = _sddmm_round(grid, coll, plan, A_sk, B_sk,

@@ -68,6 +68,9 @@ class RowTiledCOO:
     tile_base: torch.Tensor   # int32[nblocks] multiples of row_tile
     shape: Tuple[int, int]
     row_tile: int
+    #: every aligned run of this many blocks shares one tile_base, as
+    #: proved on the host when the pack was planned (1: nothing proved)
+    window_groups: int = 1
 
     @property
     def nblocks(self) -> int:
@@ -88,8 +91,7 @@ class RowTiledCOO:
                               self.vals.reshape(-1), accumulate=True)
 
     def with_vals(self, vals: torch.Tensor) -> "RowTiledCOO":
-        return RowTiledCOO(self.rows_local, self.cols, vals,
-                           self.tile_base, self.shape, self.row_tile)
+        return dataclasses.replace(self, vals=vals)
 
     def to_padded_coo(self) -> PaddedCOO:
         return PaddedCOO(self.rows_global().reshape(-1),

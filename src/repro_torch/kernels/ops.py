@@ -11,7 +11,10 @@ invocation.
 Tiling knobs: every wrapper accepts ``r_tile`` and ``blocks_per_step``.
 Unset, they default through ``costmodel.choose_tiling`` as in the
 reference, and the refusals stay: a non-divisor ``r_tile`` and a
-``blocks_per_step`` that the pack's groups cannot honour raise.
+``blocks_per_step`` that the pack's groups cannot honour raise.  A
+``blocks_per_step`` that divides the pack's ``window_groups`` (proved on
+the host when the plan was made) is not checked again, so the executors'
+launches read nothing back from the card.
 """
 from __future__ import annotations
 
@@ -62,8 +65,7 @@ def _backend(backend: str | None) -> str:
 
 def _groups_share_window(S: RowTiledCOO, g: int) -> bool:
     """Does every aligned run of ``g`` blocks share one tile_base?  (One
-    comparison on the pack's device; the executors pass plan-time knobs
-    through here on every call.)"""
+    comparison on the pack's device, read back to the host.)"""
     if S.nblocks % g:
         return False
     groups = S.tile_base.reshape(-1, g)
@@ -86,6 +88,7 @@ def _resolve_tiling(S: RowTiledCOO, n_b: int, r: int,
     if r % r_tile:
         raise ValueError(f"r_tile={r_tile} does not divide r={r}")
     if blocks_per_step > 1 and not derived_bps \
+            and S.window_groups % blocks_per_step \
             and not _groups_share_window(S, blocks_per_step):
         # merging blocks is only sound when every aligned group shares one
         # row window -- a silently wrong answer otherwise, so refuse here
