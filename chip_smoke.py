@@ -65,18 +65,39 @@ Phases, each printing one JSON line:
            in a serial pass, and d15's overlap against serial (bitwise
            and timed).  A rank that fails, or any still running after
            DIST_TIMEOUT_S, fails the phase, and every rank is stopped.
+           With two cards or more each rank also takes one sampled-loss
+           step (apps/als.py) on the "auto" problem, and its gradients
+           must equal the stacked run's on card 0 bit for bit;
+  train    the training path (core/grads.py, apps/): (A) grads.fusedmm
+           forward + backward on d15 at the main path's size, each cell:
+           launches of the forward and of the backward (the same cell
+           plus two SpMM^T), the backward's collective log against each
+           dual call's schedule_words and costmodel.words_fusedmm_bwd,
+           gradients against backend="ref", a Session bitwise neutral,
+           the memory peak with and without one, median ms and the
+           device split; (B) train_embedding_distributed, 3 SGD steps on
+           the same matrix (vals = |v| + 0.5, algorithm="auto"): the
+           family and c it chose, the loss falling, no packing after the
+           first step, step 1's gradients against backend="ref", ms per
+           step and the device split; (C) one ALS round (cg_iters=10)
+           and three GAT training steps (16 neighbours a row + self
+           loops) at r = d = 128 on 2^--apps-scale rows (2^20 by
+           default): the losses falling, the trainable GAT layer against
+           gat_layer_distributed, packing seconds, ms and device split.
 
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
-line.  ``--scale`` shrinks the main path and the dist phase (2^scale
-rows), ``--families-scale`` the families phase and ``--rmat-scale`` the
+line.  ``--scale`` shrinks the main path, the dist phase and sections A
+and B of the train phase (2^scale rows), ``--families-scale`` the
+families phase, ``--apps-scale`` section C and ``--rmat-scale`` the
 power-law timing for rehearsals;
 ``--phases`` picks phases.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -91,7 +112,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
-PHASES = ("build", "kernels", "main", "families", "stacked", "dist")
+PHASES = ("build", "kernels", "main", "families", "stacked", "dist",
+          "train")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -792,17 +814,29 @@ def words_match(ck, prob, op, el="none"):
 def device_breakdown(torch, fn):
     """Device ms of one call of ``fn`` from torch.profiler's CUDA
     activity: the port's kernels (names holding spmm, sddmm or fusedmm),
-    NCCL's kernels, and every other kernel or copy; None where the
-    profiler records no device time (then the split is not measured)."""
-    from torch.profiler import ProfilerActivity, profile
+    NCCL's kernels, and every other kernel or copy.  The profiler warms
+    up on two calls and records the next (without a warm-up cycle it was
+    seen to drop some of a call's kernels); None, the split not measured,
+    where it still records another number of the port's launches than
+    the wrappers counted in that call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import ops
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=1),
+                 on_trace_ready=lambda p: recorded.extend(
+                     p.key_averages())) as prof:
+        for _ in range(3):
+            ops.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    counted = sum(ops.launch_counts().values())
     ours = other = nccl = 0.0
     launches = 0
-    for ev in prof.key_averages():
+    for ev in recorded:
         t = getattr(ev, "device_time_total", None)
         if t is None:
             t = getattr(ev, "cuda_time_total", 0.0)
@@ -815,7 +849,10 @@ def device_breakdown(torch, fn):
             nccl += t
         else:
             other += t
-    if ours == 0.0:
+    if launches != counted:
+        log(f"device_breakdown: the profile holds {launches} of the "
+            f"{counted} launches the wrappers counted, among "
+            f"{[ev.key for ev in recorded][:8]}")
         return None
     return {"kernels_ms": ours / 1e3, "kernel_launches": launches,
             "other_device_ms": other / 1e3, "nccl_ms": nccl / 1e3}
@@ -1059,6 +1096,440 @@ def stacked_families(torch, ck, p1, rows, cols, vals, X, Y):
 # dist: one rank per card over NCCL
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# train: the port's training path (core/grads, apps/als, apps/gat)
+# ---------------------------------------------------------------------------
+
+EMBED_LR = 0.05     # SGD rate of the sampled-loss steps (the loss falls)
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def counting_packs(torch, api, packs):
+    """Record the host seconds of every packing (a position-coded plan
+    made, ``DistProblem._posplan``) inside the block."""
+    def wrap(orig):
+        def spy(self, orient):
+            if orient in self._posmaps:
+                return orig(self, orient)
+            t0 = time.perf_counter()
+            out = orig(self, orient)
+            torch.cuda.synchronize()
+            packs.append(time.perf_counter() - t0)
+            return out
+        return spy
+    return patched(api.DistProblem, "_posplan", wrap)
+
+
+def marking_steps(torch, module, name, marks, packs):
+    """Record (time, packs so far, arguments of the first call) at each
+    call of ``module.name`` inside the block, the card synchronised
+    first: one call a training step.  Only the first step's arguments
+    are kept, so the spy holds no later step's tensors."""
+    def wrap(orig):
+        def spy(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), len(packs),
+                          None if marks else args))
+            return orig(*args, **kwargs)
+        return spy
+    return patched(module, name, wrap)
+
+
+def logging_calls(api, calls):
+    """Record (executor, collective log) of every executor call inside
+    the block."""
+    def wrap(orig):
+        def spy(self, prob, call, backend):
+            out = orig(self, prob, call, backend)
+            calls.append((call[0].__name__, prob.last_collectives.words()))
+            return out
+        return spy
+    return patched(api.Algorithm, "_run", wrap)
+
+
+def step_seconds(marks, t_end):
+    return [b[0] - a[0] for a, b in zip(marks, marks[1:])] + \
+        [t_end - marks[-1][0]]
+
+
+def no_repacks(marks, packs, what):
+    """Every packing happened in the first step."""
+    if len(marks) < 2 or marks[1][1] != len(packs):
+        raise AssertionError(f"{what}: a step after the first packed "
+                             f"({[mk[1] for mk in marks]} of {len(packs)})")
+
+
+def train_fusedmm(torch, ck, rows, cols, vals, m, r, reps):
+    """Section A: grads.fusedmm forward + backward on d15, each cell."""
+    from repro_torch.core import api, costmodel, grads
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((m, r), generator=g, device="cuda")
+    W = torch.randn((m, r), generator=g, device="cuda")   # the cotangent
+    packs = []
+    with counting_packs(torch, api, packs):
+        t0 = time.perf_counter()
+        prob = api.make_problem(rows, cols, vals, (m, m), r, algorithm="d15")
+        for P, o in ((prob, "normal"), (prob, "transpose"),
+                     (prob.transposed(), "transpose")):
+            P.plan(o)
+        torch.cuda.synchronize()
+        report = {"family": prob.alg.name, "p": prob.p, "c": prob.c,
+                  "plan_s": time.perf_counter() - t0, "packs": packs,
+                  "cells": {}}
+
+    def leaves():
+        return X.detach().requires_grad_(), Y.detach().requires_grad_()
+
+    def step(el, session=None, backend=None):
+        Xt, Yt = leaves()
+        grads.fusedmm(prob, Xt, Yt, elision=el, session=session,
+                      backend=backend).backward(W)
+        return Xt.grad, Yt.grad
+
+    total = {k: 0 for k in ops.KERNELS}
+    for el in ("none", "reuse", "fused"):
+        cell = {}
+        # the counted pass: forward and backward read apart
+        Xt, Yt = leaves()
+        ops.reset_launch_counts()
+        out = grads.fusedmm(prob, Xt, Yt, elision=el)
+        torch.cuda.synchronize()
+        fwd = ops.launch_counts()
+        ops.reset_launch_counts()
+        calls = []
+        with logging_calls(api, calls):
+            out.backward(W)
+        torch.cuda.synchronize()
+        bwd, forms = ops.launch_counts(), ops.form_counts()
+        del out
+        want = dict(fwd, spmm=fwd["spmm"] + 2)   # the same cell + 2 SpMM^T
+        if bwd != want or not any(fwd.values()):
+            raise AssertionError(f"train {el}: forward launched {fwd}, "
+                                 f"backward {bwd}")
+        if {f for k in forms.values() for f in k} != {"bulk"}:
+            raise AssertionError(f"train {el}: backward forms {forms}")
+        for k in total:
+            total[k] += fwd[k] + bwd[k]
+        cell.update(fwd_launches=fwd, bwd_launches=bwd, bwd_forms=forms)
+        # the backward's collective log: each dual call's schedule
+        models = [prob.schedule_words("fusedmm", el),
+                  prob.schedule_words("spmm_t"),
+                  prob.schedule_words("spmm_t")]
+        if [c[0] for c in calls] != ["fusedmm_d15", "spmmb_d15",
+                                     "spmmb_d15"]:
+            raise AssertionError(f"train {el}: backward ran {calls}")
+        for (fn, logged), model in zip(calls, models):
+            if [(k, w) for k, w in logged if w] != [
+                    (k, w) for (_, _, k, w) in model if k and w]:
+                raise AssertionError(f"train {el} {fn}: log {logged} != "
+                                     f"{model}")
+            ck.n += 1
+        cell["bwd_words_logged"] = sum(w for _, lg in calls for _, w in lg)
+        cell["bwd_words_model"] = costmodel.words_fusedmm_bwd(
+            costmodel.ELISION_COST_NAME[("d15", el)], p=prob.p, c=prob.c,
+            n=m, r=r, nnz=prob.nnz).words
+        # against the plain kernels
+        gx, gy = Xt.grad, Yt.grad
+        rx, ry = step(el, backend="ref")
+        cell["max_abs_err"] = max(
+            ck.close(gx, rx, 2e-3, f"train {el} dX vs ref"),
+            ck.close(gy, ry, 2e-3, f"train {el} dY vs ref"))
+        del Xt, Yt, rx, ry
+        # the memory of one step without and with a Session (which
+        # changes no bit): the peak, and what the step added to what was
+        # allocated before it
+        del gx, gy
+        sess = api.Session()
+        for key, kw in (("", {}), ("_session", {"session": sess})):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            got = step(el, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            cell["peak_gib" + key] = peak / 2**30
+            cell["step_gib" + key] = (peak - before) / 2**30
+            if kw:
+                ck.equal(got[0], plain[0], f"train {el} session dX")
+                ck.equal(got[1], plain[1], f"train {el} session dY")
+            plain = got
+        del got, plain
+        cell["ms"] = time_ms(torch, lambda: step(el), reps)
+        cell["ms_session"] = time_ms(torch, lambda: step(el, session=sess),
+                                     reps)
+        cell["session"] = sess.stats()
+        del sess
+        cell["device"] = device_breakdown(torch, lambda: step(el))
+        report["cells"][el] = cell
+        torch.cuda.empty_cache()
+    report["replaced"] = replaced_paths(torch, ck, prob, X, Y)
+    return report, total
+
+
+def replaced_paths(torch, ck, prob, X, Y):
+    """What the backward's three host paths cost at this size against
+    their device replacements, on the same data: the sampled values in
+    host-COO order (``values()`` on the host / ``values_tensor``), values
+    put into the packs (a re-pack, what ``injected_plan`` did from 2^24
+    nonzeros / the device gather), and a Session key (the operand copied
+    to the host and blake2b-hashed / the device bit sum and compare)."""
+    import hashlib
+    from repro_torch.core import api
+    _, R = prob.fusedmm(X, Y, elision="fused")
+    t0 = time.perf_counter()
+    host = R.values()
+    out = {"values_host_s": time.perf_counter() - t0}
+    dev = R.values_tensor()
+    ck.equal(dev.view(torch.int32),
+             torch.from_numpy(host).cuda().view(torch.int32),
+             "values_tensor == values(), full size")
+    out["values_tensor_ms"] = time_ms(torch, R.values_tensor, 3)
+    t0 = time.perf_counter()
+    repacked = prob.alg.make_plan(prob._derive(vals=host), "normal")
+    torch.cuda.synchronize()
+    out["repack_s"] = time.perf_counter() - t0
+    got = prob.injected_plan("normal", dev)
+    for a, b in zip(got.vals, repacked.vals):
+        ck.equal(a, b, "injected_plan == re-pack, full size")
+    del got, repacked, R, host
+    out["injected_plan_ms"] = time_ms(
+        torch, lambda: prob.injected_plan("normal", dev), 3)
+    t0 = time.perf_counter()
+    hashlib.blake2b(X.cpu().numpy().tobytes(), digest_size=16).hexdigest()
+    out["host_key_s"] = time.perf_counter() - t0
+    sess = api.Session()
+    sess.replicate(prob, X, "x")
+    # another object with the same bytes each time: summed and compared
+    out["device_key_ms"] = time_ms(
+        torch, lambda: sess.replicate(prob, X.detach(), "x"), 3)
+    if sess.misses != 1:
+        raise AssertionError(f"device key: {sess.stats()}")
+    return out
+
+
+def train_embedding(torch, ck, rows, cols, vals, m, r, reps):
+    """Section B: train_embedding_distributed, 3 SGD steps."""
+    from repro_torch.apps import als
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    packs, marks = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_packs(torch, api, packs), \
+            marking_steps(torch, als, "sampled_loss", marks, packs):
+        X, Y, hist = als.train_embedding_distributed(
+            m=m, n=m, r=r, steps=3, lr=EMBED_LR, rows=rows, cols=cols,
+            vals=np.abs(vals) + 0.5, verbose=False)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    report = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "loss": hist, "step_s": step_seconds(marks, t_end),
+              "plan_s": sum(packs), "packs": packs}
+    del X, Y
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"embedding loss did not fall: {hist}")
+    no_repacks(marks, packs, "embedding")
+    maskP, X0, Y0, targets, reg = marks[0][2][:5]
+    report.update(family=maskP.alg.name, c=maskP.c, p=maskP.p)
+
+    def grads_of(backend=None, session=None):
+        Xl, Yl = X0.detach().requires_grad_(), Y0.detach().requires_grad_()
+        loss = als.sampled_loss(maskP, Xl, Yl, targets, reg,
+                                session=session, backend=backend)
+        return torch.autograd.grad(loss, (Xl, Yl))
+
+    # step 1's gradients, counted, against the plain kernels
+    ops.reset_launch_counts()
+    gx, gy = grads_of(session=api.Session())
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    report.update(launches=launches, forms=ops.form_counts())
+    if launches["sddmm"] <= 0 or launches["spmm"] <= 0:
+        raise AssertionError(f"embedding step launched {launches}")
+    rx, ry = grads_of(backend="ref")
+    report["max_abs_err"] = max(
+        ck.close(gx, rx, 2e-3, "embedding step 1 dX vs ref"),
+        ck.close(gy, ry, 2e-3, "embedding step 1 dY vs ref"))
+    del gx, gy, rx, ry
+    # a step as the app takes it: new factors, so a Session of misses
+    report["ms"] = time_ms(torch, lambda: grads_of(session=api.Session()),
+                           reps)
+    report["device"] = device_breakdown(
+        torch, lambda: grads_of(session=api.Session()))
+    del marks, maskP, X0, Y0, targets
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def train_apps(torch, ck, scale, reps):
+    """Section C: one ALS round and three GAT training steps at full
+    width on 2^scale rows."""
+    from repro_torch.apps import als, gat
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    m, r, per_row = 1 << scale, 128, 16
+    total = {k: 0 for k in ops.KERNELS}
+    report = {"m": m, "r": r, "nnz_per_row": per_row}
+
+    # ALS: one round of two CG solves, 10 iterations each; the ratings
+    # (|v| + 0.5) and the factors (0.1 N(0, 1)) drawn on the card
+    packs = []
+    torch.cuda.reset_peak_memory_stats()
+    with counting_packs(torch, api, packs):
+        t0 = time.perf_counter()
+        rows, cols, vals = erdos_renyi_on_card(torch, m, m, per_row, 0)
+        ratings = api.make_problem(rows, cols, np.abs(vals) + 0.5, (m, m),
+                                   r)
+        del rows, cols, vals
+        ratings_t = ratings.transposed()
+        # what als.make_dist_problem builds from a host-drawn matrix
+        dp = als.DistALSProblem(ratings, ratings_t, ratings.ones(),
+                                ratings_t.ones(), m, m, r)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        A, B = (torch.randn((m, r), generator=g, device="cuda") * 0.1
+                for _ in range(2))
+        loss0 = als.dist_loss(dp, A, B)
+        setup_s = time.perf_counter() - t0
+        sess = api.Session()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        A1, B1 = als.dist_als_round(dp, A, B, cg_iters=10, session=sess)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        packs_in_round = len(packs)
+        t0 = time.perf_counter()
+        A2, B2 = als.dist_als_round(dp, A1, B1, cg_iters=10, session=sess)
+        torch.cuda.synchronize()
+        round2_s = time.perf_counter() - t0
+    if len(packs) != packs_in_round:
+        raise AssertionError("ALS: the second round packed")
+    losses = [loss0, als.dist_loss(dp, A1, B1), als.dist_loss(dp, A2, B2)]
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"ALS loss did not fall: {losses}")
+    if launches["fusedmm"] + launches["sddmm"] <= 0:
+        raise AssertionError(f"ALS round launched {launches}")
+    for k in total:
+        total[k] += launches[k]
+    report["als"] = {
+        "family": dp.mask.alg.name, "c": dp.mask.c, "nnz": dp.mask.nnz,
+        "elision": dp.mask.resolve_elision("auto", sess),
+        "setup_s": setup_s, "plan_s": sum(packs), "packs": packs,
+        "round_s": [round_s, round2_s], "loss": losses,
+        "launches": launches, "forms": ops.form_counts(),
+        "session": sess.stats(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "matvec_ms": time_ms(torch, lambda: als.dist_fusedmm_matvec(
+            dp.mask, A1, B1, dp.reg, sess), reps),
+        "matvec_device": device_breakdown(torch, lambda: (
+            als.dist_fusedmm_matvec(dp.mask, A1, B1, dp.reg, sess)))}
+    del dp, ratings, ratings_t, A, B, A1, B1, A2, B2, sess
+    torch.cuda.empty_cache()
+
+    # GAT: three SGD steps of one layer, 16 neighbours a row + self loops
+    # (gat.graph_coo's construction, drawn on the card)
+    packs, marks = [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows, cols, _ = erdos_renyi_on_card(torch, m, m, per_row, 0)
+    loops = torch.arange(m, device="cuda")
+    key = torch.unique(torch.cat([
+        torch.from_numpy(rows.astype(np.int64)).cuda() * m
+        + torch.from_numpy(cols).cuda(), loops * m + loops]))
+    gp = api.make_problem((key // m).int().cpu().numpy(),
+                          (key % m).int().cpu().numpy(),
+                          np.ones(key.numel(), np.float32), (m, m), r)
+    del rows, cols, key, loops
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H = torch.randn((m, r), generator=g, device="cuda")
+    target = torch.randn((m, r), generator=g, device="cuda") * 0.1
+    setup_s = time.perf_counter() - t0
+    with counting_packs(torch, api, packs), \
+            marking_steps(torch, gat, "gat_layer_trainable", marks, packs):
+        _, hist = gat.train_gat_distributed(gp, H, target, steps=3,
+                                            lr=0.05, seed=0, verbose=False)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"GAT loss did not fall: {hist}")
+    no_repacks(marks, packs, "GAT")
+    step_s = step_seconds(marks, t_end)
+    del marks
+    # the trainable layer is the distributed one, at the initial params
+    p0 = gat.init_gat_layer(torch.Generator(device="cuda").manual_seed(0),
+                            r, r)
+    want = gat.gat_layer_distributed(gp, H, p0)
+    leaves = [t.clone().requires_grad_() for t in (p0.W, p0.a1, p0.a2)]
+
+    def gat_step():
+        out = gat.gat_layer_trainable(gp, H, *leaves)
+        return torch.autograd.grad(torch.mean((out - target) ** 2), leaves)
+
+    ops.reset_launch_counts()
+    got = gat.gat_layer_trainable(gp, H, *leaves)
+    first = torch.autograd.grad(torch.mean((got - target) ** 2), leaves)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for a, b in zip(first, gat_step()):
+        ck.equal(a, b, "GAT gradients repeat bit for bit")
+    for k in total:
+        total[k] += launches[k]
+    report["gat"] = {
+        "family": gp.alg.name, "c": gp.c, "nnz": gp.nnz,
+        "setup_s": setup_s, "plan_s": sum(packs), "packs": packs,
+        "loss": hist, "step_s": step_s,
+        "max_abs_err_vs_distributed": ck.close(
+            got.detach(), want, 5e-4, "GAT trainable vs distributed"),
+        "launches": launches, "forms": ops.form_counts(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "ms": time_ms(torch, gat_step, reps),
+        "device": device_breakdown(torch, gat_step)}
+    return report, total
+
+
+def phase_train(torch, scale: int, apps_scale: int, reps: int):
+    """The training path on the card: sections A (grads.fusedmm on d15),
+    B (sampled-loss SGD) and C (ALS and GAT)."""
+    ck = Checker(torch)
+    m, r = 1 << scale, 128
+    t0 = time.perf_counter()
+    rows, cols, vals = erdos_renyi_on_card(torch, m, m, 16, 0)
+    report = {"phase": "train", "m": m, "r": r, "nnz": int(len(vals)),
+              "gen_s": time.perf_counter() - t0, "seconds": {}}
+    t0 = time.perf_counter()
+    report["fusedmm"], total = train_fusedmm(torch, ck, rows, cols, vals, m,
+                                             r, reps)
+    report["seconds"]["fusedmm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["embedding"], launches = train_embedding(torch, ck, rows, cols,
+                                                    vals, m, r, reps)
+    report["seconds"]["embedding"] = time.perf_counter() - t0
+    for k in total:
+        total[k] += launches[k]
+    del rows, cols, vals
+    t0 = time.perf_counter()
+    report["apps"], launches = train_apps(torch, ck, apps_scale, reps)
+    report["seconds"]["apps"] = time.perf_counter() - t0
+    for k in total:
+        total[k] += launches[k]
+    report["launches"] = total
+    report["checks"] = ck.n
+    emit(report)
+    return total
+
+
 NVLINK_GB_PER_S = 450.0   # H100 SXM NVLink 4, each direction (data sheet)
 DIST_TIMEOUT_S = 600      # the dist phase's ranks, spawn to exit
 #: (algorithm, cells): d15's three cells are the main path on the cards;
@@ -1284,8 +1755,50 @@ def _dist_rank(torch, dist, rank, world, scale, reps):
         report["problems"][algorithm] = row
         del prob, stacked
         torch.cuda.empty_cache()
+    if world > 1:
+        report["sampled_loss"] = dist_sampled_loss(
+            torch, dist, ck, rank, world, rows, cols, vals, m, r, reps)
     report["checks"] = ck.n
     return report
+
+
+def dist_sampled_loss(torch, dist, ck, rank, world, rows, cols, vals, m, r,
+                      reps):
+    """One sampled-loss step (apps/als.py) on each rank over the group,
+    on the "auto" problem of unit values: each rank's gradients (global,
+    as core/grads returns them under a group) must equal the stacked
+    run's on card 0, broadcast from rank 0, bit for bit."""
+    from repro_torch.apps import als
+    from repro_torch.core import api
+    ones = np.ones(len(vals), np.float32)
+    targets = torch.from_numpy(np.abs(vals) + 0.5).cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    X0 = torch.randn((m, r), generator=g, device="cuda") * 0.1
+    Y0 = torch.randn((m, r), generator=g, device="cuda") * 0.1
+
+    def grads_on(prob):
+        Xl, Yl = X0.clone().requires_grad_(), Y0.clone().requires_grad_()
+        loss = als.sampled_loss(prob, Xl, Yl, targets, 1e-4, api.Session())
+        return torch.autograd.grad(loss, (Xl, Yl))
+
+    prob = api.make_problem(rows, cols, ones, (m, m), r,
+                            group=dist.group.WORLD)
+    got = grads_on(prob)
+    want = [torch.empty_like(t) for t in got]
+    if rank == 0:
+        stacked = api.make_problem(rows, cols, ones, (m, m), r,
+                                   algorithm=prob.alg.name, c=prob.c,
+                                   devices=[got[0].device] * world)
+        want = list(grads_on(stacked))
+        del stacked
+    for t in want:
+        dist.broadcast(t, src=0)
+    for a, b, name in zip(got, want, ("dX", "dY")):
+        ck.equal(a, b, f"sampled-loss {name} == stacked, rank {rank}")
+    del want
+    torch.cuda.empty_cache()
+    return {"family": prob.alg.name, "c": prob.c,
+            "ms": time_ms(torch, lambda: grads_on(prob), reps)}
 
 
 def _free_port() -> int:
@@ -1369,6 +1882,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rmat-scale", type=int, default=21)
     ap.add_argument("--families-scale", type=int, default=22)
+    ap.add_argument("--apps-scale", type=int, default=20)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1381,6 +1895,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
+    train_launches = None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -1397,6 +1912,9 @@ def main(argv=None) -> int:
             phase_stacked(torch)
         elif ph == "dist":
             dist_launches = phase_dist(torch, args.scale, args.reps)
+        elif ph == "train":
+            train_launches = phase_train(torch, args.scale, args.apps_scale,
+                                         args.reps)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
@@ -1406,6 +1924,8 @@ def main(argv=None) -> int:
                                         else family_launches[row["name"]])
             row["dist_launches"] = (None if dist_launches is None
                                     else dist_launches[row["name"]])
+            row["train_launches"] = (None if train_launches is None
+                                     else train_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -111,3 +111,13 @@ def plan_s25_from_numpy(plan, grid) -> s25.PlanS25:
     meta = s25.MetaS25(int(mt.mS), int(mt.nS), int(mt.rc), _block_meta(plan))
     return s25.PlanS25(*_pack(plan, grid), *_common(plan),
                        _tiling(plan, [plan.tile_base]), meta)
+
+
+def gat_params_from_numpy(W, a1, a2, *, device=None):
+    """The port's :class:`apps.gat.GATParams` holding the arrays a
+    reference ``GATParams`` holds (W (d_in, d_out), a1, a2 (d_out,)), as
+    float32 on ``device`` (default: the card)."""
+    from repro_torch.apps.gat import GATParams
+    dev = _device.resolve(device)
+    return GATParams(*(torch.from_numpy(np.array(a, np.float32)).to(dev)
+                       for a in (W, a1, a2)))

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import hashlib
+import itertools
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -51,7 +51,8 @@ from repro_torch.core.grid import make_grid15, make_grid25
 
 __all__ = [
     "ALGORITHMS", "Algorithm", "DistProblem", "RankBlock", "Session",
-    "SparseResult", "make_problem", "sddmm", "spmm", "spmm_t", "fusedmm",
+    "SparseResult", "gathered", "make_problem", "sddmm", "spmm", "spmm_t",
+    "fusedmm",
 ]
 
 # ---------------------------------------------------------------------------
@@ -72,6 +73,13 @@ def _match_coo(sorted_keys, order, keys):
     return idx, sorted_keys[pos] == keys
 
 
+def _flat(x) -> torch.Tensor:
+    """A tensor, or a tuple of them (d15's phases), as one flat tensor."""
+    if isinstance(x, tuple):
+        return torch.cat([t.reshape(-1) for t in x])
+    return x.reshape(-1)
+
+
 @dataclasses.dataclass
 class SparseResult:
     """Sampled (SDDMM-shaped) output in its family's home layout.
@@ -79,20 +87,24 @@ class SparseResult:
     ``raw`` keeps the device tensors exactly as the executor returned
     them (one (L, c, nb_t, k) tensor per phase for d15, one tensor in
     the family's home layout for the others; this rank's blocks under a
-    process group); ``_triples`` assembles the flat global COO view on
-    the host (under a process group a collective: every rank calls
-    :meth:`to_coo`, :meth:`values` or :meth:`to_dense` together).
+    process group), laid out as the value slots of the problem's
+    ``orient`` plan; ``_triples`` assembles the flat global COO view of
+    the stacked values on the host.  Under a process group
+    :meth:`to_coo`, :meth:`values`, :meth:`values_tensor` and
+    :meth:`to_dense` are collectives: every rank calls them together.
     """
     problem: "DistProblem"
     raw: object
-    _triples: Callable[[], tuple]
+    _triples: Callable[[Any], tuple]
+    orient: str = "normal"
     _coo: Optional[tuple] = None
     _vals: Optional[np.ndarray] = None
 
     def to_coo(self):
         """Flat global (rows, cols, vals) numpy, padding filtered."""
         if self._coo is None:
-            self._coo = self._triples()
+            self._coo = self._triples(
+                self.problem.grid.gather_stacked(self.raw))
         return self._coo
 
     def to_dense(self) -> np.ndarray:
@@ -114,6 +126,21 @@ class SparseResult:
             self._vals = out.astype(np.float32)
         return self._vals
 
+    def values_tensor(self) -> torch.Tensor:
+        """:meth:`values` as a float32 tensor on the grid's device, found
+        there: each position's pack slot, by an index built on the device
+        once per orientation, so no value crosses to the host.  Bitwise
+        equal to :meth:`values` (each position has one slot, and a zero
+        the host path filters as padding comes out +0.0 here too).  Where
+        a coordinate repeats, the host path sums the repeats into the
+        first one's position; this takes that sum from :meth:`values`."""
+        prob = self.problem
+        idx = prob._value_index(self.orient)
+        if idx is None:
+            return torch.from_numpy(self.values()).to(prob.grid.device)
+        flat = _flat(prob.grid.gather_stacked(self.raw))
+        return torch.index_select(flat, 0, idx) + 0.0
+
 
 @dataclasses.dataclass(frozen=True)
 class RankBlock:
@@ -130,6 +157,12 @@ class RankBlock:
     def gather(self) -> torch.Tensor:
         g = self.grid
         return self.assemble(g.stacked(), g.gather_stacked(self.local))
+
+
+def gathered(x):
+    """A dense api result as one global tensor: a :class:`RankBlock`
+    gathered (a collective: every rank calls it), a tensor as it is."""
+    return x.gather() if isinstance(x, RankBlock) else x
 
 
 def _assembled(grid, assemble):
@@ -180,6 +213,11 @@ class Algorithm:
                                               pre_gathered=pre)
 
     def _words_plan(self, prob, op, elision, session):
+        raise NotImplementedError
+
+    def replicate(self, prob, full: torch.Tensor, slot: str):
+        """The gathered layout of a replicated-slot operand, from ``full``
+        (float32 on the grid's device, owned by the Session's cache)."""
         raise NotImplementedError
 
     def _gathered(self, prob, arr, slot, session):
@@ -237,22 +275,20 @@ def _dense(prob, x) -> torch.Tensor:
     """A float32 tensor on the grid's device (numpy input is copied)."""
     dev = prob.grid.device
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=torch.float32).contiguous()
+        return x.detach().to(device=dev, dtype=torch.float32).contiguous()
     return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
 
-def _sampled(prob, plan, rv) -> SparseResult:
-    """R values ``rv`` in ``plan``'s home layout."""
-    return SparseResult(prob, rv, lambda: plan.meta.block_meta.to_triples(
-        *prob.grid.gather_stacked((plan.rows_local, plan.cols, rv,
-                                   plan.tile_base))))
+def _sampled(prob, orient, rv) -> SparseResult:
+    """R values ``rv`` in the value slots of ``prob``'s ``orient`` plan."""
+    plan = prob.plan(orient)
 
+    def triples(v):
+        rl, cl, tb = prob.grid.gather_stacked((plan.rows_local, plan.cols,
+                                               plan.tile_base))
+        return plan.meta.block_meta.to_triples(rl, cl, v, tb)
 
-def _owned(prob, x) -> torch.Tensor:
-    """:func:`_dense`, never aliasing the caller's tensor: what a Session
-    caches must not change when the caller mutates its operand."""
-    full = _dense(prob, x)
-    return full.clone() if isinstance(x, torch.Tensor) else full
+    return SparseResult(prob, rv, triples, orient)
 
 
 # ---------------------------------------------------------------------------
@@ -283,9 +319,8 @@ class _D15(Algorithm):
 
     shard_y = shard_x   # same layout, different row count
 
-    def replicate(self, prob, arr, slot):
+    def replicate(self, prob, full, slot):
         g = prob.grid
-        full = _owned(prob, arr)
         lay = full.reshape(g.L, 1, full.shape[0] // g.L, full.shape[1])
         return g.local(lay.expand(g.L, g.c, *lay.shape[2:]))
 
@@ -304,7 +339,7 @@ class _D15(Algorithm):
         a, pre = self._gathered(prob, X, "x", session)
         return (d15.sddmm_d15, (prob.grid, plan, a, self.shard_y(prob, Y)),
                 dict(pre_gathered=pre),
-                lambda rv: _sampled(prob, plan, rv))
+                lambda rv: _sampled(prob, "normal", rv))
 
     def _spmm_call(self, prob, Y, vals, session):
         # B shifts and the output reduce-scatters: nothing inbound is
@@ -327,19 +362,18 @@ class _D15(Algorithm):
         if elision == "reuse":
             # FusedMMA(S, X, Y) = FusedMMB(S^T, Y, X): Y takes the
             # replicated slot, X the shifting slot, on the S^T pack.
-            plan = prob.plan("transpose")
-            a_host, slot = Y, "y"
+            orient, a_host, slot = "transpose", Y, "y"
             b = self.shard_x(prob, X)
         else:
-            plan = prob.plan("normal")
-            a_host, slot = X, "x"
+            orient, a_host, slot = "normal", X, "x"
             b = self.shard_y(prob, Y)
+        plan = prob.plan(orient)
         a, pre = self._gathered(prob, a_host, slot, session)
         dense = _assembled(grid, lambda g, x: g.unstack(x))
 
         def post(res):
             out, rvals = res
-            return dense(out), _sampled(prob, plan, rvals)
+            return dense(out), _sampled(prob, orient, rvals)
 
         return (d15.fusedmm_d15, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -385,11 +419,11 @@ class _S15(Algorithm):
 
     shard_y = shard_x
 
-    def replicate(self, prob, arr, slot):
+    def replicate(self, prob, full, slot):
         # the gathered layout: layer u's column slab of width r*c/p,
         # shared by its fiber
         g = prob.grid
-        slabs = _columns(_owned(prob, arr), g.L)
+        slabs = _columns(full, g.L)
         return g.local(slabs[:, None].expand(g.L, g.c, *slabs.shape[1:]))
 
     def _words_plan(self, prob, op, elision, session):
@@ -412,7 +446,7 @@ class _S15(Algorithm):
         a, b, pre = self._both(prob, X, Y, session)
         return (s15.sddmm_s15, (prob.grid, plan, a, b),
                 dict(pre_gathered=pre),
-                lambda rv: _sampled(prob, plan, rv))
+                lambda rv: _sampled(prob, "normal", rv))
 
     def _spmm_call(self, prob, Y, vals, session):
         plan = prob.injected_plan("normal", vals)
@@ -441,7 +475,7 @@ class _S15(Algorithm):
 
         def post(res):
             slabs, rvals = res
-            return dense(slabs), _sampled(prob, plan, rvals)
+            return dense(slabs), _sampled(prob, "normal", rvals)
 
         return (s15.fusedmm_s15, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -480,8 +514,8 @@ class _D25(Algorithm):
 
     shard_y = shard_x
 
-    def replicate(self, prob, arr, slot):
-        return d25.replicate_rows(prob.grid, _owned(prob, arr))
+    def replicate(self, prob, full, slot):
+        return d25.replicate_rows(prob.grid, full)
 
     def _words_plan(self, prob, op, elision, session):
         pre = session is not None
@@ -500,7 +534,7 @@ class _D25(Algorithm):
                 (prob.grid, plan, a, d25.skew_b(prob.grid,
                                                 _dense(prob, Y))),
                 dict(pre_gathered=pre),
-                lambda rv: _sampled(prob, plan, rv))
+                lambda rv: _sampled(prob, "normal", rv))
 
     def _spmm_call(self, prob, Y, vals, session):
         # B Cannon-shifts and the output reduce-scatters: no inbound
@@ -524,11 +558,10 @@ class _D25(Algorithm):
         grid = prob.grid
         if elision == "reuse":
             # FusedMMA(S, X, Y) = FusedMMB(S^T, Y, X)
-            plan = prob.plan("transpose")
-            a_host, slot, b_host = Y, "y", X
+            orient, a_host, slot, b_host = "transpose", Y, "y", X
         else:
-            plan = prob.plan("normal")
-            a_host, slot, b_host = X, "x", Y
+            orient, a_host, slot, b_host = "normal", X, "x", Y
+        plan = prob.plan(orient)
         a, pre = self._gathered(prob, a_host, slot, session)
         b = d25.skew_b(grid, _dense(prob, b_host))
         dense = _assembled(grid, (lambda g, out: d25.unskew_out(g, plan, out))
@@ -536,7 +569,7 @@ class _D25(Algorithm):
 
         def post(res):
             out, rvals = res
-            return dense(out), _sampled(prob, plan, rvals)
+            return dense(out), _sampled(prob, orient, rvals)
 
         return (d25.fusedmm_d25, (grid, plan, a, b),
                 dict(elision=elision, pre_gathered=pre), post)
@@ -578,20 +611,24 @@ class _S25(Algorithm):
         return s25.skew_dense(prob.grid, _dense(prob, Y), along="col")
 
     # nothing dense is replicated: Session caching changes nothing here
-    def replicate(self, prob, arr, slot):
-        return self.shard_x(prob, arr) if slot == "x" \
-            else self.shard_y(prob, arr)
+    def replicate(self, prob, full, slot):
+        return self.shard_x(prob, full) if slot == "x" \
+            else self.shard_y(prob, full)
 
     @staticmethod
-    def _triples(prob, plan, rv):
-        def triples():
+    def _result(prob, rv):
+        plan = prob.plan("normal")
+
+        def triples(full):
+            # the fiber's value shards hold the (x, y) block's slots in
+            # order: the layer-0 copy of the shared structure labels them
             G = prob.grid.G
-            rl, cl, tb, full = prob.grid.gather_stacked(
-                (plan.rows_local, plan.cols, plan.tile_base, rv))
+            rl, cl, tb = prob.grid.gather_stacked(
+                (plan.rows_local, plan.cols, plan.tile_base))
             full = full.reshape(G, G, rl.shape[3], full.shape[-1])
             return plan.meta.block_meta.to_triples(
                 rl[:, :, 0], cl[:, :, 0], full, tb[:, :, 0])
-        return triples
+        return SparseResult(prob, rv, triples)
 
     def _words_plan(self, prob, op, elision, session):
         del elision, session            # Session-inert, values-only fiber
@@ -605,8 +642,7 @@ class _S25(Algorithm):
         return (s25.sddmm_s25,
                 (prob.grid, plan, self.shard_x(prob, X),
                  self.shard_y(prob, Y)), {},
-                lambda rv: SparseResult(prob, rv,
-                                        self._triples(prob, plan, rv)))
+                lambda rv: self._result(prob, rv))
 
     def _spmm_call(self, prob, Y, vals, session):
         plan = prob.injected_plan("normal", vals)
@@ -630,8 +666,7 @@ class _S25(Algorithm):
 
         def post(res):
             out, rvals = res
-            return dense(out), SparseResult(prob, rvals,
-                                            self._triples(prob, plan, rvals))
+            return dense(out), self._result(prob, rvals)
 
         return (s25.fusedmm_s25, (grid, plan, self.shard_x(prob, X),
                                   self.shard_y(prob, Y)),
@@ -650,7 +685,11 @@ class DistProblem:
     """A packed sparse matrix + dense layouts bound to one algorithm/grid.
 
     Plans are built lazily per orientation and cached, so repeated calls
-    pay the host packing once, like the paper's preprocessing."""
+    pay the host packing once, like the paper's preprocessing.  Each
+    orientation is packed once with position codes (:meth:`_posplan`);
+    its plan, the plans of every problem :meth:`with_values` derives
+    from it, and every :meth:`injected_plan` put values into those slots
+    on the device, with no packing."""
     alg: Algorithm
     grid: Any
     rows: np.ndarray
@@ -665,9 +704,13 @@ class DistProblem:
     compress: Optional[str] = None
     _plans: dict = dataclasses.field(default_factory=dict)
     _derived_r: dict = dataclasses.field(default_factory=dict)
+    # the structure's: shared by every problem with_values derives
     _posmaps: dict = dataclasses.field(default_factory=dict)
+    _value_idx: dict = dataclasses.field(default_factory=dict)
     _coo_sort: Optional[tuple] = None
     _transposed: Optional["DistProblem"] = None
+    _ones: Optional["DistProblem"] = None
+    _vals_dev: Optional[torch.Tensor] = None
     #: the collective log of the last executor call on this problem
     last_collectives: Optional[Backend] = None
 
@@ -689,54 +732,91 @@ class DistProblem:
         return self.grid.c
 
     def _derive(self, **changes) -> "DistProblem":
-        base = dict(_plans={}, _derived_r={}, _posmaps={}, _transposed=None,
+        base = dict(_plans={}, _derived_r={}, _posmaps={}, _value_idx={},
+                    _transposed=None, _ones=None, _vals_dev=None,
                     last_collectives=None)
         base.update(changes)
         return dataclasses.replace(self, **base)
 
     # -- planning ------------------------------------------------------------
     def plan(self, orient: str = "normal"):
+        """This orientation's plan (cached): this problem's values in the
+        slots of the position-coded plan."""
         if orient not in self._plans:
-            self._plans[orient] = self.alg.make_plan(self, orient)
+            self._plans[orient] = self._inject(orient, self.device_vals())
         return self._plans[orient]
 
-    def _posmap(self, orient: str):
-        """Pack-slot -> host-COO-position map for one orientation, from a
-        position-coded plan (entry i carries i+1; padding stays 0)."""
+    def _posplan(self, orient: str):
+        """This orientation packed once with position codes, cached: entry
+        i of the host COO carries the integer i + 1, padding 0.  Packing
+        moves values and never reads them, so the structure is the plan's
+        for any values, and the value slots map each pack slot to its
+        host-COO position, exactly at any nonzero count."""
         if orient not in self._posmaps:
-            posvals = np.arange(1, self.nnz + 1, dtype=np.float32)
-            tmp = self._derive(vals=posvals)
-            pv = self.alg.make_plan(tmp, orient).vals
-
-            def to_idx(a):
-                return a.cpu().numpy().astype(np.int64)
-
-            self._posmaps[orient] = (tuple(to_idx(a) for a in pv)
-                                     if isinstance(pv, tuple) else
-                                     to_idx(pv))
+            dt = np.int32 if self.nnz < np.iinfo(np.int32).max else np.int64
+            tmp = self._derive(vals=np.arange(1, self.nnz + 1, dtype=dt))
+            self._posmaps[orient] = self.alg.make_plan(tmp, orient)
         return self._posmaps[orient]
 
+    def _inject(self, orient: str, vals: torch.Tensor):
+        """The position-coded plan with ``vals`` (host COO order, on the
+        grid's device) gathered into its value slots (padding 0.0)."""
+        base = self._posplan(orient)
+        lookup = torch.cat([vals.new_zeros(1), vals])
+
+        def inject(pos):
+            return torch.index_select(lookup, 0, pos.reshape(-1)) \
+                .reshape(pos.shape)
+
+        new_vals = (tuple(inject(p) for p in base.vals)
+                    if isinstance(base.vals, tuple) else inject(base.vals))
+        return dataclasses.replace(base, vals=new_vals)
+
+    def _value_vector(self, vals) -> torch.Tensor:
+        """Values in host COO order as float32 (nnz,) on the grid's
+        device (numpy is cast as the reference casts it)."""
+        if isinstance(vals, torch.Tensor):
+            v = vals.detach()
+        else:
+            v = torch.from_numpy(np.asarray(vals, np.float32))
+        v = v.to(device=self.grid.device, dtype=torch.float32).reshape(-1)
+        if v.numel() != self.nnz:
+            raise ValueError(f"{v.numel()} values for a pattern of "
+                             f"{self.nnz} nonzeros")
+        return v
+
+    def device_vals(self) -> torch.Tensor:
+        """S's sample values (host COO order) on the grid's device."""
+        if self._vals_dev is None:
+            self._vals_dev = self._value_vector(self.vals)
+        return self._vals_dev
+
     def injected_plan(self, orient: str, vals=None):
-        """This orientation's plan with ``vals`` (host COO order)
-        substituted into the value slots: only values move, the structure
-        is packed once.  Re-packs above 2^24 nonzeros, where float32
-        position coding would alias."""
+        """This orientation's plan with ``vals`` (host COO order: numpy,
+        or a tensor, which stays on the device) in the value slots: only
+        values move, the structure is packed once."""
         if vals is None:
             return self.plan(orient)
-        vals = np.asarray(vals, np.float32)
-        if self.nnz >= (1 << 24):
-            return self.with_values(vals).plan(orient)
-        base = self.plan(orient)
-        pos = self._posmap(orient)
-        lookup = np.concatenate([np.zeros(1, np.float32), vals])
+        return self._inject(orient, self._value_vector(vals))
 
-        def inject(p, old):
-            return torch.from_numpy(lookup[p]).to(old.device)
-
-        new_vals = (tuple(inject(p, o) for p, o in zip(pos, base.vals))
-                    if isinstance(base.vals, tuple) else
-                    inject(pos, base.vals))
-        return dataclasses.replace(base, vals=new_vals)
+    def _value_index(self, orient: str):
+        """int64 (nnz,) on the grid's device: the slot of each host-COO
+        position in the flat stacked values of this orientation's plan;
+        None where a coordinate repeats (cached; a collective under a
+        process group)."""
+        if orient not in self._value_idx:
+            idx = None
+            dev = self.grid.device
+            key = (torch.from_numpy(self.rows.astype(np.int64)).to(dev)
+                   * self.n + torch.from_numpy(self.cols).to(dev))
+            if torch.unique(key).numel() == self.nnz:
+                pos = _flat(self.grid.gather_stacked(
+                    self._posplan(orient).vals)).long()
+                slots = torch.nonzero(pos).reshape(-1)
+                idx = torch.empty(self.nnz, dtype=torch.int64, device=dev)
+                idx[pos[slots] - 1] = slots
+            self._value_idx[orient] = idx
+        return self._value_idx[orient]
 
     def coo_sort(self):
         """(sorted coordinate keys, argsort order), cached."""
@@ -748,14 +828,25 @@ class DistProblem:
 
     # -- derived problems ----------------------------------------------------
     def with_values(self, vals) -> "DistProblem":
-        """Same structure, new sample values (re-packs on first use)."""
+        """Same structure, new sample values: shares this problem's
+        position-coded plans, so it packs nothing."""
         if isinstance(vals, torch.Tensor):
             vals = vals.detach().cpu().numpy()
         vals = np.asarray(vals, np.float32)
         if vals.shape != self.rows.shape:
             raise ValueError(f"vals of shape {vals.shape} for a pattern of "
                              f"{self.rows.shape[0]} nonzeros")
-        return self._derive(vals=vals, _posmaps=self._posmaps)
+        return self._derive(vals=vals, _posmaps=self._posmaps,
+                            _value_idx=self._value_idx)
+
+    def ones(self) -> "DistProblem":
+        """The unit-valued problem on S's pattern (cached): the sampling
+        mask, whose ``sddmm(X, Y)`` gives the raw dots at nnz(S), as the
+        backward of a values-differentiable SpMM needs (core/grads)."""
+        if self._ones is None:
+            self._ones = self if bool(np.all(self.vals == 1.0)) \
+                else self.with_values(np.ones_like(self.vals))
+        return self._ones
 
     def with_r(self, r: int) -> "DistProblem":
         """Same sparse matrix, different dense-operand width (cached)."""
@@ -818,8 +909,6 @@ class DistProblem:
     def spmm_t(self, A, vals=None, session: Optional["Session"] = None, *,
                backend: str | None = None) -> torch.Tensor:
         """out = S(vals)^T @ A, (n, r) on the grid's device; A is (m, r)."""
-        if vals is not None:
-            vals = np.asarray(vals, np.float32)
         return self.alg.spmm_t(self, A, vals=vals, session=session,
                                backend=backend)
 
@@ -846,36 +935,29 @@ class DistProblem:
 # Session: across-call replication reuse
 # ---------------------------------------------------------------------------
 
-def _host_bytes(arr) -> Tuple[tuple, str, bytes]:
-    if isinstance(arr, torch.Tensor):
-        a = arr.detach().cpu().numpy()
-    else:
-        a = np.asarray(arr)
-    return a.shape, str(a.dtype), a.tobytes()
-
-
 class Session:
     """Caches fiber-replicated dense operands across executor calls.
 
-    Keyed by operand CONTENT (grid, family, slot, shape, dtype, byte
-    digest), so a stationary operand hits on every call while a changed
-    one is replicated fresh.  An identity memo skips the digest for the
-    same object: numpy operands are re-verified by a sum fingerprint,
-    tensors by their in-place version counter.  LRU-bounded."""
+    Keyed by operand CONTENT: an operand hits the entry of any operand
+    with the same grid, family, wire format, slot, shape and dtype whose
+    bytes are equal.  The bytes are compared on the grid's device (an
+    integer sum of the bits first, then every bit of the entries whose
+    sum agrees), so no operand is copied to the host to be keyed.  An
+    identity memo skips the comparison for the same object: tensors are
+    re-verified by their in-place version counter, numpy arrays by a sum
+    fingerprint.  Each entry keeps its own copy of the operand (what
+    later operands are compared with; the caller's in-place changes
+    cannot reach it).  LRU-bounded, as the reference's.  Cached and
+    uncached calls are bitwise identical."""
 
     def __init__(self, max_entries: int = 16):
+        # key -> (copy, its bit sum, replica)
         self._cache = collections.OrderedDict()
         self._id_memo = collections.OrderedDict()
         self._max_entries = max_entries
+        self._serial = itertools.count()
         self.hits = 0
         self.misses = 0
-
-    @staticmethod
-    def _key(problem: "DistProblem", arr, slot: str):
-        shape, dtype, data = _host_bytes(arr)
-        digest = hashlib.blake2b(data, digest_size=16).hexdigest()
-        return (id(problem.grid), problem.alg.name, problem.comm, slot,
-                shape, dtype, digest)
 
     @staticmethod
     def _cheap_fp(arr):
@@ -886,36 +968,53 @@ class Session:
             return (tuple(arr.shape), str(arr.dtype), arr._version)
         return None
 
-    def _content_key(self, problem: "DistProblem", arr, slot: str):
-        memo_k = (id(problem.grid), problem.alg.name, problem.comm, slot,
-                  id(arr))
-        memo = self._id_memo.get(memo_k)
-        fp = self._cheap_fp(arr)
-        if memo is not None and memo[0]() is arr and memo[2] == fp:
-            self._id_memo.move_to_end(memo_k)
-            return memo[1]
-        key = self._key(problem, arr, slot)
-        try:
-            ref = weakref.ref(arr)
-        except TypeError:
-            return key                     # un-weakref-able: no memo
-        self._id_memo[memo_k] = (ref, key, fp)
-        while len(self._id_memo) > 4 * self._max_entries:
-            self._id_memo.popitem(last=False)
-        return key
+    @staticmethod
+    def _bit_sum(full: torch.Tensor) -> int:
+        return int(full.view(torch.int32).sum(dtype=torch.int64))
+
+    def _find(self, meta, full: torch.Tensor, bit_sum: int):
+        """The key of an entry of ``meta`` holding ``full``'s bytes."""
+        bits = full.view(torch.int32)
+        for key, (own, own_sum, _) in self._cache.items():
+            if key[:-1] == meta and own_sum == bit_sum \
+                    and torch.equal(own.view(torch.int32), bits):
+                return key
+        return None
 
     def replicate(self, problem: "DistProblem", arr, slot: str):
-        key = self._content_key(problem, arr, slot)
-        hit = self._cache.get(key)
-        if hit is not None:
+        dtype = str(arr.dtype).replace("torch.", "") \
+            if hasattr(arr, "dtype") else None
+        meta = (id(problem.grid), problem.alg.name, problem.comm, slot,
+                tuple(np.shape(arr)), dtype)
+        memo_k = meta[:4] + (id(arr),)
+        memo = self._id_memo.get(memo_k)
+        fp = self._cheap_fp(arr)
+        key = None
+        if memo is not None and memo[0]() is arr and memo[2] == fp:
+            self._id_memo.move_to_end(memo_k)
+            key = memo[1]
+        if key not in self._cache:
+            full = _dense(problem, arr)
+            bit_sum = self._bit_sum(full)
+            key = self._find(meta, full, bit_sum)
+        if key is not None:
             self._cache.move_to_end(key)
             self.hits += 1
-            return hit
-        rep = problem.alg.replicate(problem, arr, slot)
-        self._cache[key] = rep
-        self.misses += 1
-        while len(self._cache) > self._max_entries:
-            self._cache.popitem(last=False)
+            rep = self._cache[key][2]
+        else:
+            own = full.clone() if isinstance(arr, torch.Tensor) else full
+            rep = problem.alg.replicate(problem, own, slot)
+            key = meta + (next(self._serial),)
+            self._cache[key] = (own, bit_sum, rep)
+            self.misses += 1
+            while len(self._cache) > self._max_entries:
+                self._cache.popitem(last=False)
+        try:
+            self._id_memo[memo_k] = (weakref.ref(arr), key, fp)
+        except TypeError:
+            pass                           # un-weakref-able: no memo
+        while len(self._id_memo) > 4 * self._max_entries:
+            self._id_memo.popitem(last=False)
         return rep
 
     def stats(self) -> dict:

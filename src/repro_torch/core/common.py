@@ -68,7 +68,9 @@ def pack_block_list(blocks, shape, row_tile, nz_block, group: int = 1):
 
     blocks: list of (rows, cols, vals) numpy triples, all logical `shape`.
     The common block count is the max over *this list only* (one phase).
-    Returns stacked numpy arrays (N, nb, k), (N, nb, k), (N, nb, k), (N, nb).
+    Returns stacked numpy arrays (N, nb, k), (N, nb, k), (N, nb, k), (N, nb);
+    the values are float32, or integer if any block's are (position
+    codes; an empty block packs float zeros, which are padding).
     """
     packs = [pack_row_tiled_arrays(r, c, v, shape, row_tile=row_tile,
                                    nz_block=nz_block, group=group)
@@ -77,7 +79,9 @@ def pack_block_list(blocks, shape, row_tile, nz_block, group: int = 1):
     nbmax = ((nbmax + group - 1) // group) * group
     rl = np.zeros((len(packs), nbmax, nz_block), np.int32)
     cl = np.zeros((len(packs), nbmax, nz_block), np.int32)
-    vl = np.zeros((len(packs), nbmax, nz_block), np.float32)
+    ints = [p[2].dtype for p in packs if p[2].dtype.kind in "iu"]
+    vl = np.zeros((len(packs), nbmax, nz_block),
+                  ints[0] if ints else np.float32)
     tb = np.zeros((len(packs), nbmax), np.int32)
     for i, (prl, pcl, pvl, ptb, _) in enumerate(packs):
         nb = prl.shape[0]

@@ -127,7 +127,9 @@ def pack_row_tiled_arrays(rows: np.ndarray, cols: np.ndarray,
     ``group > 1`` pads every window's run of blocks, and the block count,
     to a multiple of ``group``; padding blocks after the last window
     inherit its base so ``tile_base`` stays non-decreasing.  ``row_tile``
-    is clamped to the largest divisor of the row count.
+    is clamped to the largest divisor of the row count.  Values pack as
+    float32, except integer ones, which keep their type: packing only
+    moves values, so integer position codes come out exact at any count.
     """
     row_tile = clamp_row_tile(shape[0], row_tile)
     rows = np.asarray(rows)
@@ -158,7 +160,8 @@ def pack_row_tiled_arrays(rows: np.ndarray, cols: np.ndarray,
 
     rl = np.zeros((target, nz_block), np.int32)
     cl = np.zeros((target, nz_block), np.int32)
-    vl = np.zeros((target, nz_block), np.float32)
+    vl = np.zeros((target, nz_block),
+                  vals.dtype if vals.dtype.kind in "iu" else np.float32)
     if nnz:
         w_of = np.repeat(np.arange(len(uniq)), counts)
         q = np.arange(nnz, dtype=np.int64) - starts[w_of]
@@ -266,3 +269,24 @@ def random_permute(rows: np.ndarray, cols: np.ndarray, m: int, n: int,
     pr = rng.permutation(m).astype(np.int32)
     pc = rng.permutation(n).astype(np.int32)
     return pr[rows], pc[cols]
+
+
+def block_sparse_mask(seq: int, block: int, window_blocks: int,
+                      global_blocks: int = 1):
+    """Block-sparse attention mask (sliding window + global) as COO blocks.
+
+    Returns (rows, cols) of *block* indices for a lower-triangular
+    sliding-window + global-token pattern over seq/block block rows.
+    Used by the block-sparse attention path (``core/sparse_attention``).
+    """
+    nb = seq // block
+    rows, cols = [], []
+    for i in range(nb):
+        lo = max(0, i - window_blocks + 1)
+        for j in range(lo, i + 1):
+            rows.append(i)
+            cols.append(j)
+        for j in range(min(global_blocks, lo)):
+            rows.append(i)
+            cols.append(j)
+    return np.asarray(rows, np.int32), np.asarray(cols, np.int32)

@@ -71,20 +71,48 @@ AUTO_CASES = ([(1 << 14, nnz, r, p) for nnz in (1 << 12, 1 << 16, 1 << 20)
               + [(16386, nnz, 64, 4) for nnz in (1 << 12, 1 << 20)])
 
 
-def _auto_choices():
-    """Subprocess body: the reference's make_problem(algorithm="auto") on
-    8 forced host devices, (family, elision, c) per AUTO_CASES entry."""
+FAMILIES = ("d15", "s15", "d25", "s25")
+
+
+def _family_elisions(make, session):
+    """Per AUTO_CASES entry and family: (c, resolve_elision("auto"),
+    resolve_elision("auto", Session())) of ``make(..., algorithm=family)``,
+    or None where the family is infeasible there."""
     out = []
     for m, nnz, r, p in AUTO_CASES:
         z = np.zeros(nnz, np.int32)
-        prob = japi.make_problem(z, z, np.ones(nnz, np.float32), (m, m),
-                                 r, devices=jax.devices()[:p])
-        out.append([prob.alg.name, prob.resolve_elision("auto"), prob.c])
+        row = []
+        for fam in FAMILIES:
+            try:
+                prob = make(z, z, np.ones(nnz, np.float32), (m, m), r, p,
+                            algorithm=fam)
+            except ValueError:
+                row.append(None)
+                continue
+            row.append([prob.c, prob.resolve_elision("auto"),
+                        prob.resolve_elision("auto", session())])
+        out.append(row)
     return out
 
 
+def _auto_choices():
+    """Subprocess body: the reference's make_problem on 8 forced host
+    devices: algorithm="auto"'s (family, elision, c) per AUTO_CASES
+    entry, and each family's c and "auto" elisions (_family_elisions)."""
+    def make(rows, cols, vals, shape, r, p, **kw):
+        return japi.make_problem(rows, cols, vals, shape, r,
+                                 devices=jax.devices()[:p], **kw)
+
+    out = []
+    for m, nnz, r, p in AUTO_CASES:
+        z = np.zeros(nnz, np.int32)
+        prob = make(z, z, np.ones(nnz, np.float32), (m, m), r, p)
+        out.append([prob.alg.name, prob.resolve_elision("auto"), prob.c])
+    return {"auto": out, "families": _family_elisions(make, japi.Session)}
+
+
 @pytest.fixture(scope="module")
-def reference_choices():
+def reference_run():
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
@@ -96,6 +124,11 @@ def reference_choices():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+@pytest.fixture(scope="module")
+def reference_choices(reference_run):
+    return reference_run["auto"]
+
+
 @pytest.mark.parametrize("case", range(len(AUTO_CASES)))
 def test_auto_choice_matches_reference(reference_choices, case):
     m, nnz, r, p = AUTO_CASES[case]
@@ -103,6 +136,19 @@ def test_auto_choice_matches_reference(reference_choices, case):
     prob = _make(z, z, np.ones(nnz, np.float32), (m, m), r, p=p)
     got = [prob.alg.name, prob.resolve_elision("auto"), prob.c]
     assert got == reference_choices[case], (m, nnz, r, p)
+
+
+def test_family_auto_elision_matches_reference(reference_run):
+    """For every family at every AUTO_CASES point: the c make_problem
+    picks and resolve_elision("auto") with and without a Session are the
+    reference's (None where the family is infeasible in both)."""
+    def make(rows, cols, vals, shape, r, p, **kw):
+        return _make(rows, cols, vals, shape, r, p=p, **kw)
+
+    got = _family_elisions(make, api.Session)
+    assert got == reference_run["families"]
+    assert any(cell is not None and cell[1] != cell[2]
+               for row in got for cell in row), "no Session flip covered"
 
 
 def test_main_path_auto_is_s15_fused():
@@ -293,9 +339,14 @@ def test_session_lru_bound_and_content_keys():
 
 def test_session_aware_elision_ranking():
     rows, cols, vals, *_ = _problem_data()
+    for fam in FAMILIES:
+        prob = _make(rows, cols, vals, (64, 64), 8, algorithm=fam)
+        jprob = japi.make_problem(rows, cols, vals, (64, 64), 8,
+                                  algorithm=fam, devices=jax.devices()[:1])
+        assert prob.resolve_elision("auto") == jprob.resolve_elision("auto")
+        assert prob.resolve_elision("auto", api.Session()) == \
+            jprob.resolve_elision("auto", japi.Session()), fam
     prob = _make(rows, cols, vals, (64, 64), 8, algorithm="d15")
-    assert prob.resolve_elision("auto") == "fused"
-    assert prob.resolve_elision("auto", api.Session()) == "fused"
     with pytest.raises(ValueError, match="supports"):
         prob.fusedmm(np.zeros((64, 8)), np.zeros((64, 8)), elision="pure")
 
@@ -347,17 +398,26 @@ def test_with_values_transposed_and_with_r():
 
 
 def test_schedule_events_match_reference():
-    """The port's schedule is the reference's, event for event."""
-    from repro.core import d15 as jd15
+    """The port's schedule is the reference's, event for event, for
+    every family, op and cell the family honours, on 1.5D grids (L, c)
+    or 2.5D grids (G, c)."""
+    import importlib
     import types
-    for L, c in ((1, 1), (4, 2), (2, 4)):
-        grid = types.SimpleNamespace(L=L, c=c, p=L * c)
-        for op in ("sddmm", "spmm", "spmm_t"):
-            assert d15.schedule_events(grid, op) == \
-                jd15.schedule_events(grid, op)
-        for el in CELLS:
-            assert d15.schedule_events(grid, "fusedmm", el) == \
-                jd15.schedule_events(grid, "fusedmm", el)
+    for fam in FAMILIES:
+        mine = importlib.import_module(f"repro_torch.core.{fam}")
+        ref = importlib.import_module(f"repro.core.{fam}")
+        one_5d = fam in ("d15", "s15")
+        shapes = ((1, 1), (4, 2), (2, 4), (8, 1), (1, 8)) if one_5d \
+            else ((1, 1), (2, 2), (2, 1), (3, 2))
+        for a, c in shapes:
+            grid = types.SimpleNamespace(L=a, G=a, c=c,
+                                         p=a * c if one_5d else a * a * c)
+            for op in ("sddmm", "spmm", "spmm_t"):
+                assert mine.schedule_events(grid, op) == \
+                    ref.schedule_events(grid, op), (fam, a, c, op)
+            for el in api.ALGORITHMS[fam].elisions:
+                assert mine.schedule_events(grid, "fusedmm", el) == \
+                    ref.schedule_events(grid, "fusedmm", el), (fam, a, c, el)
 
 
 # ---------------------------------------------------------------------------
