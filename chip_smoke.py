@@ -45,6 +45,23 @@ Phases, each printing one JSON line:
            backend="ref", the bitwise cells against the family's
            sddmm-then-spmm sequence, the collective log against
            schedule_words, median ms per call and the memory peak;
+  comm_sparse
+           support-pruned communication (comm="sparse", compress="bf16")
+           at r = 128, p = 8 stacked on the card.  (A) R-MAT 2^16 (16
+           edges a row, seed 7, unpermuted, as sparse.powerlaw_problem
+           draws it) on check_comm_sparse.py's grids (d15 c = 2 and 4,
+           s15, d25 and s25 c = 2), every op and cell: sparse == dense
+           bit for bit, the collective log == the dense log plus the
+           delta of the plan's SparseMeta (bf16: half the pruned words),
+           bf16 within BF16_TOL of the exact wire, comm="auto" choosing
+           "sparse", each plan's SparseMeta printed; (B) R-MAT 2^22
+           (--comm-scale) with rows and columns permuted (PERMUTE_SEED:
+           the unpermuted matrix's timing waits on a defect, see
+           rmat_padding), the family, c and cell make_problem(
+           algorithm="auto", comm="auto") chooses and d15 c = 2 "fused",
+           each under dense, sparse and bf16: host seconds to plan (the
+           support sets' share), launches, words, median ms, the device
+           split and the memory peak, sparse == dense bit for bit;
   stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
            d15's every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
@@ -67,7 +84,12 @@ Phases, each printing one JSON line:
            DIST_TIMEOUT_S, fails the phase, and every rank is stopped.
            With two cards or more each rank also takes one sampled-loss
            step (apps/als.py) on the "auto" problem, and its gradients
-           must equal the stacked run's on card 0 bit for bit;
+           must equal the stacked run's on card 0 bit for bit; then the
+           R-MAT 2^--comm-scale problem under dense, sparse and bf16
+           wires: "auto"'s cell (every rank's blocks against the stacked
+           run bit for bit) and d15 "fused" (sparse == dense bit for
+           bit), each with ms, the device split, each collective kind's
+           ms and GB/s and the share of communication time pruning saves;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -85,13 +107,27 @@ Phases, each printing one JSON line:
            default): the losses falling, the trainable GAT layer against
            gat_layer_distributed, packing seconds, ms and device split.
 
+Named in --phases only (not run by default):
+
+  rmat_padding
+           the defect that section B's permutation avoids: the
+           unpermuted R-MAT at 2^(--comm-scale - 2), p = 8 stacked,
+           PROBE_CELL's family and c (section B's "auto" choice at
+           2^22).  Stacked ranks' packs are padded to the heaviest
+           rank's block count, and the padding repeats the last
+           window's base, so one kernel block walks it alone.  Prints
+           the packed slots per nonzero, the most entries one rank's
+           last window holds, and the host seconds of one dense call;
+           it checks nothing.
+
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
 line.  ``--scale`` shrinks the main path, the dist phase and sections A
 and B of the train phase (2^scale rows), ``--families-scale`` the
-families phase, ``--apps-scale`` section C and ``--rmat-scale`` the
-power-law timing for rehearsals;
+families phase, ``--apps-scale`` section C, ``--rmat-scale`` the
+power-law timing and ``--comm-scale`` the comm_sparse phase and the
+dist phase's R-MAT cells for rehearsals;
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -112,8 +148,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
-PHASES = ("build", "kernels", "main", "families", "stacked", "dist",
-          "train")
+PHASES = ("build", "kernels", "main", "families", "comm_sparse",
+          "stacked", "dist", "train")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -1093,6 +1129,415 @@ def stacked_families(torch, ck, p1, rows, cols, vals, X, Y):
 
 
 # ---------------------------------------------------------------------------
+# comm_sparse: support-pruned communication on one card
+# ---------------------------------------------------------------------------
+
+#: check_comm_sparse.py's (family, c) grids at p = 8
+COMM_SPARSE_GRIDS = [("d15", 2), ("d15", 4), ("s15", 2), ("d25", 2),
+                     ("s25", 2)]
+ALL_CELLS = {"d15": ("none", "reuse", "fused"), **FAMILY_CELLS}
+#: (name, comm, compress) of the three wire formats
+WIRES = [("dense", "dense", None), ("sparse", "sparse", None),
+         ("bf16", "sparse", "bf16")]
+#: compress="bf16" against the exact wire: within this share of the
+#: result's largest magnitude (bf16 keeps 8 significant bits)
+BF16_TOL = 2e-2
+RMAT_SEED = 7
+#: the full-size R-MAT's rows and columns are permuted (as
+#: benchmarks/bench_fig8_strong_scaling.py draws it): unpermuted, one
+#: stacked rank holds about 44% of the nonzeros at p = 8 (rmat_padding)
+PERMUTE_SEED = 1
+#: (family, c) of the rmat_padding probe: section B's "auto" choice at 2^22
+PROBE_CELL = ("s15", 2)
+
+
+def plan_of(prob, op):
+    """The plan an op's executor runs (the api's choice of pack)."""
+    two5 = prob.alg.name in ("d15", "d25")
+    if op == "spmm_t":
+        tp = prob.transposed()
+        return tp.plan("transpose") if two5 else tp.plan("normal")
+    if op == "fusedmm/reuse" and two5:
+        return prob.plan("transpose")
+    return prob.plan("normal")
+
+
+def dense_heights(prob, plan):
+    """The dense payload height of each prunable channel of ``plan``."""
+    fam, grid = prob.alg.name, prob.grid
+    if fam == "d15":
+        return {"gather": plan.m // grid.p, "shift": plan.n // grid.p}
+    if fam == "d25":
+        return {"gather": plan.meta.mA, "shift": plan.meta.nS}
+    if fam == "s15":
+        return {"gather": plan.m, "gather_b": plan.n}
+    return {"shift": plan.mS, "shift_b": plan.nS}
+
+
+def pruned_words(prob, op):
+    """(pruned words, dense words of the same moves) of one op or cell of
+    a comm="sparse" problem, from its plan's SparseMeta alone, as
+    tests/dist_scripts/check_comm_sparse.py computes its deltas: the
+    sparse log is the dense log plus their difference, the "none"
+    cell's replay round included.  tests/test_torch_comm_sparse.py
+    holds the port's CPU logs to this same model."""
+    fam, grid = prob.alg.name, prob.grid
+    plan = plan_of(prob, op)
+    sm, c, h = plan.smeta, grid.c, dense_heights(prob, plan)
+    parts = []                       # (pruned, dense) per pruned channel
+    if fam in ("d15", "d25"):
+        hops, width = ((grid.L, plan.r) if fam == "d15"
+                       else (grid.G, plan.meta.rW))
+        rounds = {"spmm_t": [], "fusedmm/none": [hops - 1, hops]}.get(
+            op, [hops - 1])             # dense hops of each B round
+        if sm.gather and op != "spmm":
+            parts.append(((c - 1) * sm.wg * width,
+                          (c - 1) * h["gather"] * width))
+        if sm.shift:
+            parts += [(sum(sm.ws) * width, n_hops * h["shift"] * width)
+                      for n_hops in rounds]
+    elif fam == "s15":
+        rp = plan.r // grid.p
+        if sm.gather and op not in ("spmm", "spmm_t"):
+            parts.append(((c - 1) * sm.wg * rp, (c - 1) * h["gather"] * rp))
+        if sm.gather_b:
+            parts += [((c - 1) * sm.wg_b * rp,
+                       (c - 1) * h["gather_b"] * rp)] * (
+                2 if op == "fusedmm/none" else 1)
+    else:
+        G, rc = grid.G, plan.rc
+        if sm.shift and op not in ("spmm", "spmm_t"):
+            parts.append(((G - 1) * sm.ws[0] * rc, (G - 1) * h["shift"] * rc))
+        if sm.shift_b:
+            parts.append(((G - 1) * sm.ws_b[0] * rc,
+                          (G - 1) * h["shift_b"] * rc))
+            if op == "fusedmm/none":            # the replay round
+                parts.append(((G - 1) * sm.ws_b[0] * rc,
+                              G * h["shift_b"] * rc))
+    return (float(sum(p for p, _ in parts)),
+            float(sum(d for _, d in parts)))
+
+
+def sparse_meta(prob):
+    """Each plan's SparseMeta: which channels ship pruned, and their
+    padded widths beside the dense heights."""
+    names = [("normal", "normal"), ("spmm_t", "spmm_t")]
+    if prob.alg.name in ("d15", "d25"):
+        names.insert(1, ("transpose", "fusedmm/reuse"))
+    out = {}
+    for name, op in names:
+        plan = plan_of(prob, op)
+        sm = plan.smeta
+        out[name] = {"pruned": [k for k in ("gather", "gather_b", "shift",
+                                            "shift_b") if getattr(sm, k)],
+                     "widths": {"gather": sm.wg, "gather_b": sm.wg_b,
+                                "shift": list(sm.ws),
+                                "shift_b": list(sm.ws_b)},
+                     "dense_heights": dense_heights(prob, plan)}
+    return out
+
+
+def _sparse_ops(fam):
+    return ["sddmm", "spmm", "spmm_t"] + [f"fusedmm/{el}"
+                                          for el in ALL_CELLS[fam]]
+
+
+def _run_sparse_op(prob, op, X, Y):
+    """The op's results as device tensors (sampled values in host COO
+    order)."""
+    if op == "sddmm":
+        return (prob.sddmm(X, Y).values_tensor(),)
+    if op == "spmm":
+        return (prob.spmm(Y),)
+    if op == "spmm_t":
+        return (prob.spmm_t(X),)
+    out, R = prob.fusedmm(X, Y, elision=op.split("/")[1])
+    return out, R.values_tensor()
+
+
+def _log_words(prob):
+    return sum(w for _, w in prob.last_collectives.words())
+
+
+def _bf16_err(torch, got, want, what):
+    """The largest error of the bf16 wire's results against the exact
+    wire's, as a share of each result's largest magnitude; fails past
+    BF16_TOL."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: bf16 result shape or non-finite")
+        share = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if share > BF16_TOL:
+            raise AssertionError(f"{what}: bf16 off by {share:.3g} of the "
+                                 f"largest magnitude, beyond {BF16_TOL}")
+        worst = max(worst, share)
+    return worst
+
+
+def rmat_on_card(torch, scale: int, edge_factor: int, seed: int,
+                 permute_seed=None):
+    """``sparse.rmat``'s construction (the same quadrant probabilities,
+    one bit of row and column a level, duplicates dropped, sorted, normal
+    values) drawn by a seeded generator on the card: the host's numpy
+    draw of 2^22 rows took 273 s on the card's machine.  With
+    ``permute_seed`` rows and columns are relabelled by seeded random
+    permutations (``sparse.random_permute``'s) and the COO sorted again.
+    Returns host numpy COO for the planner."""
+    a, b, c = 0.57, 0.19, 0.19
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1 << scale
+    ne = n * edge_factor
+    rows = torch.zeros(ne, dtype=torch.int64, device="cuda")
+    cols = torch.zeros(ne, dtype=torch.int64, device="cuda")
+    for lvl in range(scale):
+        u = torch.rand(ne, generator=g, device="cuda", dtype=torch.float64)
+        right = u >= a + b
+        down = ((u >= a) & (u < a + b)) | (u >= a + b + c)
+        rows |= down.long() << lvl
+        cols |= right.long() << lvl
+    key = torch.unique(rows * n + cols)
+    del rows, cols
+    vals = torch.randn(key.numel(), generator=g, device="cuda")
+    if permute_seed is not None:
+        gp = torch.Generator(device="cuda").manual_seed(permute_seed)
+        pr = torch.randperm(n, generator=gp, device="cuda")
+        pc = torch.randperm(n, generator=gp, device="cuda")
+        key, order = torch.sort(pr[key // n] * n + pc[key % n])
+        vals = vals[order]
+    return ((key // n).int().cpu().numpy(), (key % n).int().cpu().numpy(),
+            vals.cpu().numpy())
+
+
+def rmat_problem(torch, scale, r, seed, permute_seed=None):
+    """An R-MAT matrix (edge factor 16): ``sparse.rmat`` on the host for
+    an unpermuted one up to 2^16 rows (the CPU tests' generator), else
+    :func:`rmat_on_card`; and dense operands drawn on the card.  Returns
+    (rows, cols, vals, X, Y, seconds to draw)."""
+    from repro_torch.core import sparse
+    t0 = time.perf_counter()
+    if scale <= 16 and permute_seed is None:
+        rows, cols, vals = sparse.rmat(scale, 16, seed=seed)
+    else:
+        rows, cols, vals = rmat_on_card(torch, scale, 16, seed,
+                                        permute_seed)
+    gen_s = time.perf_counter() - t0
+    log(f"rmat 2^{scale}: {len(vals)} nonzeros drawn in {gen_s:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    m = 1 << scale
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((m, r), generator=g, device="cuda")
+    return rows, cols, vals, X, Y, gen_s
+
+
+def padding_probe(torch, scale, r, family, c):
+    """The unpermuted R-MAT's load on the stacked ranks: at p = 8 one
+    rank's row block holds a large share of the nonzeros, every rank's
+    pack is padded to its block count, and the padding blocks repeat the
+    last window's base, so one window of each light rank holds them all
+    and one block of each kernel walks them in turn.  Reports the packed
+    slots per nonzero, the most entries one rank's last window holds and
+    the host seconds of one synchronised dense ``fusedmm`` call (the
+    first, with every launch of the cell)."""
+    from repro_torch.core import api
+    rows, cols, vals, X, Y, _ = rmat_problem(torch, scale, r, RMAT_SEED)
+    m = 1 << scale
+    prob = api.make_problem(rows, cols, vals, (m, m), r, algorithm=family,
+                            c=c, devices=[torch.device("cuda")] * 8)
+    plan = prob.plan("normal")
+    tbs = plan.tile_base if isinstance(plan.tile_base, tuple) \
+        else (plan.tile_base,)
+    slots = sum(t.numel() for t in tbs) * plan.vals[0].shape[-1] \
+        if isinstance(plan.vals, tuple) else plan.vals.numel()
+    last = max(int(((t == t[..., -1:]).sum(-1)).max()) for t in tbs) \
+        * prob.nz_block
+    t0 = time.perf_counter()
+    prob.fusedmm(X, Y)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    log(f"padding probe 2^{scale}: one call {call_s:.1f} s")
+    return {"m": m, "nnz": int(len(vals)), "family": family, "c": c,
+            "slots_per_nonzero": slots / len(vals),
+            "last_window_entries": last, "call_s": call_s}
+
+
+def comm_sparse_check(torch, ck, scale, r):
+    """Section A: every op and cell of check_comm_sparse.py's grids on an
+    R-MAT matrix, p = 8 stacked on the card: sparse == dense bit for bit,
+    the log == the dense log + the plan's delta (bf16: half the pruned
+    words), bf16 within BF16_TOL, comm="auto" -> "sparse"."""
+    from repro_torch.core import api
+    rows, cols, vals, X, Y, _ = rmat_problem(torch, scale, r, RMAT_SEED)
+    m = 1 << scale
+    dev = torch.device("cuda")
+    report = {"m": m, "nnz": int(len(vals)), "grids": {}}
+    t0 = time.perf_counter()
+    for fam, c in COMM_SPARSE_GRIDS:
+        kw = dict(algorithm=fam, c=c, devices=[dev] * 8)
+        auto = api.make_problem(rows, cols, vals, (m, m), r, comm="auto",
+                                **kw)
+        if auto.comm != "sparse":
+            raise AssertionError(f"{fam}: comm='auto' chose {auto.comm}")
+        probs = {name: api.make_problem(rows, cols, vals, (m, m), r,
+                                        comm=comm, compress=compress, **kw)
+                 for name, comm, compress in WIRES}
+        row = {"meta": sparse_meta(probs["sparse"]), "words": {},
+               "bf16_err": {}}
+        for op in _sparse_ops(fam):
+            res, words = {}, {}
+            for name, prob in probs.items():
+                res[name] = _run_sparse_op(prob, op, X, Y)
+                words[name] = _log_words(prob)
+            what = f"{fam} c={c} {op}"
+            ck.equal_all(res["sparse"], res["dense"], f"{what} sparse")
+            pruned, dense_w = pruned_words(probs["sparse"], op)
+            want = [words["dense"] + pruned - dense_w,
+                    words["dense"] + pruned / 2 - dense_w]
+            if [words["sparse"], words["bf16"]] != want:
+                raise AssertionError(f"{what}: logged {words}, the plan's "
+                                     f"delta gives {want}")
+            ck.n += 1
+            row["words"][op] = [words[name] for name, _, _ in WIRES]
+            row["bf16_err"][op] = _bf16_err(torch, res["bf16"],
+                                            res["dense"], what)
+        report["grids"][f"{fam} c={c}"] = row
+        del probs, auto
+        torch.cuda.empty_cache()
+        log(f"comm_sparse A: {fam} c={c} checked "
+            f"({time.perf_counter() - t0:.1f} s in)")
+    return report
+
+
+def comm_sparse_full(torch, ck, scale, r, reps):
+    """Section B: R-MAT at full size, p = 8 stacked, the family, c and
+    cell "auto" chooses (comm="auto" too) and d15 c = 2 "fused", each
+    under the three wires: plan seconds (support sets' share), launches,
+    words, ms, device split and memory peak; sparse == dense bit for
+    bit.  Returns (report, launches of the counted calls)."""
+    import importlib
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    rows, cols, vals, X, Y, gen_s = rmat_problem(torch, scale, r,
+                                                  RMAT_SEED, PERMUTE_SEED)
+    m = 1 << scale
+    dev = torch.device("cuda")
+    auto = api.make_problem(rows, cols, vals, (m, m), r, comm="auto",
+                            devices=[dev] * 8)
+    if auto.comm != "sparse":
+        raise AssertionError(f"comm='auto' chose {auto.comm} at scale "
+                             f"{scale}")
+    cells = [(auto.alg.name, auto.c, auto.resolve_elision("auto")),
+             ("d15", 2, "fused")]
+    del auto
+    report = {"m": m, "nnz": int(len(vals)), "rmat_gen_s": gen_s,
+              "permuted": True, "cells": {}}
+    totals = {k: 0 for k in ops.KERNELS}
+    for fam, c, el in cells:
+        mod = importlib.import_module(f"repro_torch.core.{fam}")
+        orient = "transpose" if el == "reuse" and fam in ("d15", "d25") \
+            else "normal"
+        rows_out, base = {}, None
+        for name, comm, compress in WIRES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sup_s = []
+
+            def timing(orig):
+                def spy(*a, **k):
+                    t0 = time.perf_counter()
+                    out = orig(*a, **k)
+                    sup_s.append(time.perf_counter() - t0)
+                    return out
+                return spy
+
+            t0 = time.perf_counter()
+            with patched(mod, "_sparse_sup", timing):
+                prob = api.make_problem(rows, cols, vals, (m, m), r,
+                                        algorithm=fam, c=c, comm=comm,
+                                        compress=compress,
+                                        devices=[dev] * 8)
+                prob.plan(orient)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            what = f"{fam} c={c} {el} {name}"
+            log(f"comm_sparse B: {what} planned in {plan_s:.1f} s "
+                f"(support sets {sum(sup_s):.1f} s)")
+            ops.reset_launch_counts()
+            out, R = prob.fusedmm(X, Y, elision=el)
+            torch.cuda.synchronize()
+            launches, forms = ops.launch_counts(), ops.form_counts()
+            for k in totals:
+                totals[k] += launches[k]
+            for k in (("fusedmm",) if (fam, el) == ("d15", "fused")
+                      else ("sddmm", "spmm")):
+                if launches[k] <= 0:
+                    raise AssertionError(f"{what}: {k} kernel not "
+                                         f"launched: {launches}")
+            words = _log_words(prob)
+            got = (out, R.values_tensor())
+            if tuple(out.shape) != (m, r):
+                raise AssertionError(f"{what}: out {tuple(out.shape)}")
+            if base is None:
+                base = got
+                if not all(bool(torch.isfinite(t).all()) for t in got):
+                    raise AssertionError(f"{what}: non-finite")
+                err = 0.0
+            elif compress is None:
+                ck.equal_all(got, base, f"{what} == dense")
+                err = 0.0
+            else:
+                err = _bf16_err(torch, got, base, what)
+            del out, R, got
+            ms = time_ms(torch, lambda: prob.fusedmm(X, Y, elision=el),
+                         reps)
+            split = device_breakdown(
+                torch, lambda: prob.fusedmm(X, Y, elision=el))
+            if split is not None:
+                split["idle_ms"] = ms - split["kernels_ms"] \
+                    - split["other_device_ms"] - split["nccl_ms"]
+            rows_out[name] = {
+                "plan_s": plan_s, "support_sets_s": sum(sup_s),
+                "launches": launches, "forms": forms,
+                "words": words, "ms": ms, "device": split,
+                "bf16_err": err,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if name == "sparse":
+                rows_out[name]["meta"] = sparse_meta(prob)
+            log(f"comm_sparse B: {what} {ms:.2f} ms, {words:.4g} words")
+            del prob
+        report["cells"][f"{fam} c={c} {el}"] = rows_out
+        del base
+        torch.cuda.empty_cache()
+    return report, totals
+
+
+def phase_comm_sparse(torch, scale: int, reps: int):
+    """Support-pruned communication on the card at r = 128: section A
+    (correctness, R-MAT 2^min(16, scale)) and section B (full size,
+    R-MAT 2^scale)."""
+    ck = Checker(torch)
+    r = 128
+    t0 = time.perf_counter()
+    check = comm_sparse_check(torch, ck, min(16, scale), r)
+    emit({"phase": "comm_sparse", "section": "A", "r": r, "p": 8,
+          "seconds": time.perf_counter() - t0, "checks": ck.n, **check})
+    t0 = time.perf_counter()
+    full, launches = comm_sparse_full(torch, ck, scale, r, reps)
+    emit({"phase": "comm_sparse", "section": "B", "r": r, "p": 8,
+          "seconds": time.perf_counter() - t0, "checks": ck.n, **full})
+    return launches
+
+
+def phase_rmat_padding(torch, scale: int):
+    """The opt-in probe of the unpermuted R-MAT at 2^scale (see
+    :func:`padding_probe`)."""
+    t0 = time.perf_counter()
+    probe = padding_probe(torch, scale, 128, *PROBE_CELL)
+    emit({"phase": "rmat_padding", "r": 128, "p": 8,
+          "seconds": time.perf_counter() - t0, **probe})
+
+
+# ---------------------------------------------------------------------------
 # dist: one rank per card over NCCL
 # ---------------------------------------------------------------------------
 
@@ -1531,7 +1976,7 @@ def phase_train(torch, scale: int, apps_scale: int, reps: int):
 
 
 NVLINK_GB_PER_S = 450.0   # H100 SXM NVLink 4, each direction (data sheet)
-DIST_TIMEOUT_S = 600      # the dist phase's ranks, spawn to exit
+DIST_TIMEOUT_S = 900      # the dist phase's ranks, spawn to exit
 #: (algorithm, cells): d15's three cells are the main path on the cards;
 #: then "auto" and one more cell of its family (s15 at the main path's
 #: point), d25's and s25's "auto" cell, each family at the c the cost
@@ -1572,8 +2017,8 @@ def _timed_backend(torch):
             self.spans.append((ev.kind, ev.words, crossed, e0, e1))
             return out
 
-        def shift(self, *args, **kwargs):
-            return self._span(super().shift, *args, **kwargs)
+        def permute(self, *args, **kwargs):
+            return self._span(super().permute, *args, **kwargs)
 
         def all_gather(self, *args, **kwargs):
             return self._span(super().all_gather, *args, **kwargs)
@@ -1604,7 +2049,7 @@ def _timed_backend(torch):
 
 
 def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
-              out_dir: str) -> None:
+              comm_scale: int, out_dir: str) -> None:
     """One rank of the dist phase, on card ``rank``, over NCCL; writes its
     report to ``out_dir``.  Any failed check raises (a non-zero exit)."""
     import datetime
@@ -1616,7 +2061,8 @@ def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        report = _dist_rank(torch, dist, rank, world, scale, reps)
+        report = _dist_rank(torch, dist, rank, world, scale, reps,
+                            comm_scale)
     finally:
         dist.destroy_process_group()
     with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
@@ -1629,7 +2075,7 @@ def _leaves(res):
     return [res]
 
 
-def _dist_rank(torch, dist, rank, world, scale, reps):
+def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
     from repro_torch.core import api, costmodel
     from repro_torch.kernels import ops
     ck = Checker(torch)
@@ -1758,7 +2204,105 @@ def _dist_rank(torch, dist, rank, world, scale, reps):
     if world > 1:
         report["sampled_loss"] = dist_sampled_loss(
             torch, dist, ck, rank, world, rows, cols, vals, m, r, reps)
+        del rows, cols, vals, X, Y
+        torch.cuda.empty_cache()
+        report["rmat"] = dist_rmat(torch, dist, ck, rank, world,
+                                   comm_scale, reps, Timed)
     report["checks"] = ck.n
+    return report
+
+
+#: the R-MAT problems of the four-card comm="sparse" cells: "auto"'s
+#: family, c and cell, and d15 (the cost model's c) "fused"
+DIST_RMAT = [("auto", None), ("d15", "fused")]
+
+
+def dist_rmat(torch, dist, ck, rank, world, scale, reps, Timed):
+    """The comm="sparse" cells on the cards: R-MAT 2^scale (each rank
+    draws it), one rank a card, under the three wires.  "auto"'s cell:
+    every rank's blocks == the stacked run's on card 0 bit for bit
+    (bf16 too), its log the stacked log; both cells: sparse == dense bit
+    for bit, bf16 within BF16_TOL, ms, the device split, and each
+    collective kind's ms and GB/s in a serial pass (ranks lined up), with
+    the share of communication time pruning saves."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", rank)
+    r = 128
+    rows, cols, vals, X, Y, gen_s = rmat_problem(torch, scale, r,
+                                                  RMAT_SEED, PERMUTE_SEED)
+    m = 1 << scale
+    report = {"m": m, "nnz": int(len(vals)), "rmat_gen_s": gen_s,
+              "permuted": True, "cells": {}}
+    for algorithm, cell in DIST_RMAT:
+        rows_out, base = {}, None
+        for name, comm, compress in WIRES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            prob = api.make_problem(rows, cols, vals, (m, m), r,
+                                    algorithm=algorithm, comm=comm,
+                                    compress=compress,
+                                    group=dist.group.WORLD)
+            el = cell or prob.resolve_elision("auto")
+            prob.plan("transpose" if el == "reuse"
+                      and prob.alg.name in ("d15", "d25") else "normal")
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            what = f"{algorithm} {el} {name}"
+            ops.reset_launch_counts()
+            blk, R = prob.fusedmm(X, Y, elision=el)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            log = prob.last_collectives.words()
+            got = (blk.gather(), *_leaves(prob.grid.gather_stacked(R.raw)))
+            del blk, R
+            if algorithm == "auto" and rank == 0:
+                stacked = api.make_problem(
+                    rows, cols, vals, (m, m), r, algorithm=prob.alg.name,
+                    c=prob.c, comm=comm, compress=compress,
+                    devices=[dev] * world)
+                wo, wR = stacked.fusedmm(X, Y, elision=el)
+                ck.equal_all(got, (wo, *_leaves(wR.raw)),
+                             f"{what} == stacked")
+                if stacked.last_collectives.words() != log:
+                    raise AssertionError(f"{what}: log != stacked log")
+                del stacked, wo, wR
+            if base is None:
+                base, err = got, 0.0
+            elif compress is None:
+                ck.equal_all(got, base, f"{what} == dense")
+                err = 0.0
+            else:
+                err = _bf16_err(torch, got, base, what)
+            del got
+            torch.cuda.empty_cache()
+            ms = time_ms(torch, lambda: prob.fusedmm(X, Y, elision=el), reps)
+            split = device_breakdown(
+                torch, lambda: prob.fusedmm(X, Y, elision=el))
+            fn, args, kwargs, _ = prob.alg._fusedmm_call(prob, X, Y, el,
+                                                         None)
+            over = {"overlap": False} if prob.alg.name in ("d15", "d25") \
+                else {}
+            coll = Timed(prob.grid)
+            fn(*args, **kwargs, **over, coll=coll)
+            by_kind = coll.by_kind()
+            rows_out[name] = {
+                "family": prob.alg.name, "c": prob.c, "cell": el,
+                "plan_s": plan_s, "launches": launches,
+                "words": sum(w for _, w in log), "ms": ms, "device": split,
+                "comm": by_kind,
+                "comm_ms": sum(k["ms"] for k in by_kind.values()),
+                "bf16_err": err,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del prob, fn, args, kwargs
+        dense_ms = rows_out["dense"]["comm_ms"]
+        for name in ("sparse", "bf16"):
+            rows_out[name]["comm_saved"] = (
+                1 - rows_out[name]["comm_ms"] / dense_ms if dense_ms
+                else None)
+        report["cells"][algorithm] = rows_out
+        del base
     return report
 
 
@@ -1808,7 +2352,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_dist(torch, scale: int, reps: int):
+def phase_dist(torch, scale: int, reps: int, comm_scale: int):
     """One process per visible card over NCCL (``dist_rank``); fails if
     a rank fails or any outlives DIST_TIMEOUT_S (all are stopped)."""
     import multiprocessing
@@ -1831,7 +2375,8 @@ def phase_dist(torch, scale: int, reps: int):
     with tempfile.TemporaryDirectory() as out_dir:
         init = f"tcp://localhost:{_free_port()}"
         procs = [ctx.Process(target=dist_rank, args=(rk, world, init, scale,
-                                                     reps, out_dir))
+                                                     reps, comm_scale,
+                                                     out_dir))
                  for rk in range(world)]
         # a SIGTERM (a time limit around the script) unwinds through the
         # finally below, which stops every rank
@@ -1869,7 +2414,10 @@ def phase_dist(torch, scale: int, reps: int):
                   a: {el: c["ms"] for el, c in pr["cells"].items()}
                   for a, pr in rr["problems"].items()},
                   "launches": {a: pr["launches"]
-                               for a, pr in rr["problems"].items()}}
+                               for a, pr in rr["problems"].items()},
+                  "rmat_ms": {a: {w: cw["ms"] for w, cw in cell.items()}
+                              for a, cell in rr.get("rmat", {})
+                              .get("cells", {}).items()}}
                   for rr in ranks]}
     emit(report)
     return ranks[0]["problems"]["d15"]["launches"]
@@ -1883,6 +2431,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rmat-scale", type=int, default=21)
     ap.add_argument("--families-scale", type=int, default=22)
     ap.add_argument("--apps-scale", type=int, default=20)
+    ap.add_argument("--comm-scale", type=int, default=22)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1895,7 +2444,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
-    train_launches = None
+    train_launches, sparse_launches = None, None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -1908,10 +2457,16 @@ def main(argv=None) -> int:
         elif ph == "families":
             family_launches = phase_families(torch, args.families_scale,
                                              args.reps, args.scale)
+        elif ph == "comm_sparse":
+            sparse_launches = phase_comm_sparse(torch, args.comm_scale,
+                                                args.reps)
         elif ph == "stacked":
             phase_stacked(torch)
         elif ph == "dist":
-            dist_launches = phase_dist(torch, args.scale, args.reps)
+            dist_launches = phase_dist(torch, args.scale, args.reps,
+                                       args.comm_scale)
+        elif ph == "rmat_padding":
+            phase_rmat_padding(torch, args.comm_scale - 2)
         elif ph == "train":
             train_launches = phase_train(torch, args.scale, args.apps_scale,
                                          args.reps)
@@ -1922,6 +2477,8 @@ def main(argv=None) -> int:
         for row in kernels:
             row["families_launches"] = (None if family_launches is None
                                         else family_launches[row["name"]])
+            row["comm_sparse_launches"] = (None if sparse_launches is None
+                                           else sparse_launches[row["name"]])
             row["dist_launches"] = (None if dist_launches is None
                                     else dist_launches[row["name"]])
             row["train_launches"] = (None if train_launches is None

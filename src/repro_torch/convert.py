@@ -4,11 +4,14 @@ run the *same* pack.
 The functions take the reference's objects by duck typing: any object
 with the attributes of ``repro.core.sparse.RowTiledCOO`` or of a
 family's plan (``repro.core.{d15,s15,d25,s25}.Plan*``) whose arrays
-``numpy.asarray`` can read.
-Nothing here imports the reference or its framework.  On a grid made
-with a process group, each rank keeps its own share of the plan.
+``numpy.asarray`` can read; a comm="sparse" plan brings its support
+sets (``sup``) and its ``SparseMeta`` across.  Nothing here imports the
+reference or its framework.  On a grid made with a process group, each
+rank keeps its own share of the plan.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,7 +50,29 @@ def plan_d15_from_numpy(plan, grid) -> d15.PlanD15:
     return d15.PlanD15(phases("rows_local"), phases("cols"), phases("vals"),
                        phases("tile_base"), int(plan.m), int(plan.n),
                        int(plan.r), int(plan.row_tile), bool(plan.transpose),
-                       _tiling(plan, plan.tile_base), meta)
+                       _tiling(plan, plan.tile_base), meta,
+                       *_support(plan, grid))
+
+
+def _support(plan, grid):
+    """``(sup, smeta)`` of a comm="sparse" plan: its support index sets,
+    nested as the plan nests them, on ``grid``'s device (this process's
+    share under a process group), and its SparseMeta; ``((), None)`` for
+    a dense plan."""
+    sm = getattr(plan, "smeta", None)
+    if sm is None:
+        return (), None
+
+    def carry(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(carry(a) for a in x)
+        return _tensor(grid.local(np.asarray(x)), grid.device)
+
+    fields = {f.name: getattr(sm, f.name)
+              for f in dataclasses.fields(common.SparseMeta)}
+    fields["ws"], fields["ws_b"] = (tuple(int(w) for w in fields[k])
+                                    for k in ("ws", "ws_b"))
+    return carry(plan.sup), common.SparseMeta(**fields)
 
 
 def _block_meta(plan) -> common.BlockMeta:
@@ -92,7 +117,8 @@ def plan_s15_from_numpy(plan, grid) -> s15.PlanS15:
     meta = s15.MetaS15(int(plan.meta.mS), int(plan.meta.rc),
                        _block_meta(plan))
     return s15.PlanS15(*_pack(plan, grid), *_common(plan),
-                       _tiling(plan, [plan.tile_base]), meta)
+                       _tiling(plan, [plan.tile_base]), meta,
+                       *_support(plan, grid))
 
 
 def plan_d25_from_numpy(plan, grid) -> d25.PlanD25:
@@ -102,7 +128,7 @@ def plan_d25_from_numpy(plan, grid) -> d25.PlanD25:
                        _block_meta(plan))
     return d25.PlanD25(*_pack(plan, grid), *_common(plan),
                        bool(plan.transpose), _tiling(plan, [plan.tile_base]),
-                       meta)
+                       meta, *_support(plan, grid))
 
 
 def plan_s25_from_numpy(plan, grid) -> s25.PlanS25:
@@ -110,7 +136,8 @@ def plan_s25_from_numpy(plan, grid) -> s25.PlanS25:
     mt = plan.meta
     meta = s25.MetaS25(int(mt.mS), int(mt.nS), int(mt.rc), _block_meta(plan))
     return s25.PlanS25(*_pack(plan, grid), *_common(plan),
-                       _tiling(plan, [plan.tile_base]), meta)
+                       _tiling(plan, [plan.tile_base]), meta,
+                       *_support(plan, grid))
 
 
 def gat_params_from_numpy(W, a1, a2, *, device=None):

@@ -206,8 +206,12 @@ class Algorithm:
                        session: Optional["Session"] = None):
         """Modeled per-device wire words for each schedule event, aligned
         1:1 with :meth:`schedule_events`; ``session`` models the
-        pre-gathered program."""
+        pre-gathered program.  None for a support-pruned
+        (``comm="sparse"``) plan, whose words depend on the data: its
+        log is the dense one plus the plan's ``SparseMeta`` delta."""
         plan, pre = self._words_plan(prob, op, elision, session)
+        if plan.smeta is not None:
+            return None
         return self._sched_mod.schedule_words(prob.grid, plan, op,
                                               elision=elision,
                                               pre_gathered=pre)
@@ -751,7 +755,13 @@ class DistProblem:
         i of the host COO carries the integer i + 1, padding 0.  Packing
         moves values and never reads them, so the structure is the plan's
         for any values, and the value slots map each pack slot to its
-        host-COO position, exactly at any nonzero count."""
+        host-COO position, exactly at any nonzero count.
+
+        Every plan of this problem is this one with values injected, so
+        under ``comm="sparse"`` the support sets are built here, on the
+        position-coded copy, once per orientation (the reference plans
+        its position map with the dense wire and each value plan with the
+        problem's own); they depend on the coordinates only."""
         if orient not in self._posmaps:
             dt = np.int32 if self.nnz < np.iinfo(np.int32).max else np.int64
             tmp = self._derive(vals=np.arange(1, self.nnz + 1, dtype=dt))
@@ -1045,8 +1055,14 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
     algorithm="auto" ranks every feasible (family, elision, c) of the
     four families by Table III at p, as the reference does; a family
     name pins the family and picks its best feasible c (or the caller's
-    ``c``).  Only the dense wire
-    format is ported.
+    ``c``).
+
+    ``comm`` is the wire format of the dense-operand movements: "dense",
+    "sparse" (support-pruned sends of the rows the receivers' nonzeros
+    read; results bit for bit those of "dense") or "auto"
+    (:func:`costmodel.choose_comm` on the matrix's row and column
+    support).  ``compress="bf16"`` ships the pruned payloads as bfloat16:
+    half their bytes, and lossy, where ``comm="sparse"`` alone is exact.
     """
     m, n = shape
     if comm not in ("auto", "dense", "sparse"):
@@ -1057,10 +1073,6 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
                          f"got {compress!r}")
     if comm == "auto":
         comm = costmodel.choose_comm(rows, cols, m, n)
-    if comm == "sparse" or compress is not None:
-        raise NotImplementedError(
-            "comm='sparse' and compress= are not ported yet; they come "
-            "with the comm='sparse' slice")
     if algorithm != "auto" and algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; registered: "
                          f"{sorted(ALGORITHMS)}")

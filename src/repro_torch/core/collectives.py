@@ -9,8 +9,9 @@ for ``Grid25``, "fiber" always last), with the blocks this process holds
 :class:`Stacked` runs the p ranks of a grid in one process, and each
 collective is a fixed tensor operation on the rank axes:
 
-  shift        ``ppermute`` over one rank axis: a roll of its dimension,
-               i -> i+1, or i -> i-1 with ``back=True`` (Cannon)
+  permute      ``ppermute`` over one rank axis: rank i sends to rank
+               i + offset (cyclic), a roll of the axis's dimension
+  shift        the permute by +1, or by -1 with ``back=True`` (Cannon)
   all_gather   tiled over "fiber": every fiber rank receives the c
                blocks of its fiber, stacked by rows (rank (.., z) holds
                rows z*rows..) or, with ``cols=True``, side by side by
@@ -20,13 +21,15 @@ collective is a fixed tensor operation on the rank axes:
 
 :class:`Dist` runs one rank per process over ``torch.distributed``
 (NCCL across cards, gloo on the CPU) and gives each rank the same bits:
-a shift is a point-to-point exchange with the neighbours on the axis,
+a permute is a point-to-point exchange with the partners at -offset and
++offset on the axis,
 the all-gather ``all_gather_into_tensor`` on the fiber subgroup, and the
 reduce-scatter an ``all_to_all_single`` followed by a local sum in fiber
 order 0..c-1 (a reduce-scatter of the backend would not fix the order).
 
 Every call appends one :class:`Event` to ``log`` with the words one
-device receives (all_gather, shift) or sends (psum_scatter) -- the
+device receives (all_gather, permute) or sends (psum_scatter), in 4-byte
+words of the payload's bytes (a bfloat16 payload counts half) -- the
 quantities the families' ``schedule_words`` model per event.  A schedule
 event may move several tensors (a traveling pack and its partial dots,
 a Cannon carry of structure and B chunk): the executors tag each move
@@ -74,6 +77,27 @@ class Backend:
     def wait(self, works) -> None:
         del works
 
+    def permute(self, x: torch.Tensor, axis: str, offset: int, *,
+                point=None, then: Callable | None = None) -> torch.Tensor:
+        """Rank i sends its block of ``x`` to rank i + offset on ``axis``
+        (cyclic); returns what this rank receives.  ``then(arrived)``
+        runs once the arrivals are in: at once, or, for a permute issued
+        inside :meth:`issue`, when its works are waited (a receive
+        buffer is not read before)."""
+        raise NotImplementedError
+
+    def shift(self, x: torch.Tensor, axis: str | None = None, *,
+              back: bool = False, point=None) -> torch.Tensor:
+        """Cyclic shift over ``axis`` (default: the grid's first): rank
+        i receives rank i-1's block, or rank i+1's with ``back=True``."""
+        return self.permute(x, axis or self.grid.axes[0], -1 if back else 1,
+                            point=point)
+
+    def _note_permute(self, x: torch.Tensor, axis: str, point) -> None:
+        blk = self._rank(x)
+        self._note("collective-permute", axis,
+                   blk.numel() * blk.element_size() / 4, point)
+
     def words(self):
         """Per-event (kind, words) in issue order; the moves tagged with
         one schedule point count as one event, where the first was."""
@@ -92,16 +116,16 @@ class Backend:
 class Stacked(Backend):
     """The stacked collective backend of one grid, with its event log."""
 
-    def shift(self, x: torch.Tensor, axis: str | None = None, *,
-              back: bool = False, point=None) -> torch.Tensor:
-        """Cyclic shift over ``axis`` (default: the grid's first): rank
-        i receives rank i-1's block, or rank i+1's with ``back=True``."""
-        axis = axis or self.grid.axes[0]
+    def permute(self, x: torch.Tensor, axis: str, offset: int, *,
+                point=None, then: Callable | None = None) -> torch.Tensor:
+        """A roll of the axis's dimension (see :meth:`Backend.permute`)."""
         d = self.grid.dim(axis)
-        self._note("collective-permute", axis, self._rank(x).numel(), point)
-        if x.shape[d] == 1:
-            return x
-        return torch.roll(x, shifts=-1 if back else 1, dims=d)
+        self._note_permute(x, axis, point)
+        if x.shape[d] > 1 and offset % x.shape[d]:
+            x = torch.roll(x, shifts=offset, dims=d)
+        if then is not None:
+            then(x)
+        return x
 
     def all_gather(self, x: torch.Tensor, *, cols: bool = False,
                    point=None) -> torch.Tensor:
@@ -139,7 +163,7 @@ class Dist(Backend):
     made with a process group, one rank per process, with the event log
     of :class:`Stacked` and the same bits on every rank.
 
-    Each shift is one ``batch_isend_irecv`` on global ranks.  Inside
+    Each permute is one ``batch_isend_irecv`` on global ranks.  Inside
     :meth:`issue` its works are handed back unfinished, so an overlapped
     ring runs it beside the kernel in flight; elsewhere each collective
     is waited on before it returns.  On NCCL a wait orders the current
@@ -151,7 +175,8 @@ class Dist(Backend):
                              "made with a process group")
         super().__init__(grid)
         self._inflight = None     # the works of an issue() in progress
-        self._tag = 0             # one tag per shift, the same on all ranks
+        self._tag = 0             # one tag per permute, the same on all
+                                  # ranks
 
     def issue(self, fn: Callable):
         self._inflight = []
@@ -170,29 +195,40 @@ class Dist(Backend):
         else:
             self.wait(works)
 
-    def shift(self, x: torch.Tensor, axis: str | None = None, *,
-              back: bool = False, point=None) -> torch.Tensor:
-        """Cyclic shift over ``axis`` (default: the grid's first): this
-        rank receives rank i-1's block, or rank i+1's with ``back=True``."""
+    def permute(self, x: torch.Tensor, axis: str, offset: int, *,
+                point=None, then: Callable | None = None) -> torch.Tensor:
+        """This rank sends its block to rank i + offset on ``axis`` and
+        receives rank i - offset's (cyclic), one send/receive pair (see
+        :meth:`Backend.permute`).
+
+        A bfloat16 payload (the ``compress="bf16"`` wire) ships as
+        bfloat16, half the bytes of float32, over NCCL and over gloo,
+        whose point-to-point pairs carry it as it is.  The reference's
+        host count cannot show this halving: XLA legalizes bf16
+        collectives to float32 on the CPU (``repro.core.common._unwire``).
+        """
         import torch.distributed as dist
         g = self.grid
-        axis = axis or g.axes[0]
         d = g.dim(axis)
-        self._note("collective-permute", axis, self._rank(x).numel(), point)
+        self._note_permute(x, axis, point)
         size = g.shape[d]
-        if size == 1:
+        if offset % size == 0:
+            if then is not None:
+                then(x)
             return x
-        step = -1 if back else 1
         me = g.coords
-        to = me[:d] + ((me[d] + step) % size,) + me[d + 1:]
-        frm = me[:d] + ((me[d] - step) % size,) + me[d + 1:]
+        to = me[:d] + ((me[d] + offset) % size,) + me[d + 1:]
+        frm = me[:d] + ((me[d] - offset) % size,) + me[d + 1:]
         x = x.contiguous()
         out = torch.empty_like(x)
         self._tag += 1
-        self._done(dist.batch_isend_irecv([
+        works = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, x, g.global_rank(to), g.group, self._tag),
             dist.P2POp(dist.irecv, out, g.global_rank(frm), g.group,
-                       self._tag)]))
+                       self._tag)])
+        if then is not None:
+            works = [_Then(works, lambda: then(out))]
+        self._done(works)
         return out
 
     def all_gather(self, x: torch.Tensor, *, cols: bool = False,
@@ -234,6 +270,19 @@ class Dist(Backend):
         for v in range(1, c):
             acc = acc + parts[v]
         return acc.reshape(*g.local_shape, *acc.shape)
+
+
+class _Then:
+    """Works in flight and what runs on their results once they are
+    waited."""
+
+    def __init__(self, works, fn: Callable):
+        self.works, self.fn = works, fn
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        self.fn()
 
 
 def coll_for(grid, coll: Backend | None = None) -> Backend:

@@ -27,6 +27,14 @@ flight.  Shifts whose result no one reads (the
 cycle-closing ones the reference's compiler drops) are not issued, so
 the collective log equals :func:`schedule_words` event for event.
 
+``comm="sparse"`` (support-pruned communication) replaces the fiber
+all-gather with pruned permutes of the rows the receiver's blocks read,
+and the B ring with direct pruned sends of each phase's chunk from its
+home layer, where the plan's crossover says so (``PlanD15.smeta``).  The
+"none" cell's replay round sends its chunks again, and the log counts
+both rounds.  The traveling accumulators and the reduce-scatter stay
+dense, so the results equal ``comm="dense"``'s bit for bit.
+
 Modes (unified, per the paper's SpMM<->SDDMM conversion):
   sddmm_d15   : R = S * (A @ B.T)          A replicated-in, B shifts
   spmma_d15   : A = S @ B                  A replicated-out, B shifts
@@ -36,7 +44,7 @@ Modes (unified, per the paper's SpMM<->SDDMM conversion):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +74,11 @@ class PlanD15:
     transpose: bool
     tiling: costmodel.Tiling
     meta: "MetaD15"
+    # comm="sparse" support index sets: (gather_send, gather_recv,
+    # shift_send, shift_recv), each a tuple of (L, c, w) int32 tensors
+    # (per fiber offset / per phase); empty for dense plans
+    sup: tuple = ()
+    smeta: Optional[common.SparseMeta] = None
 
     @property
     def block_shape(self) -> Tuple[int, int]:
@@ -98,10 +111,15 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
 
     transpose=True packs S^T blocks (needed by replication-reuse FusedMM
     and by SpMMB).  ``group`` pads window runs so ``blocks_per_step`` up
-    to ``group`` stays feasible.  Only the dense wire format is ported;
-    ``comm="sparse"`` comes with a later slice.
+    to ``group`` stays feasible.
+
+    comm="sparse" also derives, from the same block structure, the
+    per-rank support sets that let the executors prune the fiber
+    all-gather (rows of the gathered operand any resident block reads)
+    and the traveling B chunks (each phase's column support of the
+    resident block); ``compress="bf16"`` ships those pruned payloads as
+    bfloat16.
     """
-    common.dense_comm_only(comm, compress)
     L, c, p = grid.L, grid.c, grid.p
     if m % p or n % p:
         raise ValueError(f"d15 needs p={p} to divide m={m} and n={n}")
@@ -139,9 +157,97 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
 
     meta = MetaD15(cmA, nB, common.BlockMeta(
         row_off, col_off, (n, m) if transpose else (m, n)))
+    sup, smeta = ((), None) if comm != "sparse" else _sparse_sup(
+        grid, rows, cols, mA, nB, compress)
     return PlanD15(tuple(rls), tuple(cls), tuple(vls), tuple(tbs),
                    m, n, r, row_tile, transpose,
-                   common.merge_tilings(tilings), meta)
+                   common.merge_tilings(tilings), meta, sup, smeta)
+
+
+def _supports(grid: Grid15, rows, cols, cmA: int, nB: int):
+    """The support sets, in pre-swap coordinates (the gathered operand is
+    indexed by S's row axis, the traveling B chunk by its column axis,
+    whichever orientation is packed): ``a[u * c + v]``, the block-local
+    rows [0, cmA) that rank (u, v)'s blocks read over all phases (blocks
+    (u, j) with j = v mod c), and ``b[u * p + j]``, the local columns
+    [0, nB) of block (u, j).  Sorted; numpy passes over the nonzeros."""
+    L, c, p = grid.L, grid.c, grid.p
+    rows = np.asarray(rows).astype(np.int64)
+    cols = np.asarray(cols).astype(np.int64)
+    bu, lr = np.divmod(rows, cmA)
+    bj, lc = np.divmod(cols, nB)
+    a = common.split_sets(common.unique_sorted(
+        (bu * c + bj % c) * cmA + lr, L * c * cmA), L * c, cmA)
+    b = common.split_sets(common.unique_sorted(
+        (bu * p + bj) * nB + lc, L * p * nB), L * p, nB)
+    return a, b
+
+
+def _sparse_sup(grid: Grid15, rows, cols, mA: int, nB: int, compress):
+    """Pad and align the comm="sparse" support sets on the grid's device.
+
+    Gather channel (offset d, rank (u, v)): as a *sender* it ships the
+    slab-local rows of its own A slab that receiver (u, (v+d) % c)'s
+    support touches; as a *receiver* it scatters at the absolute rows of
+    its support falling in sender (v-d) % c's slab.  Shift channel
+    (phase t >= 1): the home layer of the chunk rank (u, v) reads at
+    phase t is (u-t) % L, so sender i ships to (i+t) % L the column
+    support of the receiver's phase-t resident block.  Per channel: if
+    the padded support words are not under SPARSE_CROSSOVER x the dense
+    words, the channel stays dense (flag off).
+    """
+    L, c, p = grid.L, grid.c, grid.p
+    cmA = c * mA
+    cross = costmodel.SPARSE_CROSSOVER
+    a, b = _supports(grid, rows, cols, cmA, nB)
+    g_send, g_recv, wg, gather = (), (), 0, False
+    if c > 1:
+        send_sets = np.empty((c - 1, L, c), object)
+        recv_sets = np.empty((c - 1, L, c), object)
+        w = 1
+        for d in range(1, c):
+            for u in range(L):
+                for v in range(c):
+                    rcv = a[u * c + (v + d) % c]
+                    send_sets[d - 1, u, v] = (
+                        rcv[(rcv >= v * mA) & (rcv < (v + 1) * mA)] - v * mA)
+                    own = a[u * c + v]
+                    sv = (v - d) % c
+                    recv_sets[d - 1, u, v] = \
+                        own[(own >= sv * mA) & (own < (sv + 1) * mA)]
+                    w = max(w, send_sets[d - 1, u, v].size)
+        gather = w <= cross * mA
+        if gather:
+            wg = w
+            g_send = tuple(common.put_sets(send_sets[d], wg, 0, grid)
+                           for d in range(c - 1))
+            g_recv = tuple(common.put_sets(recv_sets[d], wg, cmA, grid)
+                           for d in range(c - 1))
+    s_send, s_recv, ws, shift = (), (), (), False
+    if L > 1:
+        widths, sends, recvs = [], [], []
+        for t in range(1, L):
+            ssend = np.empty((L, c), object)
+            srecv = np.empty((L, c), object)
+            w = 1
+            for i in range(L):
+                for v in range(c):
+                    ssend[i, v] = b[((i + t) % L) * p + i * c + v]
+                    srecv[i, v] = b[i * p + ((i - t) % L) * c + v]
+                    w = max(w, srecv[i, v].size)
+            widths.append(w)
+            sends.append(ssend)
+            recvs.append(srecv)
+        shift = sum(widths) <= cross * (L - 1) * nB
+        if shift:
+            ws = tuple(widths)
+            s_send = tuple(common.put_sets(sends[i], ws[i], 0, grid)
+                           for i in range(L - 1))
+            s_recv = tuple(common.put_sets(recvs[i], ws[i], nB, grid)
+                           for i in range(L - 1))
+    sup = (g_send, g_recv, s_send, s_recv)
+    return sup, common.SparseMeta(gather=gather, shift=shift, wg=wg, ws=ws,
+                                  compress=compress)
 
 
 def _coo(plan: PlanD15, t: int, i, vals=None):
@@ -153,8 +259,21 @@ def _coo(plan: PlanD15, t: int, i, vals=None):
                          plan.row_tile, plan.tiling)
 
 
-def _ring(coll, x, n_shifts, overlap):
-    return Ring(coll, lambda y, k: coll.shift(y), x, n_shifts, overlap)
+def _shift_sparse(plan: PlanD15) -> bool:
+    return plan.smeta is not None and plan.smeta.shift
+
+
+def _b_ring(coll, plan: PlanD15, B, n_shifts, overlap):
+    """B phase by phase: the dense ring of ``n_shifts`` shifts, or, where
+    the plan prunes the shift channel, phase t's chunk by a direct pruned
+    send from its home layer (t = 1 .. L-1; phase 0's is local, and B
+    stays home)."""
+    if not _shift_sparse(plan):
+        return Ring(coll, lambda y, k: coll.shift(y), B, n_shifts, overlap)
+    _, _, send, recv = plan.sup
+    return common.pruned_ring(coll, B, send, recv, coll.grid.layer, 1,
+                              plan.nB, compress=plan.smeta.compress,
+                              overlap=overlap)
 
 
 def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
@@ -177,17 +296,31 @@ def _sddmm_phases(grid, coll, plan, T, B0, overlap, tk, swap=False,
     """L SDDMM phases against a shifting B; returns (vals list, B home).
 
     ``keep_home`` issues the L-th shift, which brings B back home for a
-    second round; otherwise the round's final position is dead."""
-    ring = _ring(coll, B0, grid.L if keep_home else grid.L - 1, overlap)
+    second round; otherwise the round's final position is dead.  (Pruned
+    chunks leave B home.)"""
+    ring = _b_ring(coll, plan, B0, grid.L if keep_home else grid.L - 1,
+                   overlap)
     vals_out = []
     for t in range(grid.L):
         vals_out.append(_sddmm_phase(grid, plan, t, T, ring.cur, swap, tk))
         ring.advance()
-    return vals_out, ring.cur if keep_home else None
+    if not keep_home:
+        return vals_out, None
+    return vals_out, B0 if _shift_sparse(plan) else ring.cur
 
 
-def _gather(coll, A, pre_gathered):
-    return A if pre_gathered else coll.all_gather(A)
+def _gather(coll, plan: PlanD15, A, pre_gathered):
+    """Fiber replication of the stationary operand, pruned where the plan
+    says so; a pre-gathered operand passes through."""
+    if pre_gathered:
+        return A
+    sm = plan.smeta
+    if sm is None or not sm.gather:
+        return coll.all_gather(A)
+    send, recv = plan.sup[:2]
+    return common.pruned_gather_rows(coll, A, send, recv,
+                                     compress=sm.compress,
+                                     point=("gather", 0))
 
 
 def _phase_shift(n_phases: int, start: int = 0):
@@ -278,7 +411,7 @@ def sddmm_d15(grid: Grid15, plan: PlanD15, A, B, overlap: bool = True,
     pre_gathered=True: A arrives already fiber-replicated, (L, c, c * m/p,
     r), and the all-gather is skipped."""
     coll = coll_for(grid, coll)
-    T = _gather(coll, A, pre_gathered)                     # (c m/p, r)
+    T = _gather(coll, plan, A, pre_gathered)                     # (c m/p, r)
     r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap,
                               common.kernel_kwargs(plan, backend))
     return tuple(r_vals)
@@ -289,7 +422,7 @@ def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
     """A = S @ B with A replicated as output, reduce-scattered at the end."""
     coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
-    ring = _ring(coll, B, grid.L - 1, overlap)
+    ring = _b_ring(coll, plan, B, grid.L - 1, overlap)
     T = None
     for t in range(grid.L):
         T = acc(T, _spmm_phase(grid, plan, t, None, ring.cur, plan.cmA,
@@ -310,7 +443,7 @@ def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
         raise ValueError("spmmb_d15 needs a transpose-packed plan")
     coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
-    T = _gather(coll, A, pre_gathered)
+    T = _gather(coll, plan, A, pre_gathered)
     return _traveling_spmm(grid, coll, plan, T, None, overlap, tk)
 
 
@@ -365,10 +498,10 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     if elision == "none":
         if plan.transpose:
             raise ValueError("elision='none' needs a normal-packed plan")
-        T = _gather(coll, A, pre_gathered)
+        T = _gather(coll, plan, A, pre_gathered)
         r_vals, B_home = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
                                        keep_home=True)
-        ring = _ring(coll, B_home, L - 1, overlap)
+        ring = _b_ring(coll, plan, B_home, L - 1, overlap)
         T2 = None
         for t in range(L):
             T2 = acc(T2, _spmm_phase(grid, plan, t, r_vals[t], ring.cur,
@@ -380,7 +513,7 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         # FusedMMB: replicate A once; it serves the SDDMM *and* the SpMMB.
         if not plan.transpose:
             raise ValueError("elision='reuse' needs a transpose-packed plan")
-        T = _gather(coll, A, pre_gathered)                 # single AG
+        T = _gather(coll, plan, A, pre_gathered)                 # single AG
         r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
                                   swap=True)
         out = _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk)
@@ -389,8 +522,8 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     if elision == "fused":
         if plan.transpose:
             raise ValueError("elision='fused' needs a normal-packed plan")
-        T = _gather(coll, A, pre_gathered)
-        ring = _ring(coll, B, L - 1, overlap)
+        T = _gather(coll, plan, A, pre_gathered)
+        ring = _b_ring(coll, plan, B, L - 1, overlap)
         T2, r_vals = None, []
         for t in range(L):
             contrib, R_t = on_ranks(grid, lambda u, v: _fused_local(

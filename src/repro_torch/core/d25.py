@@ -27,11 +27,19 @@ output) shift behind the kernel that feeds them.  ``overlap=False`` is
 the serial schedule; the two are equal bit for bit.  A shift whose
 result no one reads is not issued, so the collective log equals
 :func:`schedule_words` event for event.
+
+``comm="sparse"``: rank (x, y, z) only touches S blocks (x, g*c + z), so
+the fiber all-gather of A ships the union of their row supports, and the
+B chunk of phase t comes by a direct pruned send from its home grid row
+(x+t) mod G with the column support of that phase's resident block, in
+place of the Cannon B ring, where the plan's crossover says so
+(``PlanD25.smeta``).  The traveling pack, partial dots and output chunks
+and the reduce-scatter stay dense: they carry the accumulation order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +64,11 @@ class PlanD25:
     transpose: bool
     tiling: costmodel.Tiling
     meta: "MetaD25"
+    # comm="sparse" support index sets: (gather_send, gather_recv,
+    # shift_send, shift_recv), each a tuple of (G, G, c, w) int32 tensors
+    # (per fiber offset / per phase); empty for dense plans
+    sup: tuple = ()
+    smeta: Optional[common.SparseMeta] = None
 
     @property
     def block_shape(self) -> Tuple[int, int]:
@@ -80,8 +93,8 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
     """Pack S pre-skewed for the Cannon schedule (host, amortized).
 
     transpose=True packs S^T blocks (the FusedMMB "reuse" cell and
-    SpMMB).  Only the dense wire format is ported."""
-    common.dense_comm_only(comm, compress)
+    SpMMB).  comm="sparse" also derives the support sets of the pruned A
+    gather and B chunks (see :func:`_sparse_sup`)."""
     G, c = grid.G, grid.c
     if m % (G * c) or n % (G * c) or r % G:
         raise ValueError(f"d25 needs G*c={G * c} to divide m={m} and "
@@ -109,10 +122,94 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
         np.array(row_off).reshape(G, G, c),
         np.array(col_off).reshape(G, G, c),
         (n, m) if transpose else (m, n)))
+    sup, smeta = ((), None) if comm != "sparse" else _sparse_sup(
+        grid, rows, cols, meta, compress)
     put = common.put_ranks
     return PlanD25(put(rl, grid), put(cl, grid), put(vl, grid),
                    put(tb, grid), m, n, r, row_tile, transpose, tiling,
-                   meta)
+                   meta, sup, smeta)
+
+
+def _sparse_sup(grid: Grid25, rows, cols, meta: MetaD25, compress):
+    """Pad and align the comm="sparse" support sets on the grid's device.
+
+    Supports are in *pre-swap* coordinates (the gathered operand T is
+    indexed by S's row axis, [0, mS), and the traveling B chunk by its
+    column axis, [0, nS)), so one support serves both pack orientations.
+    Gather: per fiber offset d, sender z ships the slab-local rows of
+    receiver (z+d) % c's union support (which depends on (x, z) only).
+    Shift: phase t's B chunk is shipped directly from its home grid row
+    (x+t) % G, pruned to the column support of the block the receiver
+    holds that phase.  Each channel has its own crossover.
+    """
+    G, c = grid.G, grid.c
+    mS, nS, mA = meta.mS, meta.nS, meta.mA
+    cross = costmodel.SPARSE_CROSSOVER
+    rows = np.asarray(rows).astype(np.int64)
+    cols = np.asarray(cols).astype(np.int64)
+    bx, lr = np.divmod(rows, mS)
+    bj, lc = np.divmod(cols, nS)
+    # ra[x * c + z]: rows of row block x read by blocks j = z (mod c);
+    # ub[x * G * c + j]: the columns of block (x, j)
+    ra = common.split_sets(common.unique_sorted(
+        (bx * c + bj % c) * mS + lr, G * c * mS), G * c, mS)
+    ub = common.split_sets(common.unique_sorted(
+        (bx * G * c + bj) * nS + lc, G * G * c * nS), G * G * c, nS)
+
+    g_send, g_recv, wg, gather = (), (), 0, False
+    if c > 1:
+        send_sets = np.empty((c - 1, G, G, c), object)
+        recv_sets = np.empty((c - 1, G, G, c), object)
+        w = 1
+        for d in range(1, c):
+            for x in range(G):
+                for y in range(G):
+                    for z in range(c):
+                        rcv = ra[x * c + (z + d) % c]
+                        send_sets[d - 1, x, y, z] = (
+                            rcv[(rcv >= z * mA) & (rcv < (z + 1) * mA)]
+                            - z * mA)
+                        own = ra[x * c + z]
+                        zs = (z - d) % c
+                        recv_sets[d - 1, x, y, z] = \
+                            own[(own >= zs * mA) & (own < (zs + 1) * mA)]
+                        w = max(w, send_sets[d - 1, x, y, z].size)
+        gather = w <= cross * mA
+        if gather:
+            wg = w
+            g_send = tuple(common.put_sets(send_sets[d], wg, 0, grid)
+                           for d in range(c - 1))
+            g_recv = tuple(common.put_sets(recv_sets[d], wg, mS, grid)
+                           for d in range(c - 1))
+
+    s_send, s_recv, ws, shift = (), (), (), False
+    if G > 1:
+        widths, sends, recvs = [], [], []
+        for t in range(1, G):
+            ssend = np.empty((G, G, c), object)
+            srecv = np.empty((G, G, c), object)
+            w = 1
+            for x in range(G):
+                for y in range(G):
+                    for z in range(c):
+                        ssend[x, y, z] = ub[((x - t) % G) * G * c
+                                            + ((x + y) % G) * c + z]
+                        srecv[x, y, z] = ub[x * G * c
+                                            + ((x + y + t) % G) * c + z]
+                        w = max(w, srecv[x, y, z].size)
+            widths.append(w)
+            sends.append(ssend)
+            recvs.append(srecv)
+        shift = sum(widths) <= cross * (G - 1) * nS
+        if shift:
+            ws = tuple(widths)
+            s_send = tuple(common.put_sets(sends[i], ws[i], 0, grid)
+                           for i in range(G - 1))
+            s_recv = tuple(common.put_sets(recvs[i], ws[i], nS, grid)
+                           for i in range(G - 1))
+    sup = (g_send, g_recv, s_send, s_recv)
+    return sup, common.SparseMeta(gather=gather, shift=shift, wg=wg, ws=ws,
+                                  compress=compress)
 
 
 def _skew_index(grid: Grid25, device):
@@ -196,8 +293,37 @@ def _pack_ring(coll, plan, pack, n_shifts, overlap, start=0):
     return Ring(coll, move, pack, n_shifts, overlap)
 
 
-def _gather(coll, A, pre_gathered):
-    return A if pre_gathered else coll.all_gather(A, point=("gather", 0))
+def _gather(coll, plan: PlanD25, A, pre_gathered):
+    """Fiber all-gather of the replicated operand, pruned where the plan
+    says so; a pre-gathered operand passes through."""
+    if pre_gathered:
+        return A
+    sm = plan.smeta
+    if sm is None or not sm.gather:
+        return coll.all_gather(A, point=("gather", 0))
+    send, recv = plan.sup[:2]
+    return common.pruned_gather_rows(coll, A, send, recv,
+                                     compress=sm.compress,
+                                     point=("gather", 0))
+
+
+def _shift_sparse(plan: PlanD25) -> bool:
+    return plan.smeta is not None and plan.smeta.shift
+
+
+def _b_ring(coll, plan: PlanD25, B0, n_shifts, overlap, start=0):
+    """B phase by phase: the Cannon ring (``n_shifts`` shifts back along
+    the row axis), or, where the plan prunes the shift channel, phase t's
+    chunk by a direct pruned send from grid row (x+t) mod G (t = 1 ..
+    G-1, on the schedule's shift event ``start + t - 1``; phase 0's is
+    local, and B stays home)."""
+    if not _shift_sparse(plan):
+        return cannon_ring(coll, B0, "row", n_shifts, overlap=overlap,
+                           start=start)
+    _, _, send, recv = plan.sup
+    return common.pruned_ring(coll, B0, send, recv, "row", -1, plan.meta.nS,
+                              compress=plan.smeta.compress, overlap=overlap,
+                              start=start)
 
 
 def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
@@ -214,8 +340,7 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
     struct = _pack_ring(coll, plan,
                         (plan.rows_local, plan.cols, plan.tile_base),
                         G if keep_struct else G - 1, overlap)
-    bring = cannon_ring(coll, B0, "row", G if keep_b else G - 1,
-                        overlap=overlap)
+    bring = _b_ring(coll, plan, B0, G if keep_b else G - 1, overlap)
     partial, structs, bchunks = None, [], []
     for t in range(G):
         st, Bt = struct.cur, bring.cur
@@ -232,7 +357,8 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
                              point=("shift", t))
         struct.advance()
         bring.advance()
-    return partial, struct.cur, bring.cur, structs, bchunks
+    B_home = B0 if _shift_sparse(plan) else bring.cur
+    return partial, struct.cur, B_home, structs, bchunks
 
 
 def _spmm_phase(grid, plan, struct, vals, D, m, tk):
@@ -247,8 +373,7 @@ def _cannon_spmm(grid, coll, plan, pack, B0, overlap, tk, start=0):
     final positions dead); returns the summed (mS, rW) partials."""
     G = grid.G
     pring = _pack_ring(coll, plan, pack, G - 1, overlap, start)
-    bring = cannon_ring(coll, B0, "row", G - 1, overlap=overlap,
-                        start=start)
+    bring = _b_ring(coll, plan, B0, G - 1, overlap, start)
     T2 = None
     for t in range(G):
         rl, cl, vl, tb = pring.cur
@@ -391,7 +516,7 @@ def sddmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, overlap: bool = True,
     ``pre_gathered`` already fiber-replicated, (G, G, c, m/G, r/G)
     (:func:`replicate_rows`), and the all-gather skipped."""
     coll = coll_for(grid, coll)
-    T = _gather(coll, A, pre_gathered)
+    T = _gather(coll, plan, A, pre_gathered)
     partial, *_ = _sddmm_round(grid, coll, plan, T, B_sk, overlap,
                                common.kernel_kwargs(plan, backend))
     return plan.vals * partial
@@ -417,7 +542,7 @@ def spmmb_d25(grid: Grid25, plan: PlanD25, A, overlap: bool = True,
     if not plan.transpose:
         raise ValueError("spmmb_d25 needs a transpose-packed plan")
     coll = coll_for(grid, coll)
-    T = _gather(coll, A, pre_gathered)
+    T = _gather(coll, plan, A, pre_gathered)
     pack = (plan.rows_local, plan.cols, plan.vals, plan.tile_base)
     return _traveling_spmm(grid, coll, plan, T, pack, overlap,
                            common.kernel_kwargs(plan, backend))
@@ -454,7 +579,7 @@ def fusedmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, elision: str = "auto",
     coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     G = grid.G
-    T = _gather(coll, A, pre_gathered)
+    T = _gather(coll, plan, A, pre_gathered)
     partial, struct, B_home, structs, bchunks = _sddmm_round(
         grid, coll, plan, T, B_sk, overlap, tk,
         keep_struct=elision != "fused", keep_b=elision == "none")

@@ -29,10 +29,17 @@ changes nothing), and a shift whose result no one reads is not issued,
 so the collective log equals :func:`schedule_words` event for event.
 ``tile_base`` travels only when a block has more than one row window, as
 in the reference's compiled program.
+
+``comm="sparse"``: rank (u, v) only reads the A rows and B rows its
+resident blocks touch -- blocks b = v (mod c), the same for every layer
+position u -- so each fiber all-gather of a dense column slab ships only
+those rows, where the plan's crossover says so (``PlanS15.smeta``).  The
+COO propagation is the sparse payload itself and stays as it is.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +62,11 @@ class PlanS15:
     row_tile: int
     tiling: costmodel.Tiling
     meta: "MetaS15"
+    # comm="sparse" support index sets: (a_send, (a_recv,), b_send,
+    # (b_recv,)), (L, c, w) int32 tensors, a_send/b_send one per fiber
+    # offset; empty for dense plans
+    sup: tuple = ()
+    smeta: Optional[common.SparseMeta] = None
 
     @property
     def mS(self):
@@ -76,8 +88,12 @@ def plan_s15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
              row_tile: int = 256, nz_block: int = 256, group: int = 1,
              comm: str = "dense", compress=None) -> PlanS15:
     """Pack one home row-block per rank (host, amortized), tiled for the
-    gathered width r*c/p.  Only the dense wire format is ported."""
-    common.dense_comm_only(comm, compress)
+    gathered width r*c/p.
+
+    comm="sparse": the dense column slabs are full height, and rank
+    (u, v) only reads the rows its resident blocks touch; the planner
+    records the two unions (A rows, B columns) of each fiber position so
+    the fiber all-gathers ship only supported rows."""
     L, c, p = grid.L, grid.c, grid.p
     if m % p or r % p:
         raise ValueError(f"s15 needs p={p} to divide m={m} and r={r}")
@@ -93,9 +109,54 @@ def plan_s15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
     meta = MetaS15(mS, r * c // p, common.BlockMeta(
         (np.arange(p) * mS).reshape(L, c), np.zeros((L, c), np.int64),
         (m, n)))
+    sup, smeta = ((), None) if comm != "sparse" else _sparse_sup(
+        grid, rows, cols, m, n, compress)
     put = common.put_ranks
     return PlanS15(put(rl, grid), put(cl, grid), put(vl, grid),
-                   put(tb, grid), m, n, r, row_tile, tiling, meta)
+                   put(tb, grid), m, n, r, row_tile, tiling, meta, sup,
+                   smeta)
+
+
+def _sparse_sup(grid: Grid15, rows, cols, m: int, n: int, compress):
+    """Pad and align the comm="sparse" support sets on the grid's device.
+
+    Slabs are full height, so the support is receiver-determined: per
+    offset d the sender at fiber v ships rows R[(v+d) % c] of its own
+    column slab, and scatters arrivals at its constant R[v].  One
+    channel per dense operand (A rows, B columns), each with its own
+    crossover against the dense slab height.
+    """
+    L, c, p = grid.L, grid.c, grid.p
+    cross = costmodel.SPARSE_CROSSOVER
+    rows = np.asarray(rows).astype(np.int64)
+    cols = np.asarray(cols).astype(np.int64)
+    fib = (rows // (m // p)) % c          # fiber of each nonzero's block
+    a_sets = common.split_sets(common.unique_sorted(fib * m + rows, c * m),
+                               c, m)
+    b_sets = common.split_sets(common.unique_sorted(fib * n + cols, c * n),
+                               c, n)
+
+    def grid_sets(pick):
+        out = np.empty((L, c), object)
+        for u in range(L):
+            for v in range(c):
+                out[u, v] = pick(v)
+        return out
+
+    def channel(sets, height):
+        w = max(1, max(s.size for s in sets))
+        if c == 1 or w > cross * height:
+            return (), (), 0, False
+        send = tuple(common.put_sets(grid_sets(lambda v: sets[(v + d) % c]),
+                                     w, 0, grid) for d in range(1, c))
+        recv = common.put_sets(grid_sets(lambda v: sets[v]), w, height, grid)
+        return send, (recv,), w, True
+
+    a_send, a_recv, wa, ga = channel(a_sets, m)
+    b_send, b_recv, wb, gb = channel(b_sets, n)
+    sup = (a_send, a_recv, b_send, b_recv)
+    return sup, common.SparseMeta(gather=ga, gather_b=gb, wg=wa, wg_b=wb,
+                                  compress=compress)
 
 
 def _tb_travels(plan: PlanS15) -> bool:
@@ -119,11 +180,19 @@ def _shift_pack(coll, plan, xs, t):
     return (*moved, tb)
 
 
-def _gather(coll, x, pre, point):
+def _gather(coll, plan, x, pre, side, point):
     """Fiber all-gather of column slices, (L, c, rows, r/p) ->
-    (L, c, rows, r*c/p); a pre-gathered operand passes through."""
-    return x if pre else coll.all_gather(x, cols=True, point=("gather",
-                                                              point))
+    (L, c, rows, r*c/p), support-pruned where the plan says so for this
+    ``side`` (0: A, 1: B); a pre-gathered operand passes through."""
+    if pre:
+        return x
+    sm = plan.smeta
+    if sm is None or not (sm.gather_b if side else sm.gather):
+        return coll.all_gather(x, cols=True, point=("gather", point))
+    send, (recv,) = plan.sup[2 * side:2 * side + 2]
+    return common.pruned_gather_cols(coll, x, send, recv,
+                                     compress=sm.compress,
+                                     point=("gather", point))
 
 
 def _sddmm_round(grid, coll, plan, T_A, T_B, tk, keep_struct):
@@ -290,8 +359,8 @@ def sddmm_s15(grid: Grid15, plan: PlanS15, A, B,
     rows, r*c/p), and its all-gather skipped (Session reuse)."""
     coll = coll_for(grid, coll)
     pre_a, pre_b = pre_gathered
-    T_A = _gather(coll, A, pre_a, 0)
-    T_B = _gather(coll, B, pre_b, 1)
+    T_A = _gather(coll, plan, A, pre_a, 0, 0)
+    T_B = _gather(coll, plan, B, pre_b, 1, 1)
     partial, _, _ = _sddmm_round(grid, coll, plan, T_A, T_B,
                                  common.kernel_kwargs(plan, backend),
                                  keep_struct=False)
@@ -305,7 +374,7 @@ def spmma_s15(grid: Grid15, plan: PlanS15, B, pre_gathered: bool = False,
     pre_gathered=True: B's column slices arrive already fiber-replicated
     and the all-gather is skipped."""
     coll = coll_for(grid, coll)
-    T_B = _gather(coll, B, pre_gathered, 0)
+    T_B = _gather(coll, plan, B, pre_gathered, 1, 0)
     pack = (plan.rows_local, plan.cols, plan.vals, plan.tile_base)
     return _spmm_round(grid, coll, plan, T_B, pack,
                        common.kernel_kwargs(plan, backend))
@@ -336,8 +405,8 @@ def fusedmm_s15(grid: Grid15, plan: PlanS15, A, B, elision: str = "auto",
     coll = coll_for(grid, coll)
     tk = common.kernel_kwargs(plan, backend)
     pre_a, pre_b = pre_gathered
-    T_A = _gather(coll, A, pre_a, 0)
-    T_B = _gather(coll, B, pre_b, 1)
+    T_A = _gather(coll, plan, A, pre_a, 0, 0)
+    T_B = _gather(coll, plan, B, pre_b, 1, 1)
     partial, struct, structs = _sddmm_round(
         grid, coll, plan, T_A, T_B, tk, keep_struct=elision != "fused")
     r_vals = plan.vals * partial
@@ -351,7 +420,7 @@ def fusedmm_s15(grid: Grid15, plan: PlanS15, A, B, elision: str = "auto",
         w = T_B.shape[-1] // grid.c
         B_back = on_ranks(grid, lambda u, v:
                           T_B[grid.at(u, v)][:, v * w:(v + 1) * w])
-        T_B = _gather(coll, B_back, False, 2)
+        T_B = _gather(coll, plan, B_back, False, 1, 2)
     rl, cl, tb = struct
     slabs = _spmm_round(grid, coll, plan, T_B, (rl, cl, r_vals, tb), tk,
                         start=grid.L)

@@ -29,10 +29,18 @@ Every shift is issued after the kernel that reads the current chunk (the
 serial form of the reference's double buffer), and a shift whose result
 no one reads is not issued, so the collective log equals
 :func:`schedule_words` event for event.
+
+``comm="sparse"``: the stationary block (x, y) reads its A r-chunks only
+at its row support and its B r-chunks only at its column support, both
+the same in every phase, so each phase's chunk comes by a direct pruned
+send from its home position in place of the Cannon ring, where the
+plan's crossover says so (``PlanS25.smeta``).  The fiber value traffic
+and the traveling output chunks stay dense.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,6 +64,11 @@ class PlanS25:
     row_tile: int
     tiling: costmodel.Tiling
     meta: "MetaS25"
+    # comm="sparse" support index sets: (a_send, (a_recv,), b_send,
+    # (b_recv,)), (G, G, c, w) int32 tensors, a_send/b_send one per
+    # phase t >= 1; empty for dense plans
+    sup: tuple = ()
+    smeta: Optional[common.SparseMeta] = None
 
     @property
     def mS(self):
@@ -82,8 +95,11 @@ def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
              row_tile: int = 256, nz_block: int = 256, group: int = 1,
              comm: str = "dense", compress=None) -> PlanS25:
     """Pack the stationary S block per layer position (host, amortized).
-    Only the dense wire format is ported."""
-    common.dense_comm_only(comm, compress)
+
+    comm="sparse": the stationary block (x, y) reads its A r-chunks only
+    at its row support and its B r-chunks only at its column support,
+    both the same in every phase; each phase's chunk ships directly from
+    its home position, pruned to the receiver's support."""
     G, c = grid.G, grid.c
     if m % G or n % G or r % (G * c):
         raise ValueError(f"s25 needs G={G} to divide m={m} and n={n}, and "
@@ -121,8 +137,58 @@ def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
         (np.arange(G) * nS)[None, :].repeat(G, 0), (m, n)))
     vshard = torch.from_numpy(np.ascontiguousarray(grid.local(
         vl.reshape(G, G, c, nb // c, vl.shape[-1])))).to(dev)
+    sup, smeta = ((), None) if comm != "sparse" else _sparse_sup(
+        grid, rows, cols, mS, nS, compress)
     return PlanS25(shared(rl), shared(cl), vshard, shared(tb), m, n, r,
-                   row_tile, tiling, meta)
+                   row_tile, tiling, meta, sup, smeta)
+
+
+def _sparse_sup(grid: Grid25, rows, cols, mS: int, nS: int, compress):
+    """Pad and align the comm="sparse" support sets on the grid's device.
+
+    Chunks are full height within their layer block, so the support is
+    receiver-determined and the same in every phase: at phase t rank
+    (x, y, z) receives its A chunk from grid column (y+t) % G pruned to
+    the row support of block (x, y), and its B chunk from grid row
+    (x+t) % G pruned to the block's column support.  One channel per
+    traveling operand, each with its own crossover.
+    """
+    G, c = grid.G, grid.c
+    cross = costmodel.SPARSE_CROSSOVER
+    rows = np.asarray(rows).astype(np.int64)
+    cols = np.asarray(cols).astype(np.int64)
+    blk = (rows // mS) * G + cols // nS          # block x * G + y
+    rsup = common.split_sets(common.unique_sorted(
+        blk * mS + rows % mS, G * G * mS), G * G, mS)
+    csup = common.split_sets(common.unique_sorted(
+        blk * nS + cols % nS, G * G * nS), G * G, nS)
+
+    def channel(sup2, height, sender):
+        w = max(1, max(s.size for s in sup2))
+        if G == 1 or w > cross * height:
+            return (), (), 0, False
+        send = []
+        for t in range(1, G):
+            s_t = np.empty((G, G, c), object)
+            for x, y, z in grid.all_ranks():
+                sx, sy = sender(x, y, t)
+                s_t[x, y, z] = sup2[sx * G + sy]
+            send.append(common.put_sets(s_t, w, 0, grid))
+        recv = np.empty((G, G, c), object)
+        for x, y, z in grid.all_ranks():
+            recv[x, y, z] = sup2[x * G + y]
+        return (tuple(send), (common.put_sets(recv, w, height, grid),), w,
+                True)
+
+    a_send, a_recv, wa, sa = channel(
+        rsup, mS, lambda x, y, t: (x, (y - t) % G))
+    b_send, b_recv, wb, sb = channel(
+        csup, nS, lambda x, y, t: ((x - t) % G, y))
+    sup = (a_send, a_recv, b_send, b_recv)
+    return sup, common.SparseMeta(shift=sa, shift_b=sb,
+                                  ws=(wa,) if sa else (),
+                                  ws_b=(wb,) if sb else (),
+                                  compress=compress)
 
 
 def _skew_index(grid: Grid25, along: str, device):
@@ -162,6 +228,23 @@ def _coo(plan, rl, cl, vl, tb, i):
                          plan.row_tile, plan.tiling)
 
 
+def _chunk_ring(coll, plan, X0, side, n_shifts, start=0):
+    """One traveling r-chunk phase by phase (``side`` 0: A along the col
+    axis, 1: B along the row axis): the Cannon ring of ``n_shifts``
+    shifts, or, where the plan prunes that channel, phase t's chunk by a
+    direct pruned send from t positions up the axis (t = 1 .. G-1, on the
+    schedule's shift event ``start + t - 1``; phase 0's is local, and the
+    chunk stays home)."""
+    axis = "row" if side else "col"
+    sm = plan.smeta
+    if sm is None or not (sm.shift_b if side else sm.shift):
+        return cannon_ring(coll, X0, axis, n_shifts, start=start)
+    send, (recv,) = plan.sup[2 * side:2 * side + 2]
+    return common.pruned_ring(coll, X0, send, (recv,) * len(send), axis, -1,
+                              plan.nS if side else plan.mS,
+                              compress=sm.compress, start=start)
+
+
 def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
     """Cannon round over r-chunks; returns the fiber-local partial dots
     (G, G, c, nb, k), B home (None unless ``keep_b``) and the per-phase
@@ -170,8 +253,8 @@ def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
     rl, cl, tb = plan.rows_local, plan.cols, plan.tile_base
     ones = torch.ones(rl.shape[-2:], dtype=plan.vals.dtype,
                       device=rl.device).expand(rl.shape)
-    aring = cannon_ring(coll, A0, "col", G - 1)
-    bring = cannon_ring(coll, B0, "row", G if keep_b else G - 1)
+    aring = _chunk_ring(coll, plan, A0, 0, G - 1)
+    bring = _chunk_ring(coll, plan, B0, 1, G if keep_b else G - 1)
     partial, bchunks = None, []
     for t in range(G):
         A_t, B_t = aring.cur, bring.cur
@@ -181,7 +264,8 @@ def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
             _coo(plan, rl, cl, ones, tb, grid.at(x, y, z)), **tk).vals))
         aring.advance()
         bring.advance()
-    return partial, bring.cur, bchunks
+    b_pruned = plan.smeta is not None and plan.smeta.shift_b
+    return partial, B0 if b_pruned else bring.cur, bchunks
 
 
 def _spmm_round(grid, coll, plan, vals, B0, tk, start=0, bchunks=None):
@@ -190,8 +274,8 @@ def _spmm_round(grid, coll, plan, vals, B0, tk, start=0, bchunks=None):
     dead) unless ``bchunks`` replays the SDDMM round's B chunks."""
     G = grid.G
     rl, cl, tb = plan.rows_local, plan.cols, plan.tile_base
-    bring = None if bchunks is not None else cannon_ring(
-        coll, B0, "row", G - 1, start=start)
+    bring = None if bchunks is not None else _chunk_ring(
+        coll, plan, B0, 1, G - 1, start)
     out = None
     for t in range(G):
         B_t = bchunks[t] if bchunks is not None else bring.cur

@@ -177,12 +177,53 @@ def test_comm_and_device_plumbing():
         _make(rows, cols, vals, (64, 64), 8, comm="nope")
     with pytest.raises(ValueError, match="compress"):
         _make(rows, cols, vals, (64, 64), 8, compress="fp4")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        _make(rows, cols, vals, (64, 64), 8, comm="sparse")
+    assert _make(rows, cols, vals, (64, 64), 8, comm="sparse").comm == \
+        "sparse"
     assert _make(rows, cols, vals, (64, 64), 8, comm="auto").comm == "dense"
     with pytest.raises(NotImplementedError, match="torch.distributed"):
         api.make_problem(rows, cols, vals, (64, 64), 8,
                          devices=[CPU, torch.device("meta")])
+
+
+def test_comm_mode_plumbing():
+    """comm/compress validate, "auto" resolves as the reference's does
+    (dense on a uniform matrix, sparse on a skewed one), derived problems
+    and their plans keep the wire format, and the Session keys on comm
+    (the port's half of tests/test_api.py's test, without meta_dict)."""
+    from repro.core import costmodel as jcost
+    rows, cols, vals, X, Y, _ = _problem_data(seed=12)
+    with pytest.raises(ValueError, match="comm"):
+        _make(rows, cols, vals, (64, 64), 8, comm="nope")
+    with pytest.raises(ValueError, match="compress"):
+        _make(rows, cols, vals, (64, 64), 8, compress="fp4")
+    prows, pcols, pvals, *_ = sparse.powerlaw_problem(8, 8, edge_factor=4,
+                                                      seed=1)
+    for r_, c_, shape in ((rows, cols, (64, 64)), (prows, pcols, (256, 256))):
+        auto = _make(r_, c_, np.ones(len(r_), np.float32), shape, 8,
+                     comm="auto")
+        want = jcost.choose_comm(r_, c_, *shape)
+        assert auto.comm == want == japi.make_problem(
+            r_, c_, np.ones(len(r_), np.float32), shape, 8, comm="auto",
+            devices=jax.devices()[:1]).comm
+    assert auto.comm == "sparse"
+    prob = _make(rows, cols, vals, (64, 64), 8, p=4, algorithm="d15", c=2,
+                 comm="sparse", compress="bf16")
+    for derived in (prob.transposed(), prob.with_values(vals * 2),
+                    prob.with_r(4), prob.ones()):
+        assert (derived.comm, derived.compress) == ("sparse", "bf16")
+        assert derived.plan("normal").smeta.compress == "bf16"
+    assert prob.injected_plan("normal", vals * 2).smeta == \
+        prob.plan("normal").smeta
+    assert prob.schedule_words("fusedmm", "fused") is None
+    # sessions key on comm: the same operand under each mode is two
+    # entries, and the second call under one of them a hit
+    dense = _make(rows, cols, vals, (64, 64), 8, p=4, algorithm="d15", c=2)
+    sess = api.Session()
+    sess.replicate(dense, X, "x")
+    sess.replicate(prob, X, "x")
+    assert sess.stats() == dict(hits=0, misses=2, entries=2, capacity=16)
+    sess.replicate(prob, X, "x")
+    assert sess.stats()["hits"] == 1
 
 
 def test_make_problem_defaults_to_the_card():
@@ -208,14 +249,18 @@ def test_api_parity_vs_ref(p):
     np.testing.assert_allclose(_np(out), Sd @ Y, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("el", CELLS)
-def test_fusedmm_cells_vs_reference_api(el):
+@pytest.mark.parametrize("el,comm", [
+    pytest.param(el, comm, id=el if comm == "dense" else f"{el}-{comm}")
+    for comm in ("dense", "sparse") for el in CELLS])
+def test_fusedmm_cells_vs_reference_api(el, comm):
     """Every cell against the dense oracle and against the reference's
-    api on one host device (Pallas in interpret mode)."""
+    api on one host device (Pallas in interpret mode), under each wire
+    format."""
     rows, cols, vals, X, Y, Sd = _problem_data()
-    prob = _make(rows, cols, vals, Sd.shape, 8, algorithm="d15")
+    prob = _make(rows, cols, vals, Sd.shape, 8, algorithm="d15", comm=comm)
     jprob = japi.make_problem(rows, cols, vals, Sd.shape, 8,
-                              algorithm="d15", devices=jax.devices()[:1])
+                              algorithm="d15", comm=comm,
+                              devices=jax.devices()[:1])
     wantR = Sd * (X @ Y.T)
     out, R = api.fusedmm(prob, X, Y, elision=el)
     np.testing.assert_allclose(_np(out), wantR @ Y, rtol=2e-3, atol=2e-3)

@@ -27,6 +27,9 @@ import sys
 import numpy as np
 import pytest
 
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_spawn import spawn  # noqa: E402
+
 # tests/test_torch_d15.py's problem, so its reference output applies
 M, N, R, NNZ_ROW, SEED = 256, 320, 64, 5, 0
 TILE = dict(row_tile=32, nz_block=32)
@@ -38,7 +41,6 @@ CASES = ([(4, f, c) for f in ("d15", "s15") for c in (1, 2, 4)]
          + [(4, f, 1) for f in ("d25", "s25")]
          + [(8, f, 2) for f in ("d15", "s15", "d25", "s25")])
 WORLDS = sorted({w for w, _, _ in CASES})
-JOIN_SECONDS = 240
 
 
 def _ops(family):
@@ -219,37 +221,9 @@ def _problem_data():
 
 
 def _spawn(world, out_dir, device="cpu"):
-    """Run ``world`` ranks to their end; returns each rank's saved
-    arrays and logs.  A rank that fails or outlives JOIN_SECONDS fails
-    the caller (the others are killed)."""
-    os.makedirs(out_dir, exist_ok=True)
-    init = "file://" + os.path.join(out_dir, "rendezvous")
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "worker", str(r), str(world), init,
-         out_dir, device], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=JOIN_SECONDS)[0])
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"world {world}: a rank hung past {JOIN_SECONDS} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} of {world}:\n{log[-4000:]}"
-    out = []
-    for r in range(world):
-        data = np.load(os.path.join(out_dir, f"rank{r}.npz"))
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            out.append(({k: data[k] for k in data.files}, json.load(f)))
-    return out
+    """Run ``world`` ranks to their end (``_torch_spawn.spawn``); returns
+    each rank's saved arrays and logs."""
+    return spawn(__file__, world, out_dir, device)
 
 
 @pytest.fixture(scope="module")

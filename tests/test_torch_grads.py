@@ -15,7 +15,6 @@ path (``SparseResult.values_tensor``) and the device value injection
 """
 import dataclasses
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -28,11 +27,13 @@ from repro.core import api as japi
 from repro.core import grads as jgrads
 from repro_torch.core import api, costmodel, grads, sparse
 
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_spawn import spawn  # noqa: E402
+
 CPU = torch.device("cpu")
 ELISION_CELLS = sorted((name, el) for name in costmodel.FAMILIES
                        for el in api.ALGORITHMS[name].elisions)
 FAMILIES = sorted(costmodel.FAMILIES)
-JOIN_SECONDS = 240
 
 
 def _data(m=64, n=64, r=8, k=4, seed=0):
@@ -304,7 +305,7 @@ def _repacked(prob, orient, vals):
 def _plans_equal(a, b):
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(x, torch.Tensor) or isinstance(x, tuple) \
+        if isinstance(x, torch.Tensor) or isinstance(x, tuple) and x \
                 and isinstance(x[0], torch.Tensor):
             xs = x if isinstance(x, tuple) else (x,)
             ys = y if isinstance(y, tuple) else (y,)
@@ -429,29 +430,7 @@ def _worker(rank, world, init, out_dir):
 @pytest.fixture(scope="module")
 def gloo_ranks(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("grads_dist"))
-    init = "file://" + os.path.join(out_dir, "rendezvous")
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "worker", str(r), "4", init, out_dir],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(4)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=JOIN_SECONDS)[0])
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"a rank hung past {JOIN_SECONDS} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
-    return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
-            for r in range(4)]
+    return [arrays for arrays, _ in spawn(__file__, 4, out_dir)]
 
 
 @pytest.mark.parametrize("name,c", DIST_CASES)
