@@ -55,18 +55,48 @@ Phases, each printing one JSON line:
            delta of the plan's SparseMeta (bf16: half the pruned words),
            bf16 within BF16_TOL of the exact wire, comm="auto" choosing
            "sparse", each plan's SparseMeta printed; (B) R-MAT 2^22
-           (--comm-scale) with rows and columns permuted (PERMUTE_SEED:
-           the unpermuted matrix's timing waits on a defect, see
-           rmat_padding), the family, c and cell make_problem(
-           algorithm="auto", comm="auto") chooses and d15 c = 2 "fused",
-           each under dense, sparse and bf16: host seconds to plan (the
-           support sets' share), launches, words, median ms, the device
-           split and the memory peak, sparse == dense bit for bit;
+           (--comm-scale) with rows and columns permuted (PERMUTE_SEED,
+           as the benchmarks draw it), the family, c and cell
+           make_problem(algorithm="auto", comm="auto") chooses and d15
+           c = 2 "fused", each under dense, sparse and bf16: host
+           seconds to plan (the support sets' share), launches, words,
+           median ms, the device split and the memory peak, sparse ==
+           dense bit for bit; (C) the same R-MAT unpermuted, "auto"'s
+           cell under dense and sparse, the same numbers (3 reps);
+  rmat_padding
+           the unpermuted R-MAT at 2^(--comm-scale - 2), p = 8 stacked,
+           PROBE_CELL's family and c (section B's "auto" choice at
+           2^22).  Stacked ranks' packs are padded to the heaviest
+           rank's block count with blocks that repeat the last window's
+           base; the kernels walk each pack's real blocks only.  Checks
+           that every window's run is its own blocks and one fusedmm
+           against backend="ref"; prints the packed slots per nonzero,
+           the most entries one window's run would hold uncapped and
+           holds, the host seconds of the first call and the next's ms;
   stacked  p = 8 ranks, c = 2, stacked on the one card (m = n = 2^16):
            d15's every op and cell against p = 1, overlap == serial and
            "none" == sddmm-then-spmm bitwise, collective log == the
            schedule_words model; then s15, d25 and s25 likewise
            against d15 at p = 1, with d25's overlap == serial;
+  faults   recovery on the card at the main configuration with integer
+           values (vals 1..4, X and Y -3..3, so every accumulation is
+           exact): (a) algorithm="auto" on FAULT_P = 8 stacked ranks,
+           sddmm, spmm, spmm_t and fusedmm in each elision of its
+           family; (b) each call again through api.ElasticProblem with
+           a Session and a scripted TransientFault mid-schedule: bit for
+           bit (a), one recovery each, Session.invalidate evicting the
+           entries the plan replays; (c) a DeviceLost at rank 7:
+           api.degrade re-plans onto the largest feasible p (the old
+           problem's device state released first), all four ops ==
+           (a) bit for bit, the family and c, the re-plan's host
+           seconds, the first recovered call's ms and the memory peak;
+           (d) meta_dict -> problem_from_meta on 4 stacked ranks: the
+           same family and c, SDDMM == (a), a wrong COO refused; (e)
+           check_faults.py's guarantee 3 at 2^--apps-scale: a 6-step
+           train_embedding_distributed on 8 ranks losing rank 7 at the
+           step-3 SDDMM == a fault-free run checkpointed at step 3 and
+           resumed on the degraded grid (X, Y, losses of steps 3-5, bit
+           for bit), the later checkpoint's meta on the new p;
   dist     one process per visible card, one rank each, over NCCL (the
            torch.distributed backend), at the main path's size
            (--scale).  On one card (world size 1) it runs d15's
@@ -89,7 +119,14 @@ Phases, each printing one JSON line:
            wires: "auto"'s cell (every rank's blocks against the stacked
            run bit for bit) and d15 "fused" (sparse == dense bit for
            bit), each with ms, the device split, each collective kind's
-           ms and GB/s and the share of communication time pruning saves;
+           ms and GB/s and the share of communication time pruning
+           saves; last the fault cells (integer data): d15 "fused" with
+           a scripted TransientFault, retried on the same group, bit for
+           bit the fault-free run on every rank; then a DeviceLost at
+           rank 3: every process takes part in the degraded group, the
+           survivors re-plan onto the largest feasible p and equal the
+           stacked run of that p on card 0 and the fault-free p = 4
+           result bit for bit, the others leave with api.RankRetired;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -107,25 +144,13 @@ Phases, each printing one JSON line:
            default): the losses falling, the trainable GAT layer against
            gat_layer_distributed, packing seconds, ms and device split.
 
-Named in --phases only (not run by default):
-
-  rmat_padding
-           the defect that section B's permutation avoids: the
-           unpermuted R-MAT at 2^(--comm-scale - 2), p = 8 stacked,
-           PROBE_CELL's family and c (section B's "auto" choice at
-           2^22).  Stacked ranks' packs are padded to the heaviest
-           rank's block count, and the padding repeats the last
-           window's base, so one kernel block walks it alone.  Prints
-           the packed slots per nonzero, the most entries one rank's
-           last window holds, and the host seconds of one dense call;
-           it checks nothing.
-
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
-line.  ``--scale`` shrinks the main path, the dist phase and sections A
-and B of the train phase (2^scale rows), ``--families-scale`` the
-families phase, ``--apps-scale`` section C, ``--rmat-scale`` the
+line.  ``--scale`` shrinks the main path, the faults phase's (a)-(d),
+the dist phase and sections A and B of the train phase (2^scale rows),
+``--families-scale`` the families phase, ``--apps-scale`` section C and
+the faults phase's (e), ``--rmat-scale`` the
 power-law timing and ``--comm-scale`` the comm_sparse phase and the
 dist phase's R-MAT cells for rehearsals;
 ``--phases`` picks phases.
@@ -149,7 +174,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("build", "kernels", "main", "families", "comm_sparse",
-          "stacked", "dist", "train")
+          "rmat_padding", "stacked", "faults", "dist", "train")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -1330,15 +1355,28 @@ def rmat_problem(torch, scale, r, seed, permute_seed=None):
     return rows, cols, vals, X, Y, gen_s
 
 
-def padding_probe(torch, scale, r, family, c):
-    """The unpermuted R-MAT's load on the stacked ranks: at p = 8 one
-    rank's row block holds a large share of the nonzeros, every rank's
-    pack is padded to its block count, and the padding blocks repeat the
-    last window's base, so one window of each light rank holds them all
-    and one block of each kernel walks them in turn.  Reports the packed
-    slots per nonzero, the most entries one rank's last window holds and
-    the host seconds of one synchronised dense ``fusedmm`` call (the
-    first, with every launch of the cell)."""
+def window_runs(torch, tile_base, row_tile, n_windows, live=None):
+    """Blocks in each window's run of one rank's pack, as the kernel
+    wrappers hand them to the kernels (``live``: the real block count
+    they walk; None: every block, as before the cap)."""
+    from repro_torch.kernels import _build
+    tb = tile_base if live is None else tile_base[:live]
+    off = _build.window_offsets(tb, row_tile, n_windows)
+    return off[1:] - off[:-1]
+
+
+def padding_check(torch, ck, scale, r, family, c):
+    """The unpermuted R-MAT on the stacked ranks: at p = 8 one rank's
+    row block holds a large share of the nonzeros, every rank's pack is
+    padded to its block count, and the padding repeats the last window's
+    base.  The planners count each pack's real blocks (``plan.nreal``)
+    and the wrappers walk only those: checks that every window's run is
+    exactly its own blocks (no run longer than its real blocks), and
+    that one dense ``fusedmm`` call agrees with backend="ref".  Reports
+    the packed slots per nonzero, the most entries one window's run
+    would hold uncapped (the padding) and holds capped, and the host
+    seconds of the first synchronised call (with every launch of the
+    cell) and the device ms of the next."""
     from repro_torch.core import api
     rows, cols, vals, X, Y, _ = rmat_problem(torch, scale, r, RMAT_SEED)
     m = 1 << scale
@@ -1347,18 +1385,48 @@ def padding_probe(torch, scale, r, family, c):
     plan = prob.plan("normal")
     tbs = plan.tile_base if isinstance(plan.tile_base, tuple) \
         else (plan.tile_base,)
-    slots = sum(t.numel() for t in tbs) * plan.vals[0].shape[-1] \
-        if isinstance(plan.vals, tuple) else plan.vals.numel()
-    last = max(int(((t == t[..., -1:]).sum(-1)).max()) for t in tbs) \
-        * prob.nz_block
+    height = plan.mS if family == "s15" else plan.cmA
+    n_windows = height // plan.row_tile
+    nreal = np.asarray(plan.nreal).reshape(len(tbs), -1)
+    k = prob.nz_block
+    slots = sum(t.numel() for t in tbs) * k
+    uncapped = capped = 0
+    for t, tb in enumerate(tbs):
+        flat = tb.reshape(-1, tb.shape[-1])
+        for i in range(flat.shape[0]):
+            live = int(nreal[t, i])
+            runs = window_runs(torch, flat[i], plan.row_tile, n_windows,
+                               live)
+            own = torch.bincount((flat[i][:live] // plan.row_tile).long(),
+                                 minlength=n_windows)
+            if not torch.equal(runs, own):
+                raise AssertionError(f"padding: rank {i} phase {t}: a "
+                                     "window's run is not its own blocks")
+            ck.n += 1
+            capped = max(capped, int(runs.max()) * k)
+            uncapped = max(uncapped, int(window_runs(
+                torch, flat[i], plan.row_tile, n_windows).max()) * k)
     t0 = time.perf_counter()
-    prob.fusedmm(X, Y)
+    out, R = prob.fusedmm(X, Y)
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
-    log(f"padding probe 2^{scale}: one call {call_s:.1f} s")
+    ref, ref_R = prob.fusedmm(X, Y, backend="ref")
+    r_vals = R.values_tensor()
+    err = ck.close(r_vals, ref_R.values_tensor(), 2e-3, "padding: R vs ref")
+    # hub rows sum ~10^5 terms: two float32 orders of one sum differ by
+    # about 2^-24 of its terms' magnitudes, as in rmat_times
+    mag = prob.spmm(Y.abs(), vals=r_vals.abs(), backend="ref")
+    err = max(err, ck.close(out, ref, 2e-3, "padding: fusedmm vs ref",
+                            slack=2.0**-20 * mag))
+    del out, R, ref, ref_R, r_vals, mag
+    ms = time_ms(torch, lambda: prob.fusedmm(X, Y), 1, warmup=0)
+    log(f"padding check 2^{scale}: first call {call_s:.2f} s, next "
+        f"{ms:.1f} ms")
     return {"m": m, "nnz": int(len(vals)), "family": family, "c": c,
             "slots_per_nonzero": slots / len(vals),
-            "last_window_entries": last, "call_s": call_s}
+            "last_window_entries_uncapped": uncapped,
+            "max_run_entries": capped, "call_s": call_s, "ms": ms,
+            "max_abs_err_vs_ref": err}
 
 
 def comm_sparse_check(torch, ck, scale, r):
@@ -1408,17 +1476,19 @@ def comm_sparse_check(torch, ck, scale, r):
     return report
 
 
-def comm_sparse_full(torch, ck, scale, r, reps):
+def comm_sparse_full(torch, ck, scale, r, reps, permuted=True):
     """Section B: R-MAT at full size, p = 8 stacked, the family, c and
     cell "auto" chooses (comm="auto" too) and d15 c = 2 "fused", each
     under the three wires: plan seconds (support sets' share), launches,
     words, ms, device split and memory peak; sparse == dense bit for
-    bit.  Returns (report, launches of the counted calls)."""
+    bit.  Section C (``permuted=False``): the unpermuted matrix, "auto"'s
+    cell under the dense and sparse wires.  Returns (report, launches of
+    the counted calls)."""
     import importlib
     from repro_torch.core import api
     from repro_torch.kernels import ops
-    rows, cols, vals, X, Y, gen_s = rmat_problem(torch, scale, r,
-                                                  RMAT_SEED, PERMUTE_SEED)
+    rows, cols, vals, X, Y, gen_s = rmat_problem(
+        torch, scale, r, RMAT_SEED, PERMUTE_SEED if permuted else None)
     m = 1 << scale
     dev = torch.device("cuda")
     auto = api.make_problem(rows, cols, vals, (m, m), r, comm="auto",
@@ -1426,18 +1496,21 @@ def comm_sparse_full(torch, ck, scale, r, reps):
     if auto.comm != "sparse":
         raise AssertionError(f"comm='auto' chose {auto.comm} at scale "
                              f"{scale}")
-    cells = [(auto.alg.name, auto.c, auto.resolve_elision("auto")),
-             ("d15", 2, "fused")]
+    cells = [(auto.alg.name, auto.c, auto.resolve_elision("auto"))]
+    if permuted:
+        cells.append(("d15", 2, "fused"))
+    wires = WIRES if permuted else WIRES[:2]
+    sec = "B" if permuted else "C"
     del auto
     report = {"m": m, "nnz": int(len(vals)), "rmat_gen_s": gen_s,
-              "permuted": True, "cells": {}}
+              "permuted": permuted, "cells": {}}
     totals = {k: 0 for k in ops.KERNELS}
     for fam, c, el in cells:
         mod = importlib.import_module(f"repro_torch.core.{fam}")
         orient = "transpose" if el == "reuse" and fam in ("d15", "d25") \
             else "normal"
         rows_out, base = {}, None
-        for name, comm, compress in WIRES:
+        for name, comm, compress in wires:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             sup_s = []
@@ -1460,7 +1533,7 @@ def comm_sparse_full(torch, ck, scale, r, reps):
             torch.cuda.synchronize()
             plan_s = time.perf_counter() - t0
             what = f"{fam} c={c} {el} {name}"
-            log(f"comm_sparse B: {what} planned in {plan_s:.1f} s "
+            log(f"comm_sparse {sec}: {what} planned in {plan_s:.1f} s "
                 f"(support sets {sum(sup_s):.1f} s)")
             ops.reset_launch_counts()
             out, R = prob.fusedmm(X, Y, elision=el)
@@ -1503,7 +1576,7 @@ def comm_sparse_full(torch, ck, scale, r, reps):
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             if name == "sparse":
                 rows_out[name]["meta"] = sparse_meta(prob)
-            log(f"comm_sparse B: {what} {ms:.2f} ms, {words:.4g} words")
+            log(f"comm_sparse {sec}: {what} {ms:.2f} ms, {words:.4g} words")
             del prob
         report["cells"][f"{fam} c={c} {el}"] = rows_out
         del base
@@ -1525,16 +1598,21 @@ def phase_comm_sparse(torch, scale: int, reps: int):
     full, launches = comm_sparse_full(torch, ck, scale, r, reps)
     emit({"phase": "comm_sparse", "section": "B", "r": r, "p": 8,
           "seconds": time.perf_counter() - t0, "checks": ck.n, **full})
-    return launches
+    t0 = time.perf_counter()
+    full, more = comm_sparse_full(torch, ck, scale, r, min(reps, 3),
+                                  permuted=False)
+    emit({"phase": "comm_sparse", "section": "C", "r": r, "p": 8,
+          "seconds": time.perf_counter() - t0, "checks": ck.n, **full})
+    return {k: launches[k] + more[k] for k in launches}
 
 
 def phase_rmat_padding(torch, scale: int):
-    """The opt-in probe of the unpermuted R-MAT at 2^scale (see
-    :func:`padding_probe`)."""
+    """The unpermuted R-MAT at 2^scale (see :func:`padding_check`)."""
+    ck = Checker(torch)
     t0 = time.perf_counter()
-    probe = padding_probe(torch, scale, 128, *PROBE_CELL)
+    probe = padding_check(torch, ck, scale, 128, *PROBE_CELL)
     emit({"phase": "rmat_padding", "r": 128, "p": 8,
-          "seconds": time.perf_counter() - t0, **probe})
+          "seconds": time.perf_counter() - t0, "checks": ck.n, **probe})
 
 
 # ---------------------------------------------------------------------------
@@ -1546,6 +1624,311 @@ def phase_rmat_padding(torch, scale: int):
 # ---------------------------------------------------------------------------
 
 EMBED_LR = 0.05     # SGD rate of the sampled-loss steps (the loss falls)
+
+
+# ---------------------------------------------------------------------------
+# faults: recovery, re-planning and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+#: stacked ranks of the faults phase's problem, and the rank it loses
+FAULT_P, FAULT_LOST = 8, 7
+
+
+def integer_problem(torch, m, per_row, r, seed):
+    """The main configuration's ER matrix (drawn on the card) with
+    integer values 1..4 and integer operands -3..3 (seeded on the card):
+    every float32 accumulation is exact, so results on different grids
+    agree bit for bit (check_remesh.py's data)."""
+    rows, cols, _ = erdos_renyi_on_card(torch, m, m, per_row, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    vals = torch.randint(1, 5, (len(rows),), generator=g, device="cuda")
+    X = torch.randint(-3, 4, (m, r), generator=g, device="cuda")
+    Y = torch.randint(-3, 4, (m, r), generator=g, device="cuda")
+    return (rows, cols, vals.float().cpu().numpy(), X.float(), Y.float())
+
+
+def fault_calls(elisions, X, Y):
+    """(label, op, elision, call) of every op of a family: ``call`` takes a
+    DistProblem or an ElasticProblem (the same signatures) and returns
+    device tensors (sampled values in host COO order)."""
+    calls = [("sddmm", "sddmm", None,
+              lambda p: (p.sddmm(X, Y).values_tensor(),)),
+             ("spmm", "spmm", None, lambda p: (p.spmm(Y),)),
+             ("spmm_t", "spmm_t", None, lambda p: (p.spmm_t(X),))]
+    for el in elisions:
+        def fused(p, el=el):
+            out, R = p.fusedmm(X, Y, elision=el)
+            return out, R.values_tensor()
+        calls.append((f"fusedmm/{el}", "fusedmm", el, fused))
+    return calls
+
+
+def replayed_slots(prob, op, el):
+    """Session entries one op's call leaves for its grid: the replicated
+    operands its plan replays from a Session (two for s15's SDDMM and
+    FusedMM, none for s25 or a d15/d25 SpMM)."""
+    from repro_torch.core import api
+    _, pre = prob.alg._words_plan(prob, op, el or "none", api.Session())
+    return sum(pre) if isinstance(pre, tuple) else int(pre)
+
+
+def device_gib(torch, *objs) -> float:
+    """GiB of the distinct device storages reachable from ``objs``
+    (tensors in dataclasses, dicts, lists and tuples)."""
+    import dataclasses
+    seen, stack = {}, list(objs)
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            st = o.untyped_storage()
+            if o.device.type == "cuda":
+                seen[st.data_ptr()] = st.nbytes()
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            stack += [getattr(o, f.name) for f in dataclasses.fields(o)]
+        elif isinstance(o, dict):
+            stack += list(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack += list(o)
+    return sum(seen.values()) / 2**30
+
+
+def problem_gib(torch, prob) -> float:
+    """GiB of a problem's device state: its plans, position-coded packs,
+    value indices and device values, its transposed problem's too."""
+    parts = [prob._plans, prob._posmaps, prob._value_idx, prob._vals_dev]
+    if prob._transposed is not None:
+        tp = prob._transposed
+        parts += [tp._plans, tp._posmaps, tp._value_idx, tp._vals_dev]
+    return device_gib(torch, *parts)
+
+
+def timed_call(torch, fn):
+    """(result, wall ms of one synchronised call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def faults_trainer(torch, ck, scale):
+    """check_faults.py's guarantee 3 on the card: a DeviceLost at rank 7
+    in the step-3 SDDMM of a 6-step train_embedding_distributed on 8
+    stacked ranks ends with X, Y and the losses of steps 3-5 equal bit
+    for bit to a fault-free run that checkpointed at step 3 and resumed
+    on the degraded grid; the later checkpoint's meta records the new
+    p."""
+    import shutil
+    import tempfile
+    from repro_torch.apps import als
+    from repro_torch.distributed import faults
+    from repro_torch.training import checkpoint
+    dev = torch.device("cuda")
+    m = 1 << scale
+    common = dict(m=m, n=m, nnz_per_row=16, r=128, lr=0.05, seed=3,
+                  reg=0.0, verbose=False)
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    runs = {}
+    try:
+        dir_a, dir_b, dir_c = (f"{tmp}/{d}" for d in "ABC")
+        als.train_embedding_distributed(steps=3, ckpt_dir=dir_a,
+                                        ckpt_every=3,
+                                        devices=[dev] * FAULT_P, **common)
+        shutil.copytree(dir_a, dir_b)
+        runs["fault_free_s"] = time.perf_counter() - t0
+        x_ref, y_ref, h_ref = als.train_embedding_distributed(
+            steps=6, ckpt_dir=dir_b, ckpt_every=3, devices=[dev] * 4,
+            **common)
+        runs["resumed_s"] = time.perf_counter() - t0 - runs["fault_free_s"]
+        plan = faults.FaultPlan.scripted(faults.FaultSpec(
+            op="sddmm", rank=FAULT_LOST, round=3, kind="device_lost"))
+        with faults.inject(plan) as ctl:
+            x_rec, y_rec, h_rec = als.train_embedding_distributed(
+                steps=6, ckpt_dir=dir_c, ckpt_every=3,
+                devices=[dev] * FAULT_P, **common)
+        if len(ctl.fired) != 1 or ctl.fired[0]["rank"] != FAULT_LOST:
+            raise AssertionError(f"trainer: fired {ctl.fired}")
+        ck.equal(x_rec, x_ref, "trainer: recovered X == resumed X")
+        ck.equal(y_rec, y_ref, "trainer: recovered Y == resumed Y")
+        if h_rec[3:] != h_ref:
+            raise AssertionError(f"trainer: losses {h_rec[3:]} != {h_ref}")
+        meta = checkpoint.load_manifest(dir_c, 6)["meta"]
+        ref_meta = checkpoint.load_manifest(dir_b, 6)["meta"]
+        if meta["p"] != 4 or meta != ref_meta:
+            raise AssertionError(f"trainer: checkpoint meta {meta}")
+        ck.n += 2
+        return {"m": m, "losses": h_rec, "p_after": meta["p"],
+                "family_after": meta["family"], "c_after": meta["c"],
+                "seconds": time.perf_counter() - t0, **runs}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_faults(torch, scale: int, apps_scale: int):
+    """Recovery on the card at the main configuration (integer data):
+    (a) "auto" on 8 stacked ranks, every op of its family fault-free;
+    (b) ElasticProblem with a Session and a TransientFault mid-schedule
+    in each call: recovered == (a) bit for bit, one recovery each, the
+    Session evicting the entries the plan replays; (c) a DeviceLost at
+    rank 7: degrade re-plans onto the largest feasible p, every op ==
+    (a) bit for bit, the old problem's device state released first;
+    (d) meta_dict -> problem_from_meta on 4 ranks: the same family and
+    c, SDDMM == (a), a wrong COO refused; (e) the trainer's
+    DeviceLost-vs-resume parity at 2^apps_scale.  Returns the launches
+    of the phase."""
+    import gc
+    import weakref
+    from repro_torch.core import api
+    from repro_torch.distributed import faults
+    from repro_torch.kernels import ops
+    ck = Checker(torch)
+    dev = torch.device("cuda")
+    m, r = 1 << scale, 128
+    rows, cols, vals, X, Y = integer_problem(torch, m, 16, r, 0)
+    ops.reset_launch_counts()
+    report, ms = {"m": m, "r": r, "nnz": int(len(vals))}, {}
+
+    # (a) fault-free
+    t0 = time.perf_counter()
+    prob = api.make_problem(rows, cols, vals, (m, m), r,
+                            devices=[dev] * FAULT_P)
+    calls = fault_calls(prob.alg.elisions, X, Y)
+    base = {}
+    for label, _, _, call in calls:
+        base[label], ms[f"a {label}"] = timed_call(torch,
+                                                   lambda: call(prob))
+        if not all(bool(torch.isfinite(t).all()) for t in base[label]):
+            raise AssertionError(f"faults (a) {label}: non-finite")
+    report["a"] = {"family": prob.alg.name, "c": prob.c, "p": prob.p,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"faults (a): {prob.alg.name} c={prob.c}, "
+        f"{report['a']['seconds']:.1f} s")
+
+    # (b) a transient fault mid-schedule in each call
+    t0 = time.perf_counter()
+    summaries, evicted = [], {}
+    for label, op, el, call in calls:
+        session = api.Session()
+        call(api.ElasticProblem(prob, session=session))   # warm it
+        plan = faults.FaultPlan.scripted(
+            faults.FaultSpec(op=op, rank=1, phase=-1, round=0))
+        with faults.inject(plan) as ctl:
+            ep = api.ElasticProblem(prob, session=session)
+            got, ms[f"b {label}"] = timed_call(torch, lambda: call(ep))
+        if len(ctl.fired) != 1 or len(ep.recoveries) != 1:
+            raise AssertionError(f"faults (b) {label}: fired {ctl.fired}, "
+                                 f"recoveries {ep.recoveries}")
+        want = replayed_slots(prob, op, el)
+        if ep.recoveries[0]["evicted"] != want:
+            raise AssertionError(f"faults (b) {label}: evicted "
+                                 f"{ep.recoveries[0]['evicted']}, the "
+                                 f"plan replays {want}")
+        ck.equal_all(got, base[label], f"faults (b) {label} recovered")
+        evicted[label] = want
+        s = ctl.summary()
+        s.pop("log")
+        summaries.append(s)
+        del got, session, ep
+    report["b"] = {"evicted": evicted, "summaries": summaries,
+                   "seconds": time.perf_counter() - t0}
+    log(f"faults (b): {len(calls)} recovered calls bitwise, "
+        f"{report['b']['seconds']:.1f} s")
+
+    # (c) a lost rank: degrade, every op on the degraded grid
+    t0 = time.perf_counter()
+    degrade_s = []
+
+    def timing(orig):
+        def spy(*a, **k):
+            t1 = time.perf_counter()
+            out = orig(*a, **k)
+            degrade_s.append(time.perf_counter() - t1)
+            return out
+        return spy
+
+    # what the cyclic collector would still free (nothing, if recovery
+    # leaves no reference cycles), then what is held at the re-plan
+    uncollected = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = {"all_gib": torch.cuda.memory_allocated() / 2**30,
+            "cycles_gib": (uncollected - torch.cuda.memory_allocated())
+            / 2**30,
+            "old_problem_gib": problem_gib(torch, prob),
+            "results_gib": device_gib(torch, base),
+            "operands_gib": device_gib(torch, X, Y)}
+    old = [weakref.ref(t) for q in (prob, prob.transposed())
+           for t in (q.plan("normal").rows_local,
+                     q._posplan("normal").rows_local)]
+    plan = faults.FaultPlan.scripted(faults.FaultSpec(
+        op="sddmm", rank=FAULT_LOST, round=0, kind="device_lost"))
+    with faults.inject(plan) as ctl, patched(api, "degrade", timing):
+        ep = api.ElasticProblem(prob, session=api.Session())
+        got, first_ms = timed_call(torch, lambda: calls[0][3](ep))
+    gc.collect()
+    if any(r() is not None for r in old):
+        raise AssertionError("faults (c): the old problem's packs outlived "
+                             "the re-plan")
+    ck.n += 1
+    new = ep.problem
+    ck.equal_all(got, base["sddmm"], "faults (c) sddmm after degrade")
+    del got
+    for label, _, _, call in calls[1:]:
+        got, ms[f"c {label}"] = timed_call(torch, lambda: call(ep))
+        ck.equal_all(got, base[label], f"faults (c) {label} after degrade")
+        del got
+    report["c"] = {"family": new.alg.name, "c": new.c, "p": new.p,
+                   "fired": ctl.fired, "recoveries": ep.recoveries,
+                   "replan_host_s": degrade_s[0],
+                   "first_call_ms": first_ms, "held": held,
+                   "new_problem_gib": problem_gib(torch, new),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "seconds": time.perf_counter() - t0}
+    log(f"faults (c): degraded to {new.alg.name} p={new.p} c={new.c} in "
+        f"{degrade_s[0]:.3f} s, first call {first_ms:.0f} ms")
+    meta = new.meta_dict()
+    del ep, new, prob
+    torch.cuda.empty_cache()
+
+    # (d) the degraded problem's metadata through a checkpoint
+    t0 = time.perf_counter()
+    again = api.problem_from_meta(meta, rows, cols, vals,
+                                  devices=[dev] * meta["p"])
+    if (again.alg.name, again.c, again.p) != (meta["family"], meta["c"],
+                                              meta["p"]):
+        raise AssertionError(f"faults (d): rebuilt {again.alg.name} "
+                             f"c={again.c} p={again.p} from {meta}")
+    got, ms["d sddmm"] = timed_call(torch, lambda: calls[0][3](again))
+    ck.equal_all(got, base["sddmm"], "faults (d) sddmm from meta")
+    bad = vals.copy()
+    bad[0] += 1.0
+    try:
+        api.problem_from_meta(meta, rows, cols, bad,
+                              devices=[dev] * meta["p"])
+    except ValueError as e:
+        if "wrong matrix" not in str(e):
+            raise
+    else:
+        raise AssertionError("faults (d): a wrong COO was accepted")
+    ck.n += 2
+    report["d"] = {"meta": meta, "seconds": time.perf_counter() - t0}
+    del again, got, base
+    torch.cuda.empty_cache()
+
+    # (e) the trainer
+    report["e"] = faults_trainer(torch, ck, apps_scale)
+    launches = ops.launch_counts()
+    for k in ("sddmm", "spmm"):
+        if launches[k] <= 0:
+            raise AssertionError(f"faults: {k} kernel not launched: "
+                                 f"{launches}")
+    report.update(launches=launches, forms=ops.form_counts(), ms=ms,
+                  checks=ck.n)
+    emit({"phase": "faults", **report})
+    return launches
 
 
 @contextlib.contextmanager
@@ -2208,6 +2591,7 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
         torch.cuda.empty_cache()
         report["rmat"] = dist_rmat(torch, dist, ck, rank, world,
                                    comm_scale, reps, Timed)
+        report["faults"] = dist_faults(torch, dist, ck, rank, world, scale)
     report["checks"] = ck.n
     return report
 
@@ -2345,6 +2729,92 @@ def dist_sampled_loss(torch, dist, ck, rank, world, rows, cols, vals, m, r,
             "ms": time_ms(torch, lambda: grads_on(prob), reps)}
 
 
+#: the fault cells of the dist phase: d15's cell and the rank it loses
+DIST_FAULT_CELL, DIST_FAULT_LOST = ("d15", "fused"), 3
+
+
+def dist_faults(torch, dist, ck, rank, world, scale):
+    """The dist phase's fault cells on integer data (see the module doc):
+    a TransientFault retried on the same group, then a DeviceLost at
+    rank DIST_FAULT_LOST; returns this rank's record (``outcome``: the
+    survivors' "recovered", the others' "retired")."""
+    from repro_torch.core import api
+    from repro_torch.distributed import faults
+    dev = torch.device("cuda", rank)
+    m, r = 1 << scale, 128
+    rows, cols, vals, X, Y = integer_problem(torch, m, 16, r, 0)
+    family, el = DIST_FAULT_CELL
+    t0 = time.perf_counter()
+    prob = api.make_problem(rows, cols, vals, (m, m), r, algorithm=family,
+                            group=dist.group.WORLD)
+    blk, R = prob.fusedmm(X, Y, elision=el)
+    base_out = blk.gather()
+    base_R = _leaves(prob.grid.gather_stacked(R.raw))
+    rec = {"family": family, "c": prob.c, "elision": el,
+           "plan_s": time.perf_counter() - t0}
+
+    # a transient fault: the same group retries, bit for bit
+    plan = faults.FaultPlan.scripted(faults.FaultSpec(op="fusedmm", rank=1,
+                                                      round=0))
+    with faults.inject(plan) as ctl:
+        ep = api.ElasticProblem(prob, session=api.Session())
+        (b2, R2), rec["transient_ms"] = timed_call(
+            torch, lambda: ep.fusedmm(X, Y, elision=el))
+    if len(ctl.fired) != 1 or len(ep.recoveries) != 1:
+        raise AssertionError(f"dist faults: transient fired {ctl.fired}")
+    ck.equal(b2.local, blk.local, "dist transient: block == fault-free")
+    for x, y in zip(_leaves(R2.raw), _leaves(R.raw)):
+        ck.equal(x, y, "dist transient: R == fault-free")
+    del b2, R2, blk, R, ep
+
+    # a lost rank: every process takes part in the degraded group
+    degrade_s = []
+
+    def timing(orig):
+        def spy(*a, **k):
+            t1 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                degrade_s.append(time.perf_counter() - t1)
+        return spy
+
+    plan = faults.FaultPlan.scripted(faults.FaultSpec(
+        op="fusedmm", rank=DIST_FAULT_LOST, round=0, kind="device_lost"))
+    ep = api.ElasticProblem(prob)
+    t0 = time.perf_counter()
+    try:
+        with faults.inject(plan), patched(api, "degrade", timing):
+            (out, R2), first_ms = timed_call(
+                torch, lambda: ep.fusedmm(X, Y, elision=el))
+    except api.RankRetired as e:
+        rec.update(outcome="retired", p_after=e.p, lost_rank=e.lost_rank,
+                   replan_host_s=degrade_s[0],
+                   leave_s=time.perf_counter() - t0)
+        return rec
+    new = ep.problem
+    got = out.gather()
+    ck.equal(got, base_out, "dist degraded: out == fault-free p = 4")
+    rec.update(outcome="recovered", p_after=new.p, family_after=new.alg.name,
+               c_after=new.c, replan_host_s=degrade_s[0],
+               first_call_ms=first_ms,
+               ms=time_ms(torch, lambda: new.fusedmm(X, Y, elision=el), 3))
+    got_R = _leaves(new.grid.gather_stacked(R2.raw))
+    del out, R2
+    if rank == 0:   # the stacked run of the degraded p on card 0
+        stacked = api.make_problem(rows, cols, vals, (m, m), r,
+                                   algorithm=new.alg.name, c=new.c,
+                                   devices=[dev] * new.p)
+        wo, wR = stacked.fusedmm(X, Y, elision=el)
+        ck.equal(got, wo, "dist degraded: out == stacked")
+        for x, y in zip(got_R, _leaves(wR.raw)):
+            ck.equal(x, y, "dist degraded: R == stacked")
+        del stacked, wo, wR
+    del got, got_R, base_out, base_R, new, ep, prob
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2417,8 +2887,17 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int):
                                for a, pr in rr["problems"].items()},
                   "rmat_ms": {a: {w: cw["ms"] for w, cw in cell.items()}
                               for a, cell in rr.get("rmat", {})
-                              .get("cells", {}).items()}}
+                              .get("cells", {}).items()},
+                  "faults": rr.get("faults")}
                   for rr in ranks]}
+    if world > 1:
+        # the survivors recovered onto the degraded group, every other
+        # rank (the lost one among them) retired
+        outs = [rr["faults"]["outcome"] for rr in ranks]
+        p_after = ranks[0]["faults"]["p_after"]
+        if outs != ["recovered"] * p_after + ["retired"] * (world - p_after) \
+                or outs[DIST_FAULT_LOST] != "retired":
+            raise AssertionError(f"dist faults: outcomes {outs}")
     emit(report)
     return ranks[0]["problems"]["d15"]["launches"]
 
@@ -2444,7 +2923,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
-    train_launches, sparse_launches = None, None
+    train_launches, sparse_launches, fault_launches = None, None, None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -2462,6 +2941,9 @@ def main(argv=None) -> int:
                                                 args.reps)
         elif ph == "stacked":
             phase_stacked(torch)
+        elif ph == "faults":
+            fault_launches = phase_faults(torch, args.scale,
+                                          args.apps_scale)
         elif ph == "dist":
             dist_launches = phase_dist(torch, args.scale, args.reps,
                                        args.comm_scale)
@@ -2483,6 +2965,8 @@ def main(argv=None) -> int:
                                     else dist_launches[row["name"]])
             row["train_launches"] = (None if train_launches is None
                                      else train_launches[row["name"]])
+            row["faults_launches"] = (None if fault_launches is None
+                                      else fault_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

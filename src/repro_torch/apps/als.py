@@ -20,10 +20,12 @@ is FusedMMA(mask, X, B) + lambda X, so every CG iteration is one FusedMM.
 the sampled loss through ``core/grads``, each step's backward the dual
 SpMM/SpMM^T pair on the same grid, with the Session replaying the
 forward's replication.  The same numpy seeds draw the same initial
-factors as the reference, so histories compare step for step.  The
-served paths (``deploy_factors``, ``predict_scores``,
-``lookup_embeddings``) and the resilient training wiring (retries,
-checkpoints, step monitor) are not ported.
+factors as the reference, so histories compare step for step.  Its
+steps are resilient as the reference's: retried after a transient fault,
+re-planned onto a degraded grid after a lost rank, timed by a step
+monitor, checkpointed and resumed.  The served paths
+(``deploy_factors``, ``predict_scores``, ``lookup_embeddings``) come
+with the serving slice.
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ import torch
 from repro_torch.core import api, grads, sparse
 from repro_torch.core import device as _device
 from repro_torch.core.sparse import RowTiledCOO
+from repro_torch.distributed import elastic, faults
 from repro_torch.kernels import ops
+from repro_torch.training import checkpoint
 
 __all__ = [
     "ALSProblem", "DistALSProblem", "als_round", "cg_solve",
@@ -264,14 +268,27 @@ def train_embedding_distributed(m=256, n=256, nnz_per_row=6, r=16,
                                 steps=20, lr=0.05, seed=0,
                                 algorithm="auto", c=None, devices=None,
                                 reg=1e-4, rows=None, cols=None, vals=None,
-                                verbose=True):
+                                monitor=None, ckpt_dir=None, ckpt_every=5,
+                                max_retries=2, verbose=True):
     """Distributed embedding training by SGD on the sampled loss: every
     step one distributed SDDMM forward plus its dual SpMM/SpMM^T
     backward on the same grid, with a Session replaying the forward's
     replication.  Pass ``rows``, ``cols`` and ``vals`` together (with
     the matrix's ``m``/``n``) to train on a given matrix (e.g. from
     :func:`repro_torch.core.mtx.load_mtx`); by default a seeded ER
-    ratings matrix is drawn.  Returns ``(X, Y, hist)``."""
+    ratings matrix is drawn.  Returns ``(X, Y, hist)``.
+
+    Every step runs under ``elastic.run_step_resilient``: a
+    ``TransientFault`` invalidates the Session's replication for this
+    grid and retries; a ``DeviceLost`` re-plans onto a degraded grid via
+    :func:`api.degrade` and binds the step's autograd Functions to the
+    new problem before retrying.  ``monitor`` (an
+    :class:`elastic.StepMonitor`) times each step.  With ``ckpt_dir``
+    the factors are checkpointed every ``ckpt_every`` steps with the
+    problem's :meth:`api.DistProblem.meta_dict`, and training resumes
+    from the latest committed step, rebuilding the packs via
+    :func:`api.problem_from_meta` (the same rank count -> the pinned
+    family and c; another -> cost-model re-dispatch)."""
     if rows is None:
         if cols is not None or vals is not None:
             raise ValueError("pass rows, cols and vals together")
@@ -295,14 +312,59 @@ def train_embedding_distributed(m=256, n=256, nnz_per_row=6, r=16,
                          .astype(np.float32)).to(dev).requires_grad_()
     targets = torch.as_tensor(np.asarray(vals, np.float32), device=dev)
     session = api.Session()
+
+    def make_grad(prob):
+        def grad_fn(X, Y):
+            X, Y = X.detach().requires_grad_(), Y.detach().requires_grad_()
+            val = sampled_loss(prob, X, Y, targets, reg, session)
+            return val.detach(), torch.autograd.grad(val, (X, Y))
+        return grad_fn
+
+    grad_fn = make_grad(maskP)
+    X, Y = X.detach(), Y.detach()
+    start = 0
+    if ckpt_dir is not None:
+        last = checkpoint.latest_step(ckpt_dir)
+        if last is not None:
+            meta = checkpoint.load_manifest(ckpt_dir, last).get("meta")
+            if meta is not None:
+                maskP = api.problem_from_meta(
+                    meta, rows, cols, np.ones(len(vals), np.float32),
+                    devices=devices)
+                grad_fn = make_grad(maskP)
+            tree = checkpoint.restore(ckpt_dir, last, {"X": X, "Y": Y})
+            X, Y = tree["X"], tree["Y"]
+            start = last
+            if verbose:
+                print(f"embed: resumed step {last} on "
+                      f"{maskP.alg.name} p={maskP.p}")
+
+    def on_failure(attempt, e):
+        nonlocal maskP, grad_fn
+        e = faults.unwrap(e)
+        session.invalidate(maskP)
+        if isinstance(e, faults.DeviceLost):
+            maskP = api.degrade(maskP, e.rank)
+            grad_fn = make_grad(maskP)
+            if verbose:
+                print(f"embed: lost rank {e.rank} -> re-planned onto "
+                      f"{maskP.alg.name} p={maskP.p}")
+
     hist = []
-    for it in range(steps):
-        val = sampled_loss(maskP, X, Y, targets, reg, session)
-        gx, gy = torch.autograd.grad(val, (X, Y))
-        with torch.no_grad():
-            X = (X - lr * gx).requires_grad_()
-            Y = (Y - lr * gy).requires_grad_()
-        hist.append(float(val.detach()))
+    for it in range(start, steps):
+        def step(X, Y):
+            if monitor is not None:
+                return monitor.timed(it, grad_fn, X, Y)
+            return grad_fn(X, Y)
+
+        val, (gx, gy) = elastic.run_step_resilient(
+            step, None, None, X, Y, max_retries=max_retries,
+            on_failure=on_failure)
+        X, Y = X - lr * gx, Y - lr * gy
+        hist.append(float(val))
         if verbose:
             print(f"embed[{maskP.alg.name}] step {it}: loss {hist[-1]:.3f}")
-    return X.detach(), Y.detach(), hist
+        if ckpt_dir is not None and (it + 1) % ckpt_every == 0:
+            checkpoint.save(ckpt_dir, it + 1, {"X": X, "Y": Y},
+                            meta=maskP.meta_dict())
+    return X, Y, hist

@@ -24,9 +24,10 @@ two kernels cannot fuse (the paper's Fig. 9), in any elision cell.
 
 The row softmax runs per row in entry order
 (``sparse_attention.softmax_sorted_rows``), so the layer and its
-gradients repeat bit for bit on the card.  The served paths
-(``gat_deploy_layer`` ... ``gat_layer_served``) and the resilient
-training wiring (retries, checkpoints, step monitor) are not ported.
+gradients repeat bit for bit on the card.  Training steps are
+resilient as the reference's (retries, re-planning after a lost rank,
+step monitor, checkpoints).  The served paths (``gat_deploy_layer`` ...
+``gat_layer_served``) come with the serving slice.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import api, grads, sparse
 from repro_torch.core import device as _device
+from repro_torch.distributed import elastic, faults
+from repro_torch.training import checkpoint
 from repro_torch.core.sparse import RowTiledCOO
 from repro_torch.core.sparse_attention import (row_softmax,
                                                softmax_sorted_rows)
@@ -241,13 +244,25 @@ def train_gat_distributed(graphP: api.DistProblem, H, target, *,
                           d_out: int | None = None, steps: int = 20,
                           lr: float = 0.05, n_heads: int = 1, seed: int = 0,
                           session: api.Session | None = None,
+                          monitor=None, ckpt_dir: str | None = None,
+                          ckpt_every: int = 5, max_retries: int = 2,
                           verbose: bool = True):
     """Gradient-based training of one distributed GAT layer: SGD on
     (W, a1, a2) for the MSE between the layer output and ``target``,
     every kernel of every step a distributed primitive on ``graphP``'s
     grid.  The initial parameters are :func:`init_gat_layer` of a
     generator seeded with ``seed`` on the grid's device.  Returns
-    ((W, a1, a2), loss history)."""
+    ((W, a1, a2), loss history).
+
+    Robustness as ``als.train_embedding_distributed``'s: steps run under
+    ``elastic.run_step_resilient`` -- a ``TransientFault`` invalidates
+    the Session's replication for this grid and retries, a
+    ``DeviceLost`` re-plans ``graphP`` onto a degraded grid and binds
+    the step to it; ``monitor`` times steps; ``ckpt_dir`` checkpoints
+    (W, a1, a2) with the problem's :meth:`api.DistProblem.meta_dict`
+    every ``ckpt_every`` steps and resumes from the latest committed
+    step, rebuilding the packs via :func:`api.problem_from_meta` on
+    ``graphP``'s own devices."""
     dev = graphP.grid.device
     H = torch.as_tensor(H, dtype=torch.float32, device=dev)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
@@ -255,17 +270,66 @@ def train_gat_distributed(graphP: api.DistProblem, H, target, *,
     d_out = d_out if d_out is not None else target.shape[1]
     p0 = init_gat_layer(torch.Generator(device=dev).manual_seed(seed),
                         H.shape[1], d_out, device=dev)
-    params = [t.requires_grad_() for t in (p0.W, p0.a1, p0.a2)]
+    params = (p0.W, p0.a1, p0.a2)
+
+    def make_grad(prob):
+        def grad_fn(params):
+            params = [p.detach().requires_grad_() for p in params]
+            out = gat_layer_trainable(prob, H, *params, n_heads=n_heads,
+                                      session=session)
+            loss = torch.mean((out - target) ** 2)
+            return loss.detach(), torch.autograd.grad(loss, params)
+        return grad_fn
+
+    grad_fn = make_grad(graphP)
+    start = 0
+    if ckpt_dir is not None:
+        last = checkpoint.latest_step(ckpt_dir)
+        if last is not None:
+            meta = checkpoint.load_manifest(ckpt_dir, last).get("meta")
+            if meta is not None:
+                # resume onto the ranks of the problem the caller handed
+                # us, not onto a default device set
+                graphP = api.problem_from_meta(
+                    meta, graphP.rows, graphP.cols, graphP.vals,
+                    devices=list(graphP.grid.devices))
+                grad_fn = make_grad(graphP)
+            tree = checkpoint.restore(
+                ckpt_dir, last, {"W": params[0], "a1": params[1],
+                                 "a2": params[2]})
+            params = tuple(tree[k] for k in ("W", "a1", "a2"))
+            start = last
+            if verbose:
+                print(f"gat: resumed step {last} on "
+                      f"{graphP.alg.name} p={graphP.p}")
+
+    def on_failure(attempt, e):
+        nonlocal graphP, grad_fn
+        e = faults.unwrap(e)
+        session.invalidate(graphP)
+        if isinstance(e, faults.DeviceLost):
+            graphP = api.degrade(graphP, e.rank)
+            grad_fn = make_grad(graphP)
+            if verbose:
+                print(f"gat: lost rank {e.rank} -> re-planned onto "
+                      f"{graphP.alg.name} p={graphP.p}")
+
     hist = []
-    for it in range(steps):
-        out = gat_layer_trainable(graphP, H, *params, n_heads=n_heads,
-                                  session=session)
-        loss = torch.mean((out - target) ** 2)
-        gparams = torch.autograd.grad(loss, params)
-        with torch.no_grad():
-            params = [(p - lr * g).requires_grad_()
-                      for p, g in zip(params, gparams)]
-        hist.append(float(loss.detach()))
+    for it in range(start, steps):
+        def step(params):
+            if monitor is not None:
+                return monitor.timed(it, grad_fn, params)
+            return grad_fn(params)
+
+        loss, gparams = elastic.run_step_resilient(
+            step, None, None, params, max_retries=max_retries,
+            on_failure=on_failure)
+        params = tuple(p - lr * g for p, g in zip(params, gparams))
+        hist.append(float(loss))
         if verbose:
             print(f"gat[{graphP.alg.name}] step {it}: loss {hist[-1]:.5f}")
-    return tuple(p.detach() for p in params), hist
+        if ckpt_dir is not None and (it + 1) % ckpt_every == 0:
+            checkpoint.save(ckpt_dir, it + 1,
+                            {"W": params[0], "a1": params[1],
+                             "a2": params[2]}, meta=graphP.meta_dict())
+    return params, hist

@@ -23,8 +23,19 @@ the reference chooses.
 Dense results come back as torch tensors on the grid's device (the
 reference assembles numpy on the host); sampled results are
 :class:`SparseResult` with host (numpy) COO views.  Every executor call
-records its collectives in ``DistProblem.last_collectives``.  The fault
-guard and the tracer hooks of the reference come with their slices.
+records its collectives in ``DistProblem.last_collectives``.  Every call
+passes the fault guard first (``repro_torch.distributed.faults``); the
+tracer hooks of the reference come with their slice.
+
+**Elastic recovery** (reference ``api.py``'s last part): :class:`
+ElasticProblem` retries a call that dies with a retryable fault on the
+same grid, and after a lost rank re-plans the problem from its host COO
+onto the largest feasible degraded grid (:func:`degrade`);
+:meth:`DistProblem.meta_dict` and :func:`problem_from_meta` carry a
+problem through a checkpoint.  Under a process group every process runs
+the same recovery: the guard fires on the host, before any collective,
+at the same coordinate on every rank, and :func:`degrade` makes the
+smaller group on every process of the old one.
 
 ``make_problem(..., group=pg)`` builds this process's rank of a problem
 over a ``torch.distributed`` process group (one rank per process: NCCL
@@ -38,21 +49,27 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
+import time
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel, d15, d25, s15, s25
+from repro_torch.core import costmodel, d15, d25, s15, s25, sparse
+from repro_torch.core import device as _device
 from repro_torch.core.collectives import Backend, coll_for
 from repro_torch.core.grid import make_grid15, make_grid25
+from repro_torch.distributed import faults
+from repro_torch.obs import metrics as obs_metrics
 
 __all__ = [
     "ALGORITHMS", "Algorithm", "DistProblem", "RankBlock", "Session",
     "SparseResult", "gathered", "make_problem", "sddmm", "spmm", "spmm_t",
-    "fusedmm",
+    "fusedmm", "ElasticProblem", "RetryPolicy", "FaultRecoveryError",
+    "RankRetired", "RETRYABLE_ERRORS", "problem_from_meta", "degrade",
 ]
 
 # ---------------------------------------------------------------------------
@@ -202,6 +219,12 @@ class Algorithm:
     def min_r_multiple(self, grid) -> int:
         return 1
 
+    def schedule_events(self, prob, op: str, elision: str = "none"):
+        """This family's ordered (point, phase) fault boundaries for one
+        ``op`` round: the coordinates ``repro_torch.distributed.faults``
+        scripts failures at."""
+        return self._sched_mod.schedule_events(prob.grid, op, elision)
+
     def schedule_words(self, prob, op: str, elision: str = "none",
                        session: Optional["Session"] = None):
         """Modeled per-device wire words for each schedule event, aligned
@@ -279,8 +302,13 @@ def _dense(prob, x) -> torch.Tensor:
     """A float32 tensor on the grid's device (numpy input is copied)."""
     dev = prob.grid.device
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device=dev, dtype=torch.float32).contiguous()
-    return torch.from_numpy(np.array(x, np.float32)).to(dev)
+        t = x.detach().to(device=dev, dtype=torch.float32).contiguous()
+    else:
+        t = torch.from_numpy(np.array(x, np.float32)).to(dev)
+    if t.dim() != 2:
+        raise ValueError(f"a dense operand is (rows, r), got shape "
+                         f"{tuple(t.shape)}")
+    return t
 
 
 def _sampled(prob, orient, rv) -> SparseResult:
@@ -832,7 +860,9 @@ class DistProblem:
         """(sorted coordinate keys, argsort order), cached."""
         if self._coo_sort is None:
             key = self.rows.astype(np.int64) * self.n + self.cols
-            order = np.argsort(key, kind="stable")
+            order = sparse.stable_order(key)
+            if order is None:
+                order = np.arange(len(key))
             self._coo_sort = (key[order], order)
         return self._coo_sort
 
@@ -883,6 +913,58 @@ class DistProblem:
             self._transposed = tp
         return self._transposed
 
+    # -- elastic recovery ----------------------------------------------------
+    def replan(self, *, devices=None, group=None, algorithm: str = "auto",
+               c: int | None = None) -> "DistProblem":
+        """Re-plan this problem from its host COO onto a (possibly
+        different) set of ranks: ``devices`` (stacked), or ``group`` (a
+        process group; ``devices`` then names each rank's device).
+        ``algorithm="auto"`` re-runs the Table-III dispatch at the new p
+        (family, elision candidates and c may all change); a family name
+        pins it.  With neither, it re-plans on this problem's own ranks.
+        Packs are rebuilt lazily on first use, as for a fresh problem."""
+        if devices is None and group is None:
+            devices, group = list(self.grid.devices), self.grid.group
+        return make_problem(self.rows, self.cols, self.vals,
+                            (self.m, self.n), self.r, algorithm=algorithm,
+                            c=c, devices=devices, group=group,
+                            row_tile=self.row_tile, nz_block=self.nz_block,
+                            comm=self.comm, compress=self.compress)
+
+    def coo_digest(self) -> str:
+        """Content digest of the host COO (structure + values): the
+        reference's bytes (int64 rows and cols, float32 values, int64
+        [m, n, r]) under blake2b-128, so one COO has one digest in both
+        packages and a checkpoint's metadata crosses between them."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.ascontiguousarray(self.rows.astype(np.int64)))
+        h.update(np.ascontiguousarray(self.cols.astype(np.int64)))
+        h.update(np.ascontiguousarray(self.vals.astype(np.float32)))
+        h.update(np.int64([self.m, self.n, self.r]).tobytes())
+        return h.hexdigest()
+
+    def meta_dict(self) -> dict:
+        """JSON-able metadata for distributed checkpoints, key for key
+        the reference's: enough to rebuild an equivalent problem (same p
+        -> the same family, c and packs; another p -> cost-model
+        re-dispatch) via :func:`problem_from_meta`."""
+        return dict(family=self.alg.name, p=self.p, c=self.c, m=self.m,
+                    n=self.n, r=self.r, nnz=self.nnz,
+                    row_tile=self.row_tile, nz_block=self.nz_block,
+                    comm=self.comm, compress=self.compress,
+                    coo_digest=self.coo_digest())
+
+    def release(self) -> None:
+        """Drop this problem's device state: plans, position-coded
+        packs, value indices, device values and derived problems (each
+        rebuilt lazily if the problem is used again).  :func:`degrade`
+        calls it on the problem it replaces, so the degraded plan's
+        memory peak is not the sum of two problems'."""
+        self._plans, self._derived_r, self._posmaps = {}, {}, {}
+        self._value_idx = {}
+        self._transposed = self._ones = self._vals_dev = None
+        self.last_collectives = None
+
     # -- elision resolution --------------------------------------------------
     def resolve_elision(self, elision: str = "auto",
                         session: Optional["Session"] = None) -> str:
@@ -908,17 +990,20 @@ class DistProblem:
     def sddmm(self, X, Y, session: Optional["Session"] = None, *,
               backend: str | None = None) -> SparseResult:
         """R = S * (X @ Y.T) sampled at nnz(S); X (m, r), Y (n, r)."""
+        faults.guard("sddmm", self)
         return self.alg.sddmm(self, X, Y, session=session, backend=backend)
 
     def spmm(self, Y, vals=None, session: Optional["Session"] = None, *,
              backend: str | None = None) -> torch.Tensor:
         """out = S(vals) @ Y, (m, r) on the grid's device; Y is (n, r)."""
+        faults.guard("spmm", self)
         return self.alg.spmm(self, Y, vals=vals, session=session,
                              backend=backend)
 
     def spmm_t(self, A, vals=None, session: Optional["Session"] = None, *,
                backend: str | None = None) -> torch.Tensor:
         """out = S(vals)^T @ A, (n, r) on the grid's device; A is (m, r)."""
+        faults.guard("spmm_t", self)
         return self.alg.spmm_t(self, A, vals=vals, session=session,
                                backend=backend)
 
@@ -931,6 +1016,7 @@ class DistProblem:
         ("cuda" or "ref") picks the local kernels; None is the default
         of :mod:`repro_torch.kernels.ops`."""
         el = self.resolve_elision(elision, session)
+        faults.guard("fusedmm", self, elision=el)
         return self.alg.fusedmm(self, X, Y, el, session, backend=backend)
 
     def schedule_words(self, op: str, elision: str = "auto",
@@ -1027,6 +1113,22 @@ class Session:
             self._id_memo.popitem(last=False)
         return rep
 
+    def invalidate(self, problem: "DistProblem") -> int:
+        """Drop every cached replication bound to ``problem``'s grid.
+
+        The recovery path after an executor fault: a failed collective
+        leaves no trustworthy device state, and after a re-plan the old
+        grid's entries could never be consumed again anyway (keys lead
+        with the grid's identity).  Returns the number of evicted
+        entries."""
+        gid = id(problem.grid)
+        doomed = [k for k in self._cache if k[0] == gid]
+        for k in doomed:
+            del self._cache[k]
+        for k in [k for k in self._id_memo if k[0] == gid]:
+            del self._id_memo[k]
+        return len(doomed)
+
     def stats(self) -> dict:
         return dict(hits=self.hits, misses=self.misses,
                     entries=len(self._cache), capacity=self._max_entries)
@@ -1082,15 +1184,22 @@ def make_problem(rows, cols, vals, shape: Tuple[int, int], r: int, *,
         p = dist.get_world_size(group)
     else:
         p = len(grid_devices) if grid_devices is not None else 1
-    families = costmodel.FAMILIES if algorithm == "auto" else (algorithm,)
-    choice = costmodel.choose_algorithm(m=m, n=n, nnz=len(vals), r=r, p=p,
-                                        c=c, families=families)
-    alg = ALGORITHMS[choice.family]
-    grid = alg.make_grid(choice.c, grid_devices, group)
+    alg, c = _dispatch(m, n, len(vals), r, p, algorithm, c)
+    grid = alg.make_grid(c, grid_devices, group)
     return DistProblem(alg, grid, np.asarray(rows), np.asarray(cols),
                        np.asarray(vals, np.float32), m, n, r,
                        row_tile=row_tile, nz_block=nz_block, comm=comm,
                        compress=compress)
+
+
+def _dispatch(m: int, n: int, nnz: int, r: int, p: int, algorithm: str,
+              c: int | None):
+    """(registry entry, c) of a problem at p ranks: the cost model's
+    choice among ``algorithm``'s families (all four for "auto")."""
+    families = costmodel.FAMILIES if algorithm == "auto" else (algorithm,)
+    choice = costmodel.choose_algorithm(m=m, n=n, nnz=nnz, r=r, p=p, c=c,
+                                        families=families)
+    return ALGORITHMS[choice.family], choice.c
 
 
 def sddmm(problem: DistProblem, X, Y, session: Optional[Session] = None,
@@ -1123,3 +1232,295 @@ def fusedmm(problem: DistProblem, X, Y, elision: str = "auto",
     (steady-state words with a ``session``)."""
     return problem.fusedmm(X, Y, elision=elision, session=session,
                            backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Elastic recovery: typed retry, backoff, degrade-and-re-plan
+# ---------------------------------------------------------------------------
+
+def _runtime_error_types():
+    # what torch raises when a collective or a peer fails; import-guarded
+    # so the api layer does not depend on the distributed package's layout
+    out = []
+    try:
+        import torch.distributed as dist
+    except ImportError:
+        return ()
+    for name in ("DistBackendError", "DistNetworkError"):
+        err = getattr(dist, name, None)
+        if isinstance(err, type) and err not in out:
+            out.append(err)
+    return tuple(out)
+
+
+#: Errors worth retrying: scripted faults from the injection harness and
+#: the failures of a collective or a peer.  A bare RuntimeError is not in
+#: this set: a kernel that fails to build or launch, or a sticky CUDA
+#: error, propagates on the first attempt, as do caller bugs (TypeError,
+#: ValueError, ...).
+RETRYABLE_ERRORS: Tuple[type, ...] = (
+    (faults.TransientFault,) + _runtime_error_types())
+
+
+class FaultRecoveryError(RuntimeError):
+    """Recovery budget exhausted: carries the per-attempt fault history
+    so post-mortems see every coordinate that fired."""
+
+    def __init__(self, msg: str, history: Optional[list] = None):
+        super().__init__(msg)
+        self.history = history or []
+
+
+class RankRetired(RuntimeError):
+    """This process holds no rank of the degraded grid: it is the lost
+    rank, or a survivor beyond the largest feasible p.  Raised by
+    :func:`degrade` under a process group after the new group exists
+    (every process of the old group takes part in making it), so this
+    process leaves the recovery loop without waiting in a collective or
+    computing.  ``rank`` is this process's rank in the old grid, ``p``
+    the degraded grid's size, ``lost_rank`` the rank that was dropped."""
+
+    def __init__(self, msg: str, rank: int, p: int, lost_rank: int):
+        super().__init__(msg)
+        self.rank, self.p, self.lost_rank = int(rank), int(p), lost_rank
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    """Typed retry/backoff policy for the elastic executors.
+
+    Exponential backoff with *deterministic, seedable* jitter: the delay
+    sequence is a pure function of ``seed``, so a recovery trace replays
+    exactly (tests inject ``sleep`` to run instantly).  The first retry
+    fires after about ``base_delay``; each later delay multiplies by
+    ``factor``, capped at ``max_delay``; jitter stretches each delay by
+    up to ``jitter`` of itself."""
+    max_retries: int = 3
+    base_delay: float = 0.0          # seconds; 0 disables sleeping
+    factor: float = 2.0
+    max_delay: float = 2.0
+    jitter: float = 0.25
+    seed: int = 0
+    sleep: Callable[[float], None] = time.sleep
+
+    def delays(self):
+        """The policy's full backoff schedule (len == max_retries)."""
+        rng = np.random.default_rng(self.seed)
+        d = self.base_delay
+        for _ in range(self.max_retries):
+            yield min(d, self.max_delay) * (1.0 + self.jitter
+                                            * float(rng.uniform()))
+            d = d * self.factor if d else 0.0
+
+
+def problem_from_meta(meta: dict, rows, cols, vals, *, devices=None,
+                      group=None) -> DistProblem:
+    """Rebuild a checkpointed problem from its :meth:`DistProblem.meta_dict`.
+
+    The host COO is supplied by the caller (checkpoints store metadata,
+    not the matrix) and verified against the saved content digest: a
+    mismatched matrix raises ``ValueError``.  At the checkpoint's rank
+    count the saved (family, c) is pinned, so the rebuilt packs are the
+    same; at another (degraded) count the cost model re-dispatches
+    ``algorithm="auto"``.  ``devices`` / ``group`` as for
+    :func:`make_problem` (default: one card)."""
+    if group is not None:
+        import torch.distributed as dist
+        p = dist.get_world_size(group)
+    else:
+        devices = list(devices) if devices is not None \
+            else [_device.resolve(None)]
+        p = len(devices)
+    same = p == meta["p"]
+    prob = make_problem(rows, cols, vals, (meta["m"], meta["n"]), meta["r"],
+                        algorithm=meta["family"] if same else "auto",
+                        c=meta["c"] if same else None, devices=devices,
+                        group=group, row_tile=meta["row_tile"],
+                        nz_block=meta["nz_block"],
+                        comm=meta.get("comm", "dense"),
+                        compress=meta.get("compress"))
+    digest = prob.coo_digest()
+    if digest != meta["coo_digest"]:
+        raise ValueError(
+            f"checkpointed problem metadata does not match the supplied "
+            f"COO (digest {digest} != saved {meta['coo_digest']}) -- "
+            f"wrong matrix for this checkpoint")
+    return prob
+
+
+def _largest_feasible(problem: DistProblem, n: int, algorithm: str):
+    """(p, grid shape) of the largest rank count up to ``n`` at which
+    ``problem`` can be planned: the cost model's dispatch and the grid's
+    shape checks, on stacked devices, so nothing here makes a process
+    group.  Raises ValueError with the constraint trail if none can."""
+    errors = []
+    for p in range(n, 0, -1):
+        try:
+            alg, c = _dispatch(problem.m, problem.n, problem.nnz, problem.r,
+                               p, algorithm, None)
+            return p, alg.make_grid(c, [problem.grid.device] * p).shape
+        except ValueError as e:
+            errors.append(f"p={p}: {e}")
+    raise ValueError("no feasible degraded grid for "
+                     f"({problem.m}x{problem.n}, r={problem.r}) on {n} "
+                     "surviving ranks:\n  " + "\n  ".join(errors))
+
+
+def degrade(problem: DistProblem, lost_rank: Optional[int] = None, *,
+            devices=None, algorithm: str = "auto") -> DistProblem:
+    """Re-plan ``problem`` onto a degraded grid after a lost rank.
+
+    Drops ``lost_rank`` (flat schedule-order rank of the grid), or takes
+    an explicit surviving ``devices`` list (stacked grids), then picks
+    the **largest rank count the cost model can dispatch**: the
+    planners' divisibility constraints rarely admit p - 1, so the grid
+    shrinks to the nearest feasible size.  Raises ``ValueError`` with
+    the constraint trail if no count up to the survivors' works, or for
+    a ``lost_rank`` outside the grid.  The old problem's device state is
+    released first (:meth:`DistProblem.release`).
+
+    Under a process group every process of the old group calls this
+    with the same ``lost_rank`` (the fault harness raises the same fault
+    on every rank).  The search makes no group; then every process calls
+    ``torch.distributed.new_group`` once with the surviving global ranks
+    (the group must span the job, as ``new_group`` requires), and the
+    processes outside the new group enter the ``new_group`` calls of its
+    fiber subgroups too.  The first p survivors get the re-planned
+    problem; the lost rank and the survivors beyond p raise
+    :class:`RankRetired`.  A process that has really died cannot take
+    part: a fresh rendezvous is not covered."""
+    grid = problem.grid
+    if lost_rank is not None and not 0 <= lost_rank < grid.p:
+        raise ValueError(f"lost_rank {lost_rank} outside the grid's "
+                         f"{grid.p} ranks")
+    if grid.group is None:
+        devs = list(grid.devices) if devices is None else list(devices)
+        if devices is None and lost_rank is not None:
+            del devs[lost_rank]
+        p_new, _ = _largest_feasible(problem, len(devs), algorithm)
+        problem.release()
+        return problem.replan(devices=devs[:p_new], algorithm=algorithm)
+    if devices is not None:
+        raise ValueError("under a process group degrade drops lost_rank; "
+                         "it takes no devices")
+    import torch.distributed as dist
+    from repro_torch.core import grid as _grid
+    keep = [i for i in range(grid.p) if i != lost_rank]
+    p_new, shape = _largest_feasible(problem, len(keep), algorithm)
+    ranks = keep[:p_new]
+    members = [grid.global_ranks[i] for i in ranks]
+    problem.release()
+    new = dist.new_group(ranks=members)
+    if grid.rank not in ranks:
+        _grid.shadow_fiber_groups(shape, members)
+        raise RankRetired(f"rank {grid.rank} holds no rank of the degraded "
+                          f"grid of {p_new} (lost rank {lost_rank})",
+                          grid.rank, p_new, lost_rank)
+    return problem.replan(devices=[grid.devices[i] for i in ranks],
+                          group=new, algorithm=algorithm)
+
+
+class ElasticProblem:
+    """Fault-tolerant facade over a :class:`DistProblem`.
+
+    Mirrors the executor entry points; every call runs under the typed
+    retry loop:
+
+    * :class:`repro_torch.distributed.faults.TransientFault`, or a failed
+      collective -> invalidate the Session entries bound to the
+      problem's grid (a failed collective leaves no trustworthy
+      replication state), back off per :class:`RetryPolicy`, retry the
+      round on the same grid;
+    * :class:`repro_torch.distributed.faults.DeviceLost` -> additionally
+      re-plan the problem from its host COO onto the largest feasible
+      degraded grid (:func:`degrade`, cost-model re-dispatched), then
+      retry there; under a process group the processes without a rank
+      there leave with :class:`RankRetired`;
+    * anything else (caller bugs, kernel failures) propagates at once.
+
+    A recovered call is bitwise identical to a fault-free one on the same
+    grid, and value-identical after a re-plan wherever the accumulations
+    are exact.  ``recoveries`` records every handled fault;
+    :class:`FaultRecoveryError` (with that history) is raised when
+    ``policy.max_retries`` is exhausted.  ``spmm_batched`` comes with the
+    serving slice.
+    """
+
+    def __init__(self, problem: DistProblem,
+                 session: Optional[Session] = None,
+                 policy: Optional[RetryPolicy] = None):
+        self.problem = problem
+        self.session = session
+        self.policy = policy or RetryPolicy()
+        self.recoveries: List[dict] = []
+
+    def _run(self, label: str, fn):
+        attempt = 0
+        delays = self.policy.delays()
+        while True:
+            try:
+                return fn(self.problem)
+            except RETRYABLE_ERRORS as e:
+                e = faults.unwrap(e)
+                attempt += 1
+                rec = dict(op=label, attempt=attempt, error=repr(e),
+                           family=self.problem.alg.name,
+                           p=self.problem.p,
+                           coord=getattr(e, "coord", None))
+                self.recoveries.append(rec)
+                reg = obs_metrics.active()
+                if reg is not None:
+                    reg.inc("elastic.faults", 1, op=label,
+                            kind=type(e).__name__)
+                    reg.inc("elastic.retries", 1, op=label)
+                if self.session is not None:
+                    rec["evicted"] = self.session.invalidate(self.problem)
+                if attempt > self.policy.max_retries:
+                    if reg is not None:
+                        reg.inc("elastic.exhausted", 1, op=label)
+                    raise FaultRecoveryError(
+                        f"{label} failed after {attempt} attempts "
+                        f"(budget {self.policy.max_retries}): {e}",
+                        history=list(self.recoveries)) from e
+                if isinstance(e, faults.DeviceLost):
+                    self.problem = degrade(self.problem, e.rank)
+                    rec["remeshed_to_p"] = self.problem.p
+                    rec["family_after"] = self.problem.alg.name
+                    if reg is not None:
+                        reg.inc("elastic.degrades", 1, op=label)
+                        reg.gauge("elastic.p", self.problem.p)
+            # outside the handler: a generator resumed inside one keeps
+            # the exception, and with it the failed call's frames
+            delay = next(delays, self.policy.max_delay)
+            if delay:
+                self.policy.sleep(delay)
+
+    # -- the shared-signature executors, resiliently -------------------------
+    def sddmm(self, X, Y) -> SparseResult:
+        return self._run("sddmm",
+                         lambda p: p.sddmm(X, Y, session=self.session))
+
+    def spmm(self, Y, vals=None):
+        return self._run("spmm", lambda p: p.spmm(Y, vals=vals,
+                                                  session=self.session))
+
+    def spmm_t(self, A, vals=None):
+        return self._run("spmm_t",
+                         lambda p: p.spmm_t(A, vals=vals,
+                                            session=self.session))
+
+    def fusedmm(self, X, Y, elision: str = "auto"):
+        return self._run("fusedmm",
+                         lambda p: p.fusedmm(X, Y, elision=elision,
+                                             session=self.session))
+
+    # -- derived-problem rounds, resiliently ---------------------------------
+    def run_round(self, label: str, fn):
+        """Run one round of ``fn(problem)`` under the typed retry loop.
+
+        ``fn`` receives the CURRENT problem: after a ``DeviceLost`` the
+        facade degrades ``self.problem`` onto the surviving grid and
+        calls ``fn`` again with the re-planned problem, so ``fn`` must
+        derive any per-round state from its argument rather than close
+        over a pre-fault derivation."""
+        return self._run(label, fn)

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core import costmodel
 from repro_torch.core.collectives import Ring
 from repro_torch.core.sparse import (RowTiledCOO, clamp_row_tile,
-                                     pack_row_tiled_arrays)
+                                     pack_row_tiled_arrays, stable_order)
 from repro_torch.training import compression
 
 
@@ -45,10 +45,12 @@ def block_partition(rows, cols, vals, row_size, col_size, n_col_blocks):
     """
     bid = (rows // row_size).astype(np.int64) * n_col_blocks \
         + (cols // col_size)
-    order = np.argsort(bid, kind="stable")
-    rows, cols, vals, bid = (rows[order], cols[order], vals[order],
-                             bid[order])
-    uniq, starts = np.unique(bid, return_index=True)
+    order = stable_order(bid)
+    if order is not None:
+        rows, cols, vals, bid = (rows[order], cols[order], vals[order],
+                                 bid[order])
+    starts = np.flatnonzero(np.diff(bid, prepend=-1))   # bid is sorted
+    uniq = bid[starts]
     ends = np.append(starts[1:], len(bid))
     out = {}
     for u, s, e in zip(uniq, starts, ends):
@@ -65,7 +67,9 @@ def pack_block_list(blocks, shape, row_tile, nz_block, group: int = 1):
     The common block count is the max over *this list only* (one phase).
     Returns stacked numpy arrays (N, nb, k), (N, nb, k), (N, nb, k), (N, nb);
     the values are float32, or integer if any block's are (position
-    codes; an empty block packs float zeros, which are padding).
+    codes; an empty block packs float zeros, which are padding); and
+    (N,) int64, each pack's real block count: the blocks after it are
+    padding, which the kernels skip (:func:`coo_of`).
     """
     packs = [pack_row_tiled_arrays(r, c, v, shape, row_tile=row_tile,
                                    nz_block=nz_block, group=group)
@@ -85,7 +89,10 @@ def pack_block_list(blocks, shape, row_tile, nz_block, group: int = 1):
         vl[i, :nb] = pvl
         tb[i, :nb] = ptb
         tb[i, nb:] = ptb[nb - 1] if nb else 0   # keep bases monotone
-    return rl, cl, vl, tb
+    # an empty list still packs one padding block
+    nreal = np.array([p[0].shape[0] if len(b[0]) else 0
+                      for p, b in zip(packs, blocks)], np.int64)
+    return rl, cl, vl, tb, nreal
 
 
 def plan_tiling(tile_base: np.ndarray, *, n_b: int, r: int, k: int,
@@ -116,13 +123,35 @@ def merge_tilings(tilings) -> costmodel.Tiling:
 
 
 def coo_of(rows_local, cols, vals, tile_base, shape, row_tile,
-           tiling: costmodel.Tiling | None = None) -> RowTiledCOO:
+           tiling: costmodel.Tiling | None = None,
+           real_blocks: int | None = None) -> RowTiledCOO:
     """Assemble a RowTiledCOO from raw per-rank tensors; ``tiling`` is
     the plan's, whose ``blocks_per_step`` the planner proved for every
-    pack of the plan (so the kernel wrappers need not check it again)."""
+    pack of the plan (so the kernel wrappers need not check it again);
+    ``real_blocks`` the pack's real block count (its entry of the plan's
+    ``nreal``), past which the kernels walk no padding."""
     return RowTiledCOO(rows_local, cols, vals, tile_base, shape, row_tile,
                        window_groups=1 if tiling is None
-                       else tiling.blocks_per_step)
+                       else tiling.blocks_per_step,
+                       real_blocks=None if real_blocks is None
+                       else int(real_blocks))
+
+
+def count_table(a: np.ndarray) -> tuple:
+    """A plan's table of real block counts (rank axes in front) as
+    nested tuples: immutable, and compared by value like the plan's
+    other host fields."""
+    return tuple(count_table(x) for x in a) if a.ndim else int(a)
+
+
+def real_blocks(nreal, index) -> int | None:
+    """One pack's real block count from a plan's ``nreal`` table (None
+    for a plan made without one)."""
+    if nreal is None:
+        return None
+    for i in index:
+        nreal = nreal[i]
+    return int(nreal)
 
 
 def choose_row_tile(height: int, want: int = 256) -> int:

@@ -79,6 +79,8 @@ class PlanD15:
     # (per fiber offset / per phase); empty for dense plans
     sup: tuple = ()
     smeta: Optional[common.SparseMeta] = None
+    #: (phase, L, c) nested tuples: each phase pack's real block count
+    nreal: Optional[tuple] = None
 
     @property
     def block_shape(self) -> Tuple[int, int]:
@@ -130,7 +132,7 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
 
     part = common.block_partition(np.asarray(rows), np.asarray(cols),
                                   np.asarray(vals), cmA, nB, p)
-    rls, cls, vls, tbs, tilings = [], [], [], [], []
+    rls, cls, vls, tbs, tilings, nreal = [], [], [], [], [], []
     row_off = np.zeros((L, L, c), np.int64)   # (phase, layer, fiber)
     col_off = np.zeros((L, L, c), np.int64)
     n_dense = cmA if transpose else nB        # rows of the gathered/shifted
@@ -146,8 +148,9 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
                 else:
                     row_off[t, u, v], col_off[t, u, v] = u * cmA, j * nB
                 blocks.append((br, bc, bv))
-        rl, cl, vl, tb = common.pack_block_list(blocks, blk_shape, row_tile,
-                                                nz_block, group=group)
+        rl, cl, vl, tb, nr = common.pack_block_list(
+            blocks, blk_shape, row_tile, nz_block, group=group)
+        nreal.append(nr.reshape(grid.shape))
         tilings.append(common.plan_tiling(tb, n_b=n_dense, r=r,
                                           k=nz_block, row_tile=row_tile))
         rls.append(common.put_ranks(rl, grid))
@@ -161,7 +164,8 @@ def plan_d15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
         grid, rows, cols, mA, nB, compress)
     return PlanD15(tuple(rls), tuple(cls), tuple(vls), tuple(tbs),
                    m, n, r, row_tile, transpose,
-                   common.merge_tilings(tilings), meta, sup, smeta)
+                   common.merge_tilings(tilings), meta, sup, smeta,
+                   common.count_table(np.stack(nreal)))
 
 
 def _supports(grid: Grid15, rows, cols, cmA: int, nB: int):
@@ -250,13 +254,14 @@ def _sparse_sup(grid: Grid15, rows, cols, mA: int, nB: int, compress):
                                   compress=compress)
 
 
-def _coo(plan: PlanD15, t: int, i, vals=None):
-    """The phase-t pack at storage index ``i``, optionally with new
-    values."""
+def _coo(grid, plan: PlanD15, t: int, u: int, v: int, vals=None):
+    """Rank (u, v)'s phase-t pack, optionally with new values."""
+    i = grid.at(u, v)
     return common.coo_of(plan.rows_local[t][i], plan.cols[t][i],
                          plan.vals[t][i] if vals is None else vals[i],
                          plan.tile_base[t][i], plan.block_shape,
-                         plan.row_tile, plan.tiling)
+                         plan.row_tile, plan.tiling,
+                         common.real_blocks(plan.nreal, (t, u, v)))
 
 
 def _shift_sparse(plan: PlanD15) -> bool:
@@ -280,14 +285,14 @@ def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
     def one(u, v):
         i = grid.at(u, v)
         args = (B_t[i], T[i]) if swap else (T[i], B_t[i])
-        return ops.sddmm(*args, _coo(plan, t, i), **tk).vals
+        return ops.sddmm(*args, _coo(grid, plan, t, u, v), **tk).vals
     return on_ranks(grid, one)
 
 
 def _spmm_phase(grid, plan, t, vals, D, m, tk):
     def one(u, v):
         i = grid.at(u, v)
-        return ops.spmm(_coo(plan, t, i, vals), D[i], m=m, **tk)
+        return ops.spmm(_coo(grid, plan, t, u, v, vals), D[i], m=m, **tk)
     return on_ranks(grid, one)
 
 
@@ -527,7 +532,7 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         T2, r_vals = None, []
         for t in range(L):
             contrib, R_t = on_ranks(grid, lambda u, v: _fused_local(
-                plan, t, grid.at(u, v), T, ring.cur, tk))
+                grid, plan, t, u, v, T, ring.cur, tk))
             T2 = acc(T2, contrib)
             r_vals.append(R_t)
             ring.advance()
@@ -536,6 +541,8 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
     raise ValueError(f"unknown elision {elision!r}")
 
 
-def _fused_local(plan, t, i, T, B_t, tk):
-    out, R = ops.fusedmm(T[i], B_t[i], _coo(plan, t, i), m=plan.cmA, **tk)
+def _fused_local(grid, plan, t, u, v, T, B_t, tk):
+    i = grid.at(u, v)
+    out, R = ops.fusedmm(T[i], B_t[i], _coo(grid, plan, t, u, v),
+                         m=plan.cmA, **tk)
     return out, R.vals

@@ -69,6 +69,8 @@ class PlanD25:
     # (per fiber offset / per phase); empty for dense plans
     sup: tuple = ()
     smeta: Optional[common.SparseMeta] = None
+    #: (G, G, c) nested tuples: each home pack's real block count
+    nreal: Optional[tuple] = None
 
     @property
     def block_shape(self) -> Tuple[int, int]:
@@ -114,8 +116,8 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
         else:
             row_off.append(x * mS), col_off.append(j * nS)
         blocks.append((br, bc, bv))
-    rl, cl, vl, tb = common.pack_block_list(blocks, blk_shape, row_tile,
-                                            nz_block, group=group)
+    rl, cl, vl, tb, nreal = common.pack_block_list(
+        blocks, blk_shape, row_tile, nz_block, group=group)
     tiling = common.plan_tiling(tb, n_b=mS if transpose else nS, r=rW,
                                 k=nz_block, row_tile=row_tile)
     meta = MetaD25(mS, nS, mA, rW, common.BlockMeta(
@@ -127,7 +129,8 @@ def plan_d25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
     put = common.put_ranks
     return PlanD25(put(rl, grid), put(cl, grid), put(vl, grid),
                    put(tb, grid), m, n, r, row_tile, transpose, tiling,
-                   meta, sup, smeta)
+                   meta, sup, smeta,
+                   common.count_table(nreal.reshape(grid.shape)))
 
 
 def _sparse_sup(grid: Grid25, rows, cols, meta: MetaD25, compress):
@@ -274,10 +277,17 @@ def _tb_travels(plan: PlanD25) -> bool:
     return plan.row_tile < plan.block_shape[0]
 
 
-def _coo(plan, struct, vals, i):
+def _coo(grid, plan, struct, vals, rank, hop):
+    """The pack resident at ``rank`` (x, y, z) after ``hop`` shifts back
+    along col: home rank (x, (y + hop) mod G, z)'s, whose real block
+    count it carries."""
     rl, cl, tb = struct
+    x, y, z = rank
+    i = grid.at(*rank)
     return common.coo_of(rl[i], cl[i], vals[i], tb[i], plan.block_shape,
-                         plan.row_tile, plan.tiling)
+                         plan.row_tile, plan.tiling,
+                         common.real_blocks(plan.nreal,
+                                            (x, (y + hop) % grid.G, z)))
 
 
 def _pack_ring(coll, plan, pack, n_shifts, overlap, start=0):
@@ -350,7 +360,8 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
         def one(x, y, z):
             i = grid.at(x, y, z)
             dense = (Bt[i], T[i]) if plan.transpose else (T[i], Bt[i])
-            return ops.sddmm(*dense, _coo(plan, st, ones, i), **tk).vals
+            return ops.sddmm(*dense, _coo(grid, plan, st, ones, (x, y, z),
+                                          t), **tk).vals
 
         dots = on_ranks(grid, one)
         partial = coll.shift(acc(partial, dots), "col", back=True,
@@ -361,10 +372,11 @@ def _sddmm_round(grid, coll, plan, T, B0, overlap, tk, keep_struct=False,
     return partial, struct.cur, B_home, structs, bchunks
 
 
-def _spmm_phase(grid, plan, struct, vals, D, m, tk):
+def _spmm_phase(grid, plan, struct, vals, D, m, tk, hop):
     def one(x, y, z):
         i = grid.at(x, y, z)
-        return ops.spmm(_coo(plan, struct, vals, i), D[i], m=m, **tk)
+        return ops.spmm(_coo(grid, plan, struct, vals, (x, y, z), hop),
+                        D[i], m=m, **tk)
     return on_ranks(grid, one)
 
 
@@ -378,7 +390,7 @@ def _cannon_spmm(grid, coll, plan, pack, B0, overlap, tk, start=0):
     for t in range(G):
         rl, cl, vl, tb = pring.cur
         T2 = acc(T2, _spmm_phase(grid, plan, (rl, cl, tb), vl, bring.cur,
-                                 plan.meta.mS, tk))
+                                 plan.meta.mS, tk, t))
         pring.advance()
         bring.advance()
     return T2
@@ -391,12 +403,12 @@ def _traveling_spmm(grid, coll, plan, T, pack, overlap, tk, start=0):
     G = grid.G
     pring = _pack_ring(coll, plan, pack, G - 1, overlap, start)
 
-    def contrib():
+    def contrib(hop):
         rl, cl, vl, tb = pring.cur
         return _spmm_phase(grid, plan, (rl, cl, tb), vl, T, plan.meta.nS,
-                           tk)
+                           tk, hop)
 
-    out, c_t = None, contrib()
+    out, c_t = None, contrib(0)
     for t in range(G):
         # the accumulator's shift is in flight while the next phase's
         # contribution is computed (when overlapping)
@@ -406,7 +418,7 @@ def _traveling_spmm(grid, coll, plan, T, pack, overlap, tk, start=0):
         out, works = coll.issue(move) if overlap else (move(), ())
         if t + 1 < G:
             pring.advance()
-            c_t = contrib()
+            c_t = contrib(t + 1)
         coll.wait(works)
     return out
 
@@ -594,7 +606,7 @@ def fusedmm_d25(grid: Grid25, plan: PlanD25, A, B_sk, elision: str = "auto",
         T2 = None
         for t in range(G):
             T2 = acc(T2, _spmm_phase(grid, plan, structs[t], vring.cur,
-                                     bchunks[t], plan.meta.mS, tk))
+                                     bchunks[t], plan.meta.mS, tk, t))
             vring.advance()
         return coll.psum_scatter(T2, point=("reduce", G - 1)), r_vals
     rl, cl, tb = struct

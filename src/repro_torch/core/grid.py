@@ -251,14 +251,33 @@ def _group_devices(devices, group):
 _FIBER_GROUPS: dict = {}
 
 
+def _fibers(shape, global_ranks):
+    """(head coordinates, the fiber's global ranks) of each fiber of a
+    grid of ``shape`` over ``global_ranks`` (row-major), in the order
+    every process makes their subgroups."""
+    ranks = np.asarray(global_ranks).reshape(shape)
+    for head in itertools.product(*(range(s) for s in shape[:-1])):
+        yield head, [int(g) for g in ranks[head]]
+
+
+def shadow_fiber_groups(shape, global_ranks) -> None:
+    """Take part, from a process outside the grid, in making the fiber
+    subgroups of a grid of ``shape`` over ``global_ranks``: every process
+    of the job enters ``new_group`` for each of them
+    (``api.degrade`` under a process group)."""
+    import torch.distributed as dist
+    if shape[-1] > 1:
+        for _, members in _fibers(shape, global_ranks):
+            dist.new_group(members)
+
+
 def _fiber_group(grid: _Grid):
     """This process's fiber subgroup of ``grid``: made once per (group,
     shape), every process building every fiber's in one order."""
     import torch.distributed as dist
     key = (grid.group, grid.shape)
     if key not in _FIBER_GROUPS:
-        for head in itertools.product(*(range(s) for s in grid.shape[:-1])):
-            members = [grid.global_rank((*head, v)) for v in range(grid.c)]
+        for head, members in _fibers(grid.shape, grid.global_ranks):
             sub = dist.new_group(members)
             if head == grid.coords[:-1]:
                 if tuple(dist.get_process_group_ranks(sub)) != \

@@ -67,6 +67,8 @@ class PlanS15:
     # offset; empty for dense plans
     sup: tuple = ()
     smeta: Optional[common.SparseMeta] = None
+    #: (L, c) nested tuples: each home pack's real block count
+    nreal: Optional[tuple] = None
 
     @property
     def mS(self):
@@ -102,8 +104,8 @@ def plan_s15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
     part = common.block_partition(np.asarray(rows), np.asarray(cols),
                                   np.asarray(vals), mS, n, 1)
     blocks = [part.get((b, 0), common.EMPTY) for b in range(p)]
-    rl, cl, vl, tb = common.pack_block_list(blocks, (mS, n), row_tile,
-                                            nz_block, group=group)
+    rl, cl, vl, tb, nreal = common.pack_block_list(
+        blocks, (mS, n), row_tile, nz_block, group=group)
     tiling = common.plan_tiling(tb, n_b=n, r=r * c // p, k=nz_block,
                                 row_tile=row_tile)
     meta = MetaS15(mS, r * c // p, common.BlockMeta(
@@ -114,7 +116,7 @@ def plan_s15(grid: Grid15, rows, cols, vals, m: int, n: int, r: int, *,
     put = common.put_ranks
     return PlanS15(put(rl, grid), put(cl, grid), put(vl, grid),
                    put(tb, grid), m, n, r, row_tile, tiling, meta, sup,
-                   smeta)
+                   smeta, common.count_table(nreal.reshape(grid.shape)))
 
 
 def _sparse_sup(grid: Grid15, rows, cols, m: int, n: int, compress):
@@ -164,10 +166,15 @@ def _tb_travels(plan: PlanS15) -> bool:
     return plan.row_tile < plan.mS
 
 
-def _coo(plan, struct, i, vals):
+def _coo(grid, plan, struct, u, v, t, vals):
+    """The pack resident at rank (u, v) in phase t of a round: home
+    rank ((u - t) mod L, v)'s, whose real block count it carries."""
     rl, cl, tb = struct
+    i = grid.at(u, v)
     return common.coo_of(rl[i], cl[i], vals[i], tb[i], (plan.mS, plan.n),
-                         plan.row_tile, plan.tiling)
+                         plan.row_tile, plan.tiling,
+                         common.real_blocks(plan.nreal,
+                                            ((u - t) % grid.L, v)))
 
 
 def _shift_pack(coll, plan, xs, t):
@@ -212,7 +219,8 @@ def _sddmm_round(grid, coll, plan, T_A, T_B, tk, keep_struct):
         i = grid.at(u, v)
         off = (((u - t) % L) * c + v) * mS   # resident block's rows
         return ops.sddmm(T_A[i][off:off + mS], T_B[i],
-                         _coo(plan, struct, i, ones), **tk).vals
+                         _coo(grid, plan, struct, u, v, t, ones),
+                         **tk).vals
 
     for t in range(L):
         structs.append(struct)
@@ -233,7 +241,7 @@ def _spmm_round(grid, coll, plan, T_B, pack, tk, start=0):
     for t in range(L):
         rl, cl, vl, tb = pack
         slabs.append(on_ranks(grid, lambda u, v: ops.spmm(
-            _coo(plan, (rl, cl, tb), grid.at(u, v), vl),
+            _coo(grid, plan, (rl, cl, tb), u, v, t, vl),
             T_B[grid.at(u, v)], m=plan.mS, **tk)))
         if t < L - 1:
             pack = _shift_pack(coll, plan, pack, start + t)
@@ -249,7 +257,7 @@ def _spmm_round_cached(grid, coll, plan, T_B, vals, structs, tk):
     slabs = []
     for t in range(L):
         slabs.append(on_ranks(grid, lambda u, v: ops.spmm(
-            _coo(plan, structs[t], grid.at(u, v), vals),
+            _coo(grid, plan, structs[t], u, v, t, vals),
             T_B[grid.at(u, v)], m=plan.mS, **tk)))
         if t < L - 1:
             vals = coll.shift(vals, point=("shift", t))

@@ -69,6 +69,8 @@ class PlanS25:
     # phase t >= 1; empty for dense plans
     sup: tuple = ()
     smeta: Optional[common.SparseMeta] = None
+    #: (G, G) nested tuples: each (x, y) block's real block count
+    nreal: Optional[tuple] = None
 
     @property
     def mS(self):
@@ -110,8 +112,8 @@ def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
                                   np.asarray(vals), mS, nS, G)
     blocks = [part.get((x, y), common.EMPTY)
               for x in range(G) for y in range(G)]
-    rl, cl, vl, tb = common.pack_block_list(blocks, (mS, nS), row_tile,
-                                            nz_block, group=group)
+    rl, cl, vl, tb, nreal = common.pack_block_list(
+        blocks, (mS, nS), row_tile, nz_block, group=group)
     nb = rl.shape[1]
     if nb % c:                       # pad so the value shards split evenly
         pad = c - nb % c
@@ -140,7 +142,8 @@ def plan_s25(grid: Grid25, rows, cols, vals, m: int, n: int, r: int, *,
     sup, smeta = ((), None) if comm != "sparse" else _sparse_sup(
         grid, rows, cols, mS, nS, compress)
     return PlanS25(shared(rl), shared(cl), vshard, shared(tb), m, n, r,
-                   row_tile, tiling, meta, sup, smeta)
+                   row_tile, tiling, meta, sup, smeta,
+                   common.count_table(nreal.reshape(G, G)))
 
 
 def _sparse_sup(grid: Grid25, rows, cols, mS: int, nS: int, compress):
@@ -223,9 +226,11 @@ def unskew_out(grid: Grid25, plan: PlanS25, stacked) -> torch.Tensor:
     return out.transpose(1, 2).reshape(plan.m, plan.r)
 
 
-def _coo(plan, rl, cl, vl, tb, i):
+def _coo(grid, plan, rl, cl, vl, tb, x, y, z):
+    i = grid.at(x, y, z)
     return common.coo_of(rl[i], cl[i], vl[i], tb[i], (plan.mS, plan.nS),
-                         plan.row_tile, plan.tiling)
+                         plan.row_tile, plan.tiling,
+                         common.real_blocks(plan.nreal, (x, y)))
 
 
 def _chunk_ring(coll, plan, X0, side, n_shifts, start=0):
@@ -261,7 +266,7 @@ def _sddmm_round(grid, coll, plan, A0, B0, tk, keep_b=False):
         bchunks.append(B_t)
         partial = acc(partial, on_ranks(grid, lambda x, y, z: ops.sddmm(
             A_t[grid.at(x, y, z)], B_t[grid.at(x, y, z)],
-            _coo(plan, rl, cl, ones, tb, grid.at(x, y, z)), **tk).vals))
+            _coo(grid, plan, rl, cl, ones, tb, x, y, z), **tk).vals))
         aring.advance()
         bring.advance()
     b_pruned = plan.smeta is not None and plan.smeta.shift_b
@@ -280,7 +285,7 @@ def _spmm_round(grid, coll, plan, vals, B0, tk, start=0, bchunks=None):
     for t in range(G):
         B_t = bchunks[t] if bchunks is not None else bring.cur
         contrib = on_ranks(grid, lambda x, y, z: ops.spmm(
-            _coo(plan, rl, cl, vals, tb, grid.at(x, y, z)),
+            _coo(grid, plan, rl, cl, vals, tb, x, y, z),
             B_t[grid.at(x, y, z)], m=plan.mS, **tk))
         out = coll.shift(acc(out, contrib), "col", back=True,
                          point=("shift", start + t))

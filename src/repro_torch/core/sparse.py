@@ -71,6 +71,9 @@ class RowTiledCOO:
     #: every aligned run of this many blocks shares one tile_base, as
     #: proved on the host when the pack was planned (1: nothing proved)
     window_groups: int = 1
+    #: the blocks before this are the pack's own, those after it padding
+    #: to a common block count, which the kernels skip (None: all real)
+    real_blocks: int | None = None
 
     @property
     def nblocks(self) -> int:
@@ -102,6 +105,17 @@ class RowTiledCOO:
 # ---------------------------------------------------------------------------
 # Packing (numpy on the host, amortized preprocessing)
 # ---------------------------------------------------------------------------
+
+def stable_order(key: np.ndarray):
+    """``np.argsort(key, kind="stable")``, the same permutation, or None
+    for sorted keys (the identity, found in one pass); unsorted keys go
+    through torch's parallel stable sort on the host (about ten times
+    faster than numpy's at millions of keys)."""
+    key = np.ascontiguousarray(key)
+    if key.size < 2 or bool(np.all(key[1:] >= key[:-1])):
+        return None
+    return torch.sort(torch.from_numpy(key), stable=True)[1].numpy()
+
 
 def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
@@ -135,12 +149,11 @@ def pack_row_tiled_arrays(rows: np.ndarray, cols: np.ndarray,
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     vals = np.asarray(vals)
-    # stable sort by (row, col): the reference's lexsort order, but
-    # timsort runs in O(nnz) on the already-sorted output of the
-    # generators
+    # stable sort by (row, col): the reference's lexsort order
     key = rows.astype(np.int64) * shape[1] + cols
-    order = np.argsort(key, kind="stable")
-    rows, cols, vals = rows[order], cols[order], vals[order]
+    order = stable_order(key)
+    if order is not None:
+        rows, cols, vals = rows[order], cols[order], vals[order]
     nnz = rows.shape[0]
 
     win = rows.astype(np.int64) // row_tile
@@ -163,14 +176,13 @@ def pack_row_tiled_arrays(rows: np.ndarray, cols: np.ndarray,
     vl = np.zeros((target, nz_block),
                   vals.dtype if vals.dtype.kind in "iu" else np.float32)
     if nnz:
-        w_of = np.repeat(np.arange(len(uniq)), counts)
-        q = np.arange(nnz, dtype=np.int64) - starts[w_of]
-        blk = first_blk[w_of] + q // nz_block
-        slot = q % nz_block
-        base = uniq[w_of] * row_tile
-        rl[blk, slot] = rows - base
-        cl[blk, slot] = cols
-        vl[blk, slot] = vals
+        # window w's entries fill its blocks' slots in order: flat slot
+        # first_blk[w] * nz_block + (i - starts[w]) for its i-th entry
+        flat = np.arange(nnz, dtype=np.int64) + np.repeat(
+            first_blk * nz_block - starts, counts)
+        rl.reshape(-1)[flat] = rows - np.repeat(uniq * row_tile, counts)
+        cl.reshape(-1)[flat] = cols
+        vl.reshape(-1)[flat] = vals
     bases = np.repeat(uniq * row_tile, per_win)
     pad_base = bases[-1] if nb else 0
     tb = np.full(target, pad_base, np.int32)

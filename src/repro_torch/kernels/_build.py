@@ -171,12 +171,30 @@ def choose_form(kind: str, *, r: int, k: int, row_tile: int, dense_dtype,
     return "bulk" if ok else "load"
 
 
+def live_blocks(rows_local: torch.Tensor, real_blocks) -> int:
+    """How many of a pack's blocks a launch walks: the first
+    ``real_blocks`` (the pack's own, as its plan counted them; the rest
+    pad it to the block count of the heaviest rank and would otherwise
+    all fall in the last window's run), or every block for None."""
+    nb = rows_local.shape[0]
+    return nb if real_blocks is None else max(0, min(int(real_blocks), nb))
+
+
+def zero_tail(out: torch.Tensor, live: int) -> torch.Tensor:
+    """``out`` (nb, k) with the rows of the blocks no launch walked set
+    to 0, as sampled values at padding are."""
+    if live < out.shape[0]:
+        out[live:].zero_()
+    return out
+
+
 def window_offsets(tile_base: torch.Tensor, row_tile: int,
                    n_windows: int) -> torch.Tensor:
     """int64 (n_windows + 1,): window w's run of pack blocks is
-    ``off[w] .. off[w + 1]`` (``tile_base`` is non-decreasing; padding
-    blocks after the last window fall in its run).  On the pack's
-    device, once per call."""
+    ``off[w] .. off[w + 1]`` (``tile_base`` is non-decreasing; blocks
+    after the last window fall in its run, so the wrappers pass only the
+    live blocks, :func:`live_blocks`).  On the pack's device, once per
+    call."""
     starts = torch.arange(0, (n_windows + 1) * row_tile, row_tile,
                           dtype=tile_base.dtype, device=tile_base.device)
     return torch.searchsorted(tile_base, starts)

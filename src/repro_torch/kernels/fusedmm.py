@@ -41,9 +41,11 @@ def _fn():
 def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
                  cols: torch.Tensor, vals: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, *, row_tile: int, m: int,
-                 r_tile: int | None = None, blocks_per_step: int = 1):
+                 r_tile: int | None = None, blocks_per_step: int = 1,
+                 real_blocks: int | None = None):
     """Returns (out (m, r) in ``B.dtype``, R (nblocks, nz_block) in
-    ``vals.dtype``).
+    ``vals.dtype``).  Only the first ``real_blocks`` blocks are walked
+    (None: all); the others are padding, with R 0 there.
 
     The single pass runs when ``r_tile`` is r (or None) and rows of up
     to 512 values are read four at a time; ``r_tile < r`` asks for the
@@ -51,9 +53,13 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     ``fusedmm_cuda.last_form`` records the route the last launch took,
     and ``fusedmm_cuda.last_two_pass`` whether it was the two-pass one.
     """
+    live = _build.live_blocks(rows_local, real_blocks)
     if B.device.type == "cpu":
-        return fusedmm_plain(tile_base, rows_local, cols, vals, A, B,
-                             row_tile=row_tile, m=m)
+        r_vals = vals.new_zeros(vals.shape)
+        out, r_vals[:live] = fusedmm_plain(
+            tile_base[:live], rows_local[:live], cols[:live], vals[:live],
+            A, B, row_tile=row_tile, m=m)
+        return out, r_vals
     if B.device.type != "cuda":
         raise ValueError(f"fusedmm: no kernel for device {B.device}")
     nb, k, r = _build.validate("fusedmm", tile_base, rows_local, cols, vals,
@@ -62,7 +68,8 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
                                blocks_per_step=blocks_per_step)
     want_two = int(r_tile is not None and r_tile < r)
     out = torch.empty((m, r), dtype=B.dtype, device=B.device)
-    r_vals = torch.empty((nb, k), dtype=torch.float32, device=B.device)
+    r_vals = _build.zero_tail(
+        torch.empty((nb, k), dtype=torch.float32, device=B.device), live)
     used = ctypes.c_int(-1)
     # the single pass, and the two-pass route's sddmm and spmm launches
     idx = _build.addresses(rows_local, cols)
@@ -77,12 +84,12 @@ def fusedmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
     spmm_form = _build.choose_form(
         "spmm", vals_dtype=torch.float32,
         addresses=idx + _build.addresses(r_vals, B), **shape)
-    off = _build.window_offsets(tile_base, row_tile, m // row_tile)
+    off = _build.window_offsets(tile_base[:live], row_tile, m // row_tile)
     fn = _fn()
     code = fn(_build.ptr(tile_base), _build.ptr(off),
               _build.ptr(rows_local), _build.ptr(cols), _build.ptr(vals),
               _build.ptr(A), _build.ptr(B), _build.ptr(out),
-              _build.ptr(r_vals), nb, k, row_tile, m, r,
+              _build.ptr(r_vals), live, k, row_tile, m, r,
               _build.FORM_FLAG[form], want_two, ctypes.byref(used),
               _build.FORM_FLAG[sddmm_form],
               _build.FORM_FLAG[spmm_form], _build.DTYPE_FLAG[vals.dtype],

@@ -111,7 +111,7 @@ def sddmm(A, B, S: RowTiledCOO, backend: str | None = None, *,
                                   blocks_per_step)
     vals = sddmm_cuda(S.tile_base, S.rows_local, S.cols, S.vals, A, B,
                       row_tile=S.row_tile, r_tile=r_tile,
-                      blocks_per_step=bps)
+                      blocks_per_step=bps, real_blocks=S.real_blocks)
     return S.with_vals(vals)
 
 
@@ -126,7 +126,7 @@ def spmm(S: RowTiledCOO, B, m: int | None = None,
                                   blocks_per_step)
     return spmm_cuda(S.tile_base, S.rows_local, S.cols, S.vals, B,
                      row_tile=S.row_tile, m=m, r_tile=r_tile,
-                     blocks_per_step=bps)
+                     blocks_per_step=bps, real_blocks=S.real_blocks)
 
 
 def fusedmm(A, B, S: RowTiledCOO, m: int | None = None,
@@ -140,5 +140,6 @@ def fusedmm(A, B, S: RowTiledCOO, m: int | None = None,
                                   blocks_per_step)
     out, r_vals = fusedmm_cuda(S.tile_base, S.rows_local, S.cols, S.vals,
                                A, B, row_tile=S.row_tile, m=m,
-                               r_tile=r_tile, blocks_per_step=bps)
+                               r_tile=r_tile, blocks_per_step=bps,
+                               real_blocks=S.real_blocks)
     return out, S.with_vals(r_vals)

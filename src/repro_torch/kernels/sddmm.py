@@ -39,34 +39,41 @@ def _fn():
 def sddmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
                cols: torch.Tensor, vals: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, *, row_tile: int,
-               r_tile: int | None = None,
-               blocks_per_step: int = 1) -> torch.Tensor:
+               r_tile: int | None = None, blocks_per_step: int = 1,
+               real_blocks: int | None = None) -> torch.Tensor:
     """New sampled values, shape (nblocks, nz_block), in ``vals.dtype``.
 
     Dots accumulate in float32 over the whole width r in one pass;
     ``r_tile``/``blocks_per_step`` are checked and accepted for parity.
+    Only the first ``real_blocks`` blocks are walked (None: all); the
+    values of the others, padding, are 0.
     """
+    live = _build.live_blocks(rows_local, real_blocks)
     if B.device.type == "cpu":
-        return sddmm_plain(tile_base, rows_local, cols, vals, A, B,
-                           row_tile=row_tile)
+        out = vals.new_zeros(vals.shape)
+        out[:live] = sddmm_plain(tile_base[:live], rows_local[:live],
+                                 cols[:live], vals[:live], A, B,
+                                 row_tile=row_tile)
+        return out
     if B.device.type != "cuda":
         raise ValueError(f"sddmm: no kernel for device {B.device}")
     nb, k, r = _build.validate("sddmm", tile_base, rows_local, cols, vals,
                                [A, B], row_tile=row_tile, m=None,
                                r_tile=r_tile,
                                blocks_per_step=blocks_per_step)
-    out = torch.empty((nb, k), dtype=torch.float32, device=B.device)
+    out = _build.zero_tail(
+        torch.empty((nb, k), dtype=torch.float32, device=B.device), live)
     n_windows = A.shape[0] // row_tile
     form = _build.choose_form(
         "sddmm", r=r, k=k, row_tile=row_tile, dense_dtype=B.dtype,
         vals_dtype=vals.dtype,
         addresses=_build.addresses(rows_local, cols, vals, A, B),
         a_rows=A.shape[0], n_windows=n_windows)
-    off = _build.window_offsets(tile_base, row_tile, n_windows)
+    off = _build.window_offsets(tile_base[:live], row_tile, n_windows)
     fn = _fn()
     code = fn(_build.ptr(tile_base), _build.ptr(off),
               _build.ptr(rows_local), _build.ptr(cols), _build.ptr(vals),
-              _build.ptr(A), _build.ptr(B), _build.ptr(out), nb, k,
+              _build.ptr(A), _build.ptr(B), _build.ptr(out), live, k,
               row_tile, n_windows, r, _build.FORM_FLAG[form],
               _build.DTYPE_FLAG[vals.dtype], _build.DTYPE_FLAG[B.dtype],
               _build.stream(B.device))

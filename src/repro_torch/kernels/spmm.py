@@ -38,17 +38,20 @@ def _fn():
 def spmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
               cols: torch.Tensor, vals: torch.Tensor, B: torch.Tensor, *,
               row_tile: int, m: int, r_tile: int | None = None,
-              blocks_per_step: int = 1) -> torch.Tensor:
+              blocks_per_step: int = 1,
+              real_blocks: int | None = None) -> torch.Tensor:
     """out (m, r) = S @ B, float32 accumulation, in ``B.dtype``.
 
     ``tile_base`` holds row offsets (multiples of ``row_tile``, non-
     decreasing).  ``r_tile``/``blocks_per_step`` are checked and accepted
     for parity with the reference; the kernel's sum order does not depend
-    on them.
+    on them.  Only the first ``real_blocks`` blocks are walked (None:
+    all); the others are padding, which adds nothing.
     """
+    live = _build.live_blocks(rows_local, real_blocks)
     if B.device.type == "cpu":
-        return spmm_plain(tile_base, rows_local, cols, vals, B,
-                          row_tile=row_tile, m=m)
+        return spmm_plain(tile_base[:live], rows_local[:live], cols[:live],
+                          vals[:live], B, row_tile=row_tile, m=m)
     if B.device.type != "cuda":
         raise ValueError(f"spmm: no kernel for device {B.device}")
     nb, k, r = _build.validate("spmm", tile_base, rows_local, cols, vals,
@@ -59,10 +62,10 @@ def spmm_cuda(tile_base: torch.Tensor, rows_local: torch.Tensor,
         "spmm", r=r, k=k, row_tile=row_tile, dense_dtype=B.dtype,
         vals_dtype=vals.dtype,
         addresses=_build.addresses(rows_local, cols, vals, B))
-    off = _build.window_offsets(tile_base, row_tile, m // row_tile)
+    off = _build.window_offsets(tile_base[:live], row_tile, m // row_tile)
     fn = _fn()
     code = fn(_build.ptr(off), _build.ptr(rows_local), _build.ptr(cols),
-              _build.ptr(vals), _build.ptr(B), _build.ptr(out), nb, k,
+              _build.ptr(vals), _build.ptr(B), _build.ptr(out), live, k,
               row_tile, m, r, _build.FORM_FLAG[form],
               _build.DTYPE_FLAG[vals.dtype], _build.DTYPE_FLAG[B.dtype],
               _build.stream(B.device))
