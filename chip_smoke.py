@@ -97,6 +97,30 @@ Phases, each printing one JSON line:
            step-3 SDDMM == a fault-free run checkpointed at step 3 and
            resumed on the degraded grid (X, Y, losses of steps 3-5, bit
            for bit), the later checkpoint's meta on the new p;
+  serving  the serving engine (repro_torch.serving) through its entry
+           points: (A) the main configuration with integer data (every
+           sum exact), CF factors U, V (-3..3) deployed with
+           als.deploy_factors on SERVE_P = 8 stacked ranks ("auto"):
+           bench_serving.py's open-loop score traffic (a catalog of 8
+           hot patterns of 1024 pairs, bursts 10 ms apart, 1, 8 and 32
+           clients a burst, 4 bursts) through the batched engine and
+           the solo one (no coalescing, no Session), every score
+           against the exact dots and batched == solo bit for bit,
+           p50/p99, requests a second, launches and packing seconds a
+           tick, the device split of one burst's tick, and no operand
+           summed on the host; 8 lookups of widths 16-64 in one tick,
+           batched against solo, each against the exact product; a
+           DeviceLost at rank 7 in a score tick (8 -> 4 ranks) and one
+           at rank 3 in a lookup tick (-> 2), answers exact, then the
+           Session re-warmed; the same score traffic at p = 1, and the
+           p = 1 deployment's eviction freeing it with the collector
+           off; (B) GAT inference at 2^--apps-scale nodes (16
+           neighbours + self loops), d = 128, one head, on one card:
+           16 clients of 256 nodes a tick, 4 ticks, each client's rows
+           bit for bit gat_layer_distributed's and within 2e-3 of its
+           plain version, an identical re-deploy a pool hit; float
+           lookups of 64 and 46 columns, batched (padded to 128
+           columns: the bulk form) == solo (bulk and load) bit for bit;
   dist     one process per visible card, one rank each, over NCCL (the
            torch.distributed backend), at the main path's size
            (--scale).  On one card (world size 1) it runs d15's
@@ -149,8 +173,9 @@ nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero before the last
 line.  ``--scale`` shrinks the main path, the faults phase's (a)-(d),
 the dist phase and sections A and B of the train phase (2^scale rows),
-``--families-scale`` the families phase, ``--apps-scale`` section C and
-the faults phase's (e), ``--rmat-scale`` the
+``--families-scale`` the families phase, ``--apps-scale`` section C,
+the faults phase's (e) and the serving phase's cell B (``--scale`` its
+cell A), ``--rmat-scale`` the
 power-law timing and ``--comm-scale`` the comm_sparse phase and the
 dist phase's R-MAT cells for rehearsals;
 ``--phases`` picks phases.
@@ -174,7 +199,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("build", "kernels", "main", "families", "comm_sparse",
-          "rmat_padding", "stacked", "faults", "dist", "train")
+          "rmat_padding", "stacked", "faults", "serving", "dist", "train")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -490,6 +515,18 @@ def erdos_renyi_on_card(torch, m, n, per_row, seed):
     vals = torch.randn(key.numel(), generator=g, device="cuda")
     return ((key // n).int().cpu().numpy(), (key % n).int().cpu().numpy(),
             vals.cpu().numpy())
+
+
+def gat_graph_on_card(torch, m, per_row, seed):
+    """``gat.graph_coo``'s construction (the ER pattern plus self loops,
+    duplicates dropped, sorted by row) drawn on the card; host rows and
+    cols."""
+    rows, cols, _ = erdos_renyi_on_card(torch, m, m, per_row, seed)
+    loops = torch.arange(m, device="cuda")
+    key = torch.unique(torch.cat([
+        torch.from_numpy(rows.astype(np.int64)).cuda() * m
+        + torch.from_numpy(cols).cuda(), loops * m + loops]))
+    return (key // m).int().cpu().numpy(), (key % m).int().cpu().numpy()
 
 
 def phase_main(torch, scale: int, reps: int, rmat_scale: int):
@@ -1514,17 +1551,8 @@ def comm_sparse_full(torch, ck, scale, r, reps, permuted=True):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             sup_s = []
-
-            def timing(orig):
-                def spy(*a, **k):
-                    t0 = time.perf_counter()
-                    out = orig(*a, **k)
-                    sup_s.append(time.perf_counter() - t0)
-                    return out
-                return spy
-
             t0 = time.perf_counter()
-            with patched(mod, "_sparse_sup", timing):
+            with patched(mod, "_sparse_sup", seconds_of(sup_s)):
                 prob = api.make_problem(rows, cols, vals, (m, m), r,
                                         algorithm=fam, c=c, comm=comm,
                                         compress=compress,
@@ -1840,14 +1868,6 @@ def phase_faults(torch, scale: int, apps_scale: int):
     t0 = time.perf_counter()
     degrade_s = []
 
-    def timing(orig):
-        def spy(*a, **k):
-            t1 = time.perf_counter()
-            out = orig(*a, **k)
-            degrade_s.append(time.perf_counter() - t1)
-            return out
-        return spy
-
     # what the cyclic collector would still free (nothing, if recovery
     # leaves no reference cycles), then what is held at the re-plan
     uncollected = torch.cuda.memory_allocated()
@@ -1865,7 +1885,8 @@ def phase_faults(torch, scale: int, apps_scale: int):
                      q._posplan("normal").rows_local)]
     plan = faults.FaultPlan.scripted(faults.FaultSpec(
         op="sddmm", rank=FAULT_LOST, round=0, kind="device_lost"))
-    with faults.inject(plan) as ctl, patched(api, "degrade", timing):
+    with faults.inject(plan) as ctl, \
+            patched(api, "degrade", seconds_of(degrade_s)):
         ep = api.ElasticProblem(prob, session=api.Session())
         got, first_ms = timed_call(torch, lambda: calls[0][3](ep))
     gc.collect()
@@ -1940,6 +1961,20 @@ def patched(owner, name, wrap):
         yield
     finally:
         setattr(owner, name, orig)
+
+
+def seconds_of(spent):
+    """A ``patched`` wrapper recording each call's host seconds in
+    ``spent`` (a call that raises too)."""
+    def wrap(orig):
+        def spy(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                spent.append(time.perf_counter() - t0)
+        return spy
+    return wrap
 
 
 def counting_packs(torch, api, packs):
@@ -2267,19 +2302,13 @@ def train_apps(torch, ck, scale, reps):
     torch.cuda.empty_cache()
 
     # GAT: three SGD steps of one layer, 16 neighbours a row + self loops
-    # (gat.graph_coo's construction, drawn on the card)
     packs, marks = [], []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rows, cols, _ = erdos_renyi_on_card(torch, m, m, per_row, 0)
-    loops = torch.arange(m, device="cuda")
-    key = torch.unique(torch.cat([
-        torch.from_numpy(rows.astype(np.int64)).cuda() * m
-        + torch.from_numpy(cols).cuda(), loops * m + loops]))
-    gp = api.make_problem((key // m).int().cpu().numpy(),
-                          (key % m).int().cpu().numpy(),
-                          np.ones(key.numel(), np.float32), (m, m), r)
-    del rows, cols, key, loops
+    rows, cols = gat_graph_on_card(torch, m, per_row, 0)
+    gp = api.make_problem(rows, cols, np.ones(len(rows), np.float32), (m, m),
+                          r)
+    del rows, cols
     g = torch.Generator(device="cuda").manual_seed(2)
     H = torch.randn((m, r), generator=g, device="cuda")
     target = torch.randn((m, r), generator=g, device="cuda") * 0.1
@@ -2769,22 +2798,13 @@ def dist_faults(torch, dist, ck, rank, world, scale):
 
     # a lost rank: every process takes part in the degraded group
     degrade_s = []
-
-    def timing(orig):
-        def spy(*a, **k):
-            t1 = time.perf_counter()
-            try:
-                return orig(*a, **k)
-            finally:
-                degrade_s.append(time.perf_counter() - t1)
-        return spy
-
     plan = faults.FaultPlan.scripted(faults.FaultSpec(
         op="fusedmm", rank=DIST_FAULT_LOST, round=0, kind="device_lost"))
     ep = api.ElasticProblem(prob)
     t0 = time.perf_counter()
     try:
-        with faults.inject(plan), patched(api, "degrade", timing):
+        with faults.inject(plan), \
+                patched(api, "degrade", seconds_of(degrade_s)):
             (out, R2), first_ms = timed_call(
                 torch, lambda: ep.fusedmm(X, Y, elision=el))
     except api.RankRetired as e:
@@ -2902,6 +2922,463 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int):
     return ranks[0]["problems"]["d15"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# serving: repro_torch.serving on the card
+# ---------------------------------------------------------------------------
+
+#: stacked ranks of cell A's deployment, and the ranks its two faults lose
+SERVE_P, SERVE_LOST = 8, (FAULT_LOST, 3)
+#: cell A's score traffic: hot query patterns, (user, item) pairs each,
+#: open-loop burst period (simulated s), measured bursts, clients a burst
+SERVE_CATALOG, SERVE_QUERY = 8, 1024
+SERVE_PERIOD, SERVE_BURSTS = 0.01, 4
+SERVE_CONCURRENCY = (1, 8, 32)
+#: lookup widths, all in one tick (they sum to 272, which the batched
+#: round pads to its bucket, 512)
+LOOKUP_WIDTHS = (16, 32, 64, 16, 32, 64, 16, 32)
+#: cell B: clients a tick, query nodes a client, ticks
+GAT_CLIENTS, GAT_QUERY, GAT_TICKS = 16, 256, 4
+#: float lookups on cell B's graph: solo widths of both kernel forms
+#: (64 and 46 columns: 256 and 184 bytes a row) whose batch (110,
+#: padded to 128) takes the bulk form, so batched == solo shows each
+#: column's sum order holds across widths and forms
+FORM_WIDTHS = (64, 46)
+
+
+def exact_scores(torch, X, Y, rows, cols):
+    """``<X_i, Y_j>`` at the (rows, cols) pairs, summed in float64 and
+    cast: exact for integer-valued operands (every partial sum is an
+    integer far below 2^24), so it holds a served score bit for bit."""
+    r = torch.as_tensor(np.asarray(rows), device=X.device).long()
+    c = torch.as_tensor(np.asarray(cols), device=Y.device).long()
+    return (X[r].double() * Y[c].double()).sum(1).float()
+
+
+def exact_spmm(torch, rows, cols, vals, W, m):
+    """``S @ W`` summed in float64 and cast, in chunks of nonzeros (no
+    (nnz, w) gather at once): exact for integer-valued data."""
+    out = torch.zeros((m, W.shape[1]), dtype=torch.float64, device=W.device)
+    step = 1 << 22
+    for s in range(0, len(rows), step):
+        out.index_add_(0, rows[s:s + step],
+                       vals[s:s + step, None] * W[cols[s:s + step]].double())
+    return out.float()
+
+
+@contextlib.contextmanager
+def counting_host_sums(api, calls):
+    """Count the Session's fingerprints of numpy operands (a host sum of
+    every entry) inside the block."""
+    orig = api.Session.__dict__["_cheap_fp"]
+
+    def spy(arr):
+        if isinstance(arr, np.ndarray):
+            calls.append(arr.shape)
+        return orig.__func__(arr)
+
+    api.Session._cheap_fp = staticmethod(spy)
+    try:
+        yield
+    finally:
+        api.Session._cheap_fp = orig
+
+
+def score_trace(dep, conc, bursts, catalog):
+    """bench_serving.py's open-loop trace: ``bursts`` bursts
+    SERVE_PERIOD apart, ``conc`` score requests each, cycling through the
+    catalog; returns (trace, catalog index of each request)."""
+    from repro_torch.apps import als
+    trace, order = [], []
+    for b in range(bursts):
+        for j in range(conc):
+            k = (b * conc + j) % len(catalog)
+            qr, qc = catalog[k]
+
+            def submit(engine, arrival, qr=qr, qc=qc):
+                return als.predict_scores(engine, dep, qr, qc,
+                                          arrival=arrival)
+
+            trace.append((b * SERVE_PERIOD, submit))
+            order.append(k)
+    return trace, order
+
+
+def one_burst(serving, dep, eng, conc, catalog):
+    """Submit one burst of ``conc`` score requests and tick (the
+    device_breakdown unit)."""
+    trace, _ = score_trace(dep, conc, 1, catalog)
+    for arrival, submit in trace:
+        submit(eng, arrival)
+    return eng.tick()
+
+
+def served_launches(total):
+    """Add the launches since the last reset to ``total``, then reset."""
+    from repro_torch.kernels import ops
+    for k, v in ops.launch_counts().items():
+        total[k] += v
+    ops.reset_launch_counts()
+
+
+def score_traffic(torch, ck, dep, pool, catalog, want, concurrency, total):
+    """Replay the score traffic through the batched engine and the solo
+    one (no coalescing, no Session) at each concurrency: every answer
+    against the exact dots, batched == solo bit for bit; p50/p99,
+    requests a second, ticks, rounds, launches and packing seconds of
+    the measured replay, its Session hits and misses, the device split
+    of one burst's tick and that tick's wall ms, and no operand summed
+    on the host."""
+    from repro_torch import serving
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    rows = []
+    for conc in concurrency:
+        got = {}
+        for mode in ("batched", "solo"):
+            batched = mode == "batched"
+            eng = serving.ServingEngine(pool, max_batch=64,
+                                        batching=batched,
+                                        use_session=batched)
+            serving.replay_trace(eng, score_trace(dep, conc, 2, catalog)[0])
+            served_launches(total)
+            trace, order = score_trace(dep, conc, SERVE_BURSTS, catalog)
+            packs, sums = [], []
+            rounds, sess = eng.rounds, dep.session.stats()
+            with metrics.collect() as reg, \
+                    counting_packs(torch, api, packs), \
+                    counting_host_sums(api, sums):
+                res = serving.replay_trace(eng, trace)
+            launches, forms = ops.launch_counts(), ops.form_counts()
+            served_launches(total)
+            if sums:
+                raise AssertionError(f"serving {mode} c{conc}: the Session "
+                                     f"summed {len(sums)} host operands")
+            if res["served"] != len(trace) or forms["sddmm"] == {}:
+                raise AssertionError(f"serving {mode} c{conc}: served "
+                                     f"{res['served']}, forms {forms}")
+            for t, k in zip(res["tickets"], order):
+                ck.equal(t.result(), want[k], f"serving {mode} c{conc} "
+                         "score == exact")
+            got[mode] = [t.result() for t in res["tickets"]]
+            ticks = reg.value("serving.ticks")
+            sh, sm = (dep.session.stats()[k] - sess[k]
+                      for k in ("hits", "misses"))
+            walls = [one_burst(serving, dep, eng, conc, catalog)["wall"]
+                     for _ in range(3)]
+            served_launches(total)
+            rows.append(dict(
+                mode=mode, concurrency=conc, served=res["served"],
+                shed=res["shed"], p50_ms=res["p50"] * 1e3,
+                p99_ms=res["p99"] * 1e3, requests_per_s=res["throughput"],
+                ticks=ticks, rounds=eng.rounds - rounds,
+                launches_per_tick={k: v / ticks for k, v in launches.items()},
+                forms=forms, pack_s_per_tick=sum(packs) / ticks,
+                tick_ms=statistics.median(walls) * 1e3,
+                device=device_breakdown(torch, lambda: one_burst(
+                    serving, dep, eng, conc, catalog)),
+                session_hits=sh, session_misses=sm))
+            ops.reset_launch_counts()
+            log(f"serving p={dep.problem.p} {mode} c{conc}: "
+                f"p50 {rows[-1]['p50_ms']:.2f} ms, p99 "
+                f"{rows[-1]['p99_ms']:.2f} ms, "
+                f"{rows[-1]['requests_per_s']:.0f} req/s")
+        for a, b in zip(got["batched"], got["solo"]):
+            ck.equal(a, b, f"serving c{conc}: batched == solo")
+    return rows
+
+
+def lookup_tick(torch, dep, pool, Ws, batching):
+    """One tick of lookups (all of ``Ws``); (answers, tick ms,
+    launches, forms)."""
+    from repro_torch import serving
+    from repro_torch.apps import als
+    from repro_torch.kernels import ops
+    eng = serving.ServingEngine(pool, max_batch=64, batching=batching,
+                                use_session=batching)
+    ops.reset_launch_counts()
+    tickets = [als.lookup_embeddings(eng, dep, W) for W in Ws]
+    rep = eng.tick()
+    return ([t.result() for t in tickets], rep["wall"] * 1e3,
+            ops.launch_counts(), ops.form_counts())
+
+
+def serving_als(torch, ck, scale, total):
+    """Cell A: CF prediction and lookups on the main configuration with
+    integer data, deployed on SERVE_P stacked ranks ("auto"), then the
+    recoveries, then the score traffic on one rank."""
+    import gc
+    import weakref
+    from repro_torch import serving
+    from repro_torch.apps import als
+    from repro_torch.core import api
+    from repro_torch.distributed import faults
+    from repro_torch.serving import pool as pool_mod
+    dev = torch.device("cuda")
+    m, r = 1 << scale, 128
+    t0 = time.perf_counter()
+    rows, cols, vals, U, V = integer_problem(torch, m, 16, r, 0)
+    report = {"m": m, "r": r, "nnz": int(len(vals)),
+              "gen_s": time.perf_counter() - t0}
+    digest_s = []
+    pool8 = serving.SessionPool(capacity=2)
+    with patched(pool_mod, "content_key", seconds_of(digest_s)):
+        t0 = time.perf_counter()
+        dep = als.deploy_factors(pool8, rows, cols, vals, (m, m), U, V,
+                                 devices=[dev] * SERVE_P)
+        torch.cuda.synchronize()
+        report["deploy"] = {"seconds": time.perf_counter() - t0,
+                            "digest_s": digest_s[0],
+                            "family": dep.problem.alg.name,
+                            "c": dep.problem.c, "p": dep.problem.p}
+    rng = np.random.default_rng(3)
+    catalog = [(rng.integers(0, m, SERVE_QUERY),
+                rng.integers(0, m, SERVE_QUERY))
+               for _ in range(SERVE_CATALOG)]
+    want = [exact_scores(torch, U, V, qr, qc) for qr, qc in catalog]
+    report["scores"] = score_traffic(torch, ck, dep, pool8, catalog, want,
+                                     SERVE_CONCURRENCY, total)
+
+    # lookups: one tick of all widths, batched against solo
+    g = torch.Generator(device="cuda").manual_seed(5)
+    Ws = [torch.randint(-3, 4, (m, w), generator=g, device=dev).float()
+          for w in LOOKUP_WIDTHS]
+    rows_t = torch.from_numpy(rows).to(dev).long()
+    cols_t = torch.from_numpy(cols).to(dev).long()
+    vals_t = torch.from_numpy(vals).to(dev).double()
+    packs, look = [], {}
+    for mode, batching in (("batched", True), ("solo", False)):
+        with counting_packs(torch, api, packs):
+            outs, ms, launches, forms = lookup_tick(torch, dep, pool8, Ws,
+                                                    batching)
+        served_launches(total)
+        for W, out in zip(Ws, outs):
+            ck.equal(out, exact_spmm(torch, rows_t, cols_t, vals_t, W, m),
+                     f"lookup {mode} w={W.shape[1]} == exact")
+        look[mode] = outs
+        report.setdefault("lookups", {})[mode] = {
+            "tick_ms": ms, "launches": launches, "forms": forms,
+            "pack_s": list(packs)}
+        packs.clear()
+    for a, b in zip(look["batched"], look["solo"]):
+        ck.equal(a, b, "lookups: batched == solo")
+    del look, outs, Ws
+    torch.cuda.empty_cache()
+
+    # recoveries: a DeviceLost in a score tick (SERVE_P -> the largest
+    # feasible p), then one in a lookup tick on the degraded grid
+    eng = serving.ServingEngine(pool8, max_batch=64)
+    recoveries = []
+    W2 = torch.randint(-3, 4, (m, 16), generator=g, device=dev).float()
+    for (op, rank), submit in zip(
+            (("sddmm", SERVE_LOST[0]), ("spmm", SERVE_LOST[1])),
+            (lambda: [als.predict_scores(eng, dep, *catalog[k])
+                      for k in range(SERVE_CATALOG)],
+             lambda: [als.lookup_embeddings(eng, dep, W2)])):
+        plan = faults.FaultPlan.scripted(faults.FaultSpec(
+            op=op, kind="device_lost", rank=rank, round=0))
+        p_before = dep.problem.p
+        with faults.inject(plan) as ctl:
+            tickets = submit()
+            wall = eng.tick()["wall"]
+        served_launches(total)
+        rec = dep.elastic.recoveries[-1]
+        if len(ctl.fired) != 1 or dep.problem.p >= p_before \
+                or rec["remeshed_to_p"] != dep.problem.p:
+            raise AssertionError(f"serving recovery {op}: fired "
+                                 f"{ctl.fired}, {rec}")
+        for k, t in enumerate(tickets):
+            ck.equal(t.result(), want[k] if op == "sddmm" else exact_spmm(
+                torch, rows_t, cols_t, vals_t, W2, m),
+                f"serving recovery {op}: answer == exact")
+        recoveries.append({"op": op, "lost_rank": rank, "p": p_before,
+                           "p_after": dep.problem.p,
+                           "family_after": dep.problem.alg.name,
+                           "c_after": dep.problem.c, "tick_ms": wall * 1e3})
+        log(f"serving: DeviceLost({rank}) in {op}: p {p_before} -> "
+            f"{dep.problem.p}, tick {wall * 1e3:.0f} ms")
+    # two score ticks on the degraded grid: the first re-warms the
+    # Session there (misses), the second hits it
+    steady = []
+    for _ in range(2):
+        tickets = [als.predict_scores(eng, dep, *catalog[k])
+                   for k in range(SERVE_CATALOG)]
+        wall = eng.tick()["wall"]
+        served_launches(total)
+        for k, t in enumerate(tickets):
+            ck.equal(t.result(), want[k], "serving after recoveries == exact")
+        steady.append({"tick_ms": wall * 1e3,
+                       "session": dep.session.stats()})
+    if steady[1]["session"]["hits"] <= steady[0]["session"]["hits"]:
+        raise AssertionError(f"serving: no Session hit after re-warming "
+                             f"{steady}")
+    report["recoveries"] = {"events": recoveries, "steady": steady}
+    report["pool"] = pool8.stats()
+    del tickets, dep, eng, pool8, rows_t, cols_t, vals_t, W2
+    torch.cuda.empty_cache()
+
+    # the same score traffic at p = 1 ("auto"), in a pool of one
+    pool1 = serving.SessionPool(capacity=1)
+    digest_s.clear()
+    with patched(pool_mod, "content_key", seconds_of(digest_s)):
+        t0 = time.perf_counter()
+        dep1 = als.deploy_factors(pool1, rows, cols, vals, (m, m), U, V)
+        report["deploy_p1"] = {"seconds": time.perf_counter() - t0,
+                               "digest_s": digest_s[0],
+                               "family": dep1.problem.alg.name,
+                               "c": dep1.problem.c}
+    report["scores_p1"] = score_traffic(torch, ck, dep1, pool1, catalog,
+                                        want, SERVE_CONCURRENCY, total)
+    # eviction frees the deployment at once: no reference cycle holds it
+    gone = [weakref.ref(dep1.problem), weakref.ref(dep1.operand("U"))]
+    del dep1
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = integer_problem(torch, 1 << 10, 4, 8, 1)[:3]
+    gc.disable()
+    try:
+        held = torch.cuda.memory_allocated()
+        pool1.deploy(*small, (1 << 10, 1 << 10), 8)
+        freed = held - torch.cuda.memory_allocated()
+        if any(w() is not None for w in gone) or pool1.evictions != 1:
+            raise AssertionError("serving: the evicted deployment outlived "
+                                 "its eviction")
+        ck.n += 1
+    finally:
+        gc.enable()
+    report["eviction_freed_gib"] = freed / 2**30
+    return report
+
+
+def serving_gat(torch, ck, scale, total):
+    """Cell B: GAT inference on 2^scale nodes (16 neighbours + self
+    loops), d = 128, one head, on one card ("auto"): GAT_CLIENTS clients
+    of GAT_QUERY nodes a tick, each tick's rows bit for bit the port's
+    full distributed layer and within 2e-3 of its plain version (the
+    first tick packs the aggregation's plan and is left out of the
+    latencies); then float lookups batched against solo across widths
+    and forms."""
+    import torch.nn.functional as F
+    from repro_torch import serving
+    from repro_torch.apps import gat
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.serving import pool as pool_mod
+    dev = torch.device("cuda")
+    m, d = 1 << scale, 128
+    t0 = time.perf_counter()
+    rows, cols = gat_graph_on_card(torch, m, 16, 0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H = torch.randn((m, d), generator=g, device="cuda")
+    params = gat.init_gat_layer(
+        torch.Generator(device="cuda").manual_seed(0), d, d)
+    report = {"m": m, "d": d, "nnz": int(len(rows)),
+              "gen_s": time.perf_counter() - t0}
+    pool = serving.SessionPool(capacity=1)
+    digest_s = []
+    with patched(pool_mod, "content_key", seconds_of(digest_s)):
+        t0 = time.perf_counter()
+        dep = gat.gat_deploy_layer(pool, rows, cols, m, H, params)
+        torch.cuda.synchronize()
+        deploy_s = time.perf_counter() - t0
+        if gat.gat_deploy_layer(pool, rows, cols, m, H, params) is not dep:
+            raise AssertionError("serving GAT: an identical re-deploy "
+                                 "missed the pool")
+    report["deploy"] = {"seconds": deploy_s, "digest_s": digest_s,
+                        "family": dep.problem.alg.name, "c": dep.problem.c,
+                        "pool": pool.stats()}
+    graphP = api.make_problem(rows, cols, np.ones(len(rows), np.float32),
+                              (m, m), d)
+    full = gat.gat_layer_distributed(graphP, H, params)
+    ops.set_default_backend("ref")
+    try:
+        plain = gat.gat_layer_distributed(graphP, H, params)
+    finally:
+        ops.set_default_backend("cuda")
+    ops.reset_launch_counts()
+    eng = serving.ServingEngine(pool, max_batch=64)
+    rng = np.random.default_rng(4)
+    ticks, worst = [], 0.0
+    for _ in range(1 + GAT_TICKS):        # the first packs the SpMM plan
+        clients = [np.sort(rng.choice(m, GAT_QUERY, replace=False))
+                   for _ in range(GAT_CLIENTS)]
+        t0 = time.perf_counter()
+        scores = [gat.gat_submit_scores(eng, dep, ids)[0] for ids in clients]
+        rep1 = eng.tick()
+        aggs = [gat.gat_submit_aggregate(eng, dep, ids, t.result())
+                for ids, t in zip(clients, scores)]
+        rep2 = eng.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for ids, t in zip(clients, aggs):
+            idx = torch.from_numpy(ids).to(dev)
+            got = F.elu(t.result())[idx]
+            ck.equal(got, full[idx], "served GAT rows == distributed layer")
+            worst = max(worst, ck.close(got, plain[idx], 2e-3,
+                                        "served GAT rows vs plain"))
+        ticks.append({"score_tick_ms": rep1["wall"] * 1e3,
+                      "aggregate_tick_ms": rep2["wall"] * 1e3,
+                      "rounds": [rep1["rounds"], rep2["rounds"]],
+                      "query_ms": wall * 1e3})
+        del scores, aggs
+    launches, forms = ops.launch_counts(), ops.form_counts()
+    served_launches(total)
+    if not (forms["sddmm"] and forms["spmm"]):
+        raise AssertionError(f"serving GAT: kernels not launched: {forms}")
+    qms = sorted(t["query_ms"] for t in ticks[1:])
+    report["queries"] = {
+        "ticks": ticks, "p50_ms": float(np.percentile(qms, 50)),
+        "p99_ms": float(np.percentile(qms, 99)),
+        "requests_per_s": GAT_CLIENTS * len(qms) / (sum(qms) / 1e3),
+        "launches_per_query_tick": {k: v / len(ticks)
+                                    for k, v in launches.items()},
+        "forms": forms, "max_abs_err_vs_plain": worst,
+        "session": dep.session.stats()}
+
+    # float lookups: batched (one bulk-form round) == solo (a bulk and a
+    # load round) bit for bit
+    Ws = [torch.randn((m, w), generator=g, device=dev) for w in FORM_WIDTHS]
+    look = {}
+    for mode, batching in (("batched", True), ("solo", False)):
+        outs, ms, launches, forms = lookup_tick(torch, dep, pool, Ws,
+                                                batching)
+        served_launches(total)
+        look[mode] = outs
+        report.setdefault("form_lookups", {})[mode] = {
+            "tick_ms": ms, "forms": forms}
+    for a, b in zip(look["batched"], look["solo"]):
+        ck.equal(a, b, "float lookups: batched == solo across forms")
+    if set(report["form_lookups"]["solo"]["forms"]["spmm"]) != \
+            {"bulk", "load"}:
+        raise AssertionError(f"float lookups: forms {report['form_lookups']}")
+    return report
+
+
+def phase_serving(torch, scale: int, apps_scale: int):
+    """The serving engine on the card: cell A (CF prediction and lookups
+    at the main configuration, integer data, p = 8 stacked, recoveries,
+    p = 1) and cell B (GAT inference at 2^apps_scale nodes).  Returns the
+    launches of the served traffic."""
+    from repro_torch.kernels import ops
+    ck = Checker(torch)
+    total = {k: 0 for k in ops.KERNELS}
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = {"phase": "serving", "device": torch.cuda.get_device_name(0)}
+    report["als"] = serving_als(torch, ck, scale, total)
+    report["seconds_als"] = time.perf_counter() - t0
+    report["gat"] = serving_gat(torch, ck, apps_scale, total)
+    for k in ("sddmm", "spmm"):
+        if total[k] <= 0:
+            raise AssertionError(f"serving: {k} kernel not launched: {total}")
+    report.update(launches=total, checks=ck.n,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  seconds=time.perf_counter() - t0)
+    emit(report)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2924,6 +3401,7 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
     train_launches, sparse_launches, fault_launches = None, None, None
+    serving_launches = None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -2944,6 +3422,9 @@ def main(argv=None) -> int:
         elif ph == "faults":
             fault_launches = phase_faults(torch, args.scale,
                                           args.apps_scale)
+        elif ph == "serving":
+            serving_launches = phase_serving(torch, args.scale,
+                                             args.apps_scale)
         elif ph == "dist":
             dist_launches = phase_dist(torch, args.scale, args.reps,
                                        args.comm_scale)
@@ -2967,6 +3448,8 @@ def main(argv=None) -> int:
                                      else train_launches[row["name"]])
             row["faults_launches"] = (None if fault_launches is None
                                       else fault_launches[row["name"]])
+            row["serving_launches"] = (None if serving_launches is None
+                                       else serving_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

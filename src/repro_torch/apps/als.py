@@ -23,9 +23,11 @@ forward's replication.  The same numpy seeds draw the same initial
 factors as the reference, so histories compare step for step.  Its
 steps are resilient as the reference's: retried after a transient fault,
 re-planned onto a degraded grid after a lost rank, timed by a step
-monitor, checkpointed and resumed.  The served paths
-(``deploy_factors``, ``predict_scores``, ``lookup_embeddings``) come
-with the serving slice.
+monitor, checkpointed and resumed.
+
+The served paths (``deploy_factors``, ``predict_scores``,
+``lookup_embeddings``) answer CF prediction and lookup traffic through
+``repro_torch.serving`` against deployed factors.
 """
 from __future__ import annotations
 
@@ -43,9 +45,10 @@ from repro_torch.training import checkpoint
 
 __all__ = [
     "ALSProblem", "DistALSProblem", "als_round", "cg_solve",
-    "dist_als_round", "dist_cg_solve", "dist_fusedmm_matvec", "dist_loss",
-    "fusedmm_matvec", "loss", "make_dist_problem", "make_problem",
-    "run_als", "run_als_distributed", "sampled_loss",
+    "deploy_factors", "dist_als_round", "dist_cg_solve",
+    "dist_fusedmm_matvec", "dist_loss", "fusedmm_matvec", "loss",
+    "lookup_embeddings", "make_dist_problem", "make_problem",
+    "predict_scores", "run_als", "run_als_distributed", "sampled_loss",
     "train_embedding_distributed",
 ]
 
@@ -244,6 +247,48 @@ def run_als_distributed(m=1024, n=1024, nnz_per_row=8, r=32, rounds=3,
             print(f"ALS[{dp.mask.alg.name}] round {it}: "
                   f"loss {hist[-2]:.1f} -> {hist[-1]:.1f}")
     return A, B, hist
+
+
+# ---------------------------------------------------------------------------
+# Query mode: trained factors served through repro_torch.serving, many
+# clients' user-item score queries coalesced per tick
+# ---------------------------------------------------------------------------
+
+def deploy_factors(pool, rows, cols, vals, shape, U, V, *,
+                   algorithm: str = "auto", c=None, devices=None,
+                   comm: str = "dense", row_tile: int = 32,
+                   nz_block: int = 32):
+    """Deploy trained CF factors for serving: the ratings graph plus the
+    factor matrices ``U (m, r)`` / ``V (n, r)`` (numpy or tensors) as
+    stationary operands, uploaded to the grid's device once.  The pool
+    key digests the factors too, so re-deploying after a training
+    refresh is a miss and the identical deploy a hit.  Prediction
+    traffic then moves only (user, item) coordinate lists."""
+    if U.shape[1] != V.shape[1]:
+        raise ValueError(f"factor widths differ: {tuple(U.shape)} vs "
+                         f"{tuple(V.shape)}")
+    return pool.deploy(rows, cols, vals, shape, int(U.shape[1]),
+                       operands={"U": U, "V": V}, algorithm=algorithm,
+                       c=c, devices=devices, comm=comm,
+                       row_tile=row_tile, nz_block=nz_block)
+
+
+def predict_scores(engine, deployment, users, items, *,
+                   arrival: float = 0.0):
+    """Queue a prediction query: ``score_k = <U_users[k], V_items[k]>``,
+    an SDDMM sampled at the requested pairs against the deployed
+    factors; a tick's worth of clients coalesces into ONE
+    union-of-patterns round."""
+    return engine.submit_score(deployment, users, items, "U", "V",
+                               arrival=arrival)
+
+
+def lookup_embeddings(engine, deployment, weights, *,
+                      arrival: float = 0.0):
+    """Queue an embedding aggregation ``out = ratings_graph @ weights``
+    (``weights (n, w)``); all deployed-values lookups of a tick ride one
+    batched-RHS SpMM round."""
+    return engine.submit_aggregate(deployment, weights, arrival=arrival)
 
 
 # ---------------------------------------------------------------------------

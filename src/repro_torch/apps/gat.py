@@ -26,8 +26,12 @@ The row softmax runs per row in entry order
 (``sparse_attention.softmax_sorted_rows``), so the layer and its
 gradients repeat bit for bit on the card.  Training steps are
 resilient as the reference's (retries, re-planning after a lost rank,
-step monitor, checkpoints).  The served paths (``gat_deploy_layer`` ...
-``gat_layer_served``) come with the serving slice.
+step monitor, checkpoints).
+
+The served paths (``gat_deploy_layer`` ... ``gat_layer_served``) answer
+GAT inference queries through ``repro_torch.serving``: each client's
+edge scores ride one coalesced SDDMM round a tick, its aggregation an
+SpMM with its attention as the values.
 """
 from __future__ import annotations
 
@@ -47,11 +51,13 @@ from repro_torch.core.sparse_attention import (row_softmax,
 from repro_torch.kernels import ops
 
 __all__ = [
-    "GATParams", "attention_scores", "gat_forward",
+    "GATParams", "attention_scores", "gat_deploy_layer", "gat_forward",
     "gat_forward_distributed", "gat_layer", "gat_layer_distributed",
-    "gat_layer_trainable", "graph_coo", "init_gat_layer", "leaky_relu",
-    "make_dist_graph", "make_graph", "row_softmax", "row_softmax_coo",
-    "segment_softmax", "train_gat_distributed",
+    "gat_layer_served", "gat_layer_trainable", "gat_query_edges",
+    "gat_submit_aggregate", "gat_submit_scores", "graph_coo",
+    "init_gat_layer", "leaky_relu", "make_dist_graph", "make_graph",
+    "row_softmax", "row_softmax_coo", "segment_softmax",
+    "train_gat_distributed",
 ]
 
 
@@ -203,6 +209,105 @@ def gat_forward_distributed(graphP: api.DistProblem, H0, layers,
     for p in layers:
         H = gat_layer_distributed(graphP, H, p, n_heads=n_heads)
     return H
+
+
+# ---------------------------------------------------------------------------
+# Query mode: the same layer served through repro_torch.serving, many
+# clients' node queries coalesced per tick
+# ---------------------------------------------------------------------------
+
+def gat_deploy_layer(pool, rows, cols, n_nodes, H, p: GATParams, *,
+                     head: int = 0, n_heads: int = 1,
+                     algorithm: str = "auto", c=None, devices=None,
+                     comm: str = "dense", row_tile: int = 32,
+                     nz_block: int = 32):
+    """Deploy one GAT head for serving: the graph plus its stationary
+    operands, computed once on the grid's device as
+    :func:`gat_layer_distributed` computes them: ``Wh`` (what the
+    aggregation SpMM reads) and ``A* = [u, 1]`` / ``B* = [1, v]``, whose
+    r = 2 SDDMM gives the additive attention logits.  Client queries
+    then move only coordinates and attention values.  ``rows`` must be
+    sorted (:func:`graph_coo`'s order; the row softmax needs it)."""
+    rows, cols = np.asarray(rows), np.asarray(cols)
+    if rows.size > 1 and not bool(np.all(rows[1:] >= rows[:-1])):
+        raise ValueError("gat_deploy_layer: rows must be sorted")
+    dev = _device.resolve(devices[0] if devices is not None else None)
+    H = torch.as_tensor(H, dtype=torch.float32, device=dev)
+    d_out = p.W.shape[1] // n_heads
+    hc = slice(head * d_out, (head + 1) * d_out)
+    Wh = H @ p.W[:, hc].to(dev)
+    A_star, B_star = _augmented(Wh @ p.a1[hc].to(dev),
+                                Wh @ p.a2[hc].to(dev), 2)
+    return pool.deploy(rows, cols, np.ones(len(rows), np.float32),
+                       (n_nodes, n_nodes), d_out,
+                       operands={"A": A_star, "B": B_star, "Wh": Wh},
+                       algorithm=algorithm, c=c, devices=devices,
+                       comm=comm, row_tile=row_tile, nz_block=nz_block)
+
+
+def gat_query_edges(deployment, node_ids):
+    """The deployed graph's edges leaving ``node_ids``, in host COO
+    order: (rows, cols, their positions in the COO), a served query's
+    score pattern.  The rows are sorted, so each node's edges are one
+    run, found by binary search."""
+    prob = deployment.problem
+    ids = np.unique(np.asarray(node_ids).reshape(-1))
+    ids = ids.astype(prob.rows.dtype)
+    lo = np.searchsorted(prob.rows, ids, "left")
+    hi = np.searchsorted(prob.rows, ids, "right")
+    runs = hi - lo
+    if not runs.sum():
+        raise ValueError("queried nodes have no outgoing edges")
+    pos = (np.repeat(lo - (np.cumsum(runs) - runs), runs)
+           + np.arange(runs.sum()))
+    return prob.rows[pos], prob.cols[pos], pos
+
+
+def gat_submit_scores(engine, deployment, node_ids, *,
+                      arrival: float = 0.0):
+    """Phase 1 of a served GAT query: queue the edge-score SDDMM for the
+    edges leaving ``node_ids``.  Every client's phase-1 ticket shares
+    the deployed ``A``/``B`` operands, so a tick's worth of them
+    coalesces into ONE union-of-patterns round."""
+    erows, ecols, _ = gat_query_edges(deployment, node_ids)
+    ticket = engine.submit_score(deployment, erows, ecols, "A", "B",
+                                 arrival=arrival)
+    return ticket, erows
+
+
+def gat_submit_aggregate(engine, deployment, node_ids, scores, *,
+                         arrival: float = 0.0):
+    """Phase 2: LeakyReLU and the row softmax on the completed queried
+    rows (the Fig. 9 barrier, per client), then the aggregation SpMM
+    with the client's attention as its values override (zero outside
+    the queried rows: an output row reads only its own row's values, so
+    the queried rows are exact)."""
+    prob = deployment.problem
+    dev = prob.grid.device
+    erows, _, pos = gat_query_edges(deployment, node_ids)
+    e = leaky_relu(torch.as_tensor(scores, dtype=torch.float32, device=dev))
+    vals = torch.zeros(prob.nnz, dtype=torch.float32, device=dev)
+    vals[torch.from_numpy(pos).to(dev)] = row_softmax_coo(erows, e, prob.m)
+    return engine.submit_aggregate(deployment, deployment.operand("Wh"),
+                                   vals=vals, arrival=arrival)
+
+
+def gat_layer_served(engine, deployment, node_ids, activation=F.elu):
+    """Single-client convenience: both phases through the engine (one
+    tick each); returns the layer's output rows for ``node_ids``
+    (sorted, unique).  For one head they equal
+    :func:`gat_layer_distributed`'s rows bit for bit: the same padded
+    score width, softmax and aggregation, and the activation over the
+    whole output as there (on the CPU a vectorised ``expm1`` rounds an
+    entry by where it falls in the tensor)."""
+    node_ids = np.unique(np.asarray(node_ids).reshape(-1))
+    t_score, _ = gat_submit_scores(engine, deployment, node_ids)
+    engine.tick()
+    t_agg = gat_submit_aggregate(engine, deployment, node_ids,
+                                 t_score.result())
+    engine.tick()
+    idx = torch.from_numpy(node_ids).to(deployment.problem.grid.device)
+    return activation(t_agg.result())[idx]
 
 
 # ---------------------------------------------------------------------------

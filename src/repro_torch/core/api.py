@@ -68,8 +68,9 @@ from repro_torch.obs import metrics as obs_metrics
 __all__ = [
     "ALGORITHMS", "Algorithm", "DistProblem", "RankBlock", "Session",
     "SparseResult", "gathered", "make_problem", "sddmm", "spmm", "spmm_t",
-    "fusedmm", "ElasticProblem", "RetryPolicy", "FaultRecoveryError",
-    "RankRetired", "RETRYABLE_ERRORS", "problem_from_meta", "degrade",
+    "spmm_batched", "fusedmm", "ElasticProblem", "RetryPolicy",
+    "FaultRecoveryError", "RankRetired", "RETRYABLE_ERRORS",
+    "problem_from_meta", "degrade",
 ]
 
 # ---------------------------------------------------------------------------
@@ -711,6 +712,9 @@ class _S25(Algorithm):
 
 _COST_NAME = costmodel.ELISION_COST_NAME
 
+#: widths a problem keeps derived problems for (:meth:`DistProblem.with_r`)
+DERIVED_R_MAX = 4
+
 
 @dataclasses.dataclass
 class DistProblem:
@@ -741,6 +745,10 @@ class DistProblem:
     _value_idx: dict = dataclasses.field(default_factory=dict)
     _coo_sort: Optional[tuple] = None
     _transposed: Optional["DistProblem"] = None
+    #: a transposed problem's weak reference to the problem it was
+    #: derived from (a strong one would tie the two into a cycle that
+    #: only the cyclic collector frees)
+    _origin: Optional[weakref.ref] = None
     _ones: Optional["DistProblem"] = None
     _vals_dev: Optional[torch.Tensor] = None
     #: the collective log of the last executor call on this problem
@@ -765,8 +773,8 @@ class DistProblem:
 
     def _derive(self, **changes) -> "DistProblem":
         base = dict(_plans={}, _derived_r={}, _posmaps={}, _value_idx={},
-                    _transposed=None, _ones=None, _vals_dev=None,
-                    last_collectives=None)
+                    _transposed=None, _origin=None, _ones=None,
+                    _vals_dev=None, last_collectives=None)
         base.update(changes)
         return dataclasses.replace(self, **base)
 
@@ -793,7 +801,13 @@ class DistProblem:
         if orient not in self._posmaps:
             dt = np.int32 if self.nnz < np.iinfo(np.int32).max else np.int64
             tmp = self._derive(vals=np.arange(1, self.nnz + 1, dtype=dt))
-            self._posmaps[orient] = self.alg.make_plan(tmp, orient)
+            plan = self.alg.make_plan(tmp, orient)
+            # a phase none of whose packs holds an entry (a small pattern
+            # on many ranks) packs float zeros: padding, position 0
+            tdt = torch.int32 if dt is np.int32 else torch.int64
+            vals = (tuple(v.to(tdt) for v in plan.vals)
+                    if isinstance(plan.vals, tuple) else plan.vals.to(tdt))
+            self._posmaps[orient] = dataclasses.replace(plan, vals=vals)
         return self._posmaps[orient]
 
     def _inject(self, orient: str, vals: torch.Tensor):
@@ -889,29 +903,126 @@ class DistProblem:
         return self._ones
 
     def with_r(self, r: int) -> "DistProblem":
-        """Same sparse matrix, different dense-operand width (cached)."""
+        """Same sparse matrix, different dense-operand width (cached, the
+        DERIVED_R_MAX most recently used widths: each derived problem
+        packs and holds its own plans)."""
         if r == self.r:
             return self
-        if r not in self._derived_r:
+        prob = self._derived_r.pop(r, None)
+        if prob is None:
             mult = self.alg.min_r_multiple(self.grid)
             if r % mult:
                 raise ValueError(f"r={r} must be a multiple of {mult} "
                                  f"for {self.alg.name} on this grid")
-            self._derived_r[r] = self._derive(r=r)
-        return self._derived_r[r]
+            prob = self._derive(r=r)
+        self._derived_r[r] = prob
+        while len(self._derived_r) > DERIVED_R_MAX:
+            del self._derived_r[next(iter(self._derived_r))]
+        return prob
 
     def transposed(self) -> "DistProblem":
-        """The S^T problem on the same grid (cached, round-trips)."""
+        """The S^T problem on the same grid (cached, round-trips).
+
+        The S^T problem refers back to this one weakly: while this
+        problem lives, ``transposed()`` of its transpose returns it;
+        after, it derives S again.  So no pair of problems forms a
+        reference cycle, and a problem's packs are freed with its last
+        reference (the reference's pair waits for the collector)."""
         if self._transposed is None:
+            origin = self._origin() if self._origin is not None else None
+            if origin is not None:
+                return origin
             if not self.alg.feasible(m=self.n, n=self.m, r=self.r,
                                      p=self.p, c=self.c):
                 raise ValueError(f"{self.alg.name} infeasible for the "
                                  f"transposed shape ({self.n}, {self.m})")
             tp = self._derive(rows=self.cols, cols=self.rows, m=self.n,
                               n=self.m, _coo_sort=None)
-            tp._transposed = self
+            tp._origin = weakref.ref(self)
             self._transposed = tp
         return self._transposed
+
+    def with_pattern(self, rows, cols, vals=None, *, m: int | None = None,
+                     n: int | None = None) -> "DistProblem":
+        """Another sparse pattern on the SAME grid object, family, wire
+        format and tiling: the serving tick's union-of-patterns entry
+        point.  Sharing the grid object lets the Session's replication
+        of the deployed operands (keyed by the grid's identity and the
+        operand's content) serve every tick's pattern.  Nothing cached
+        of this problem is inherited (plans, position-coded packs, value
+        indices, device values, the sorted COO): each would answer for
+        this problem's pattern.  ``vals=None`` installs unit samples (the
+        SDDMM mask).  The shape defaults to this problem's ``(m, n)``; a
+        different one is checked against the family's feasibility."""
+        m = self.m if m is None else int(m)
+        n = self.n if n is None else int(n)
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        if rows.ndim != 1 or rows.shape != cols.shape:
+            raise ValueError("pattern rows/cols must be matching 1-D "
+                             f"arrays, got {rows.shape} / {cols.shape}")
+        if len(rows) == 0:
+            raise ValueError("empty query pattern")
+        vals = (np.ones(len(rows), np.float32) if vals is None
+                else np.asarray(vals, np.float32))
+        if vals.shape != rows.shape:
+            raise ValueError(f"vals length {vals.shape} != pattern "
+                             f"length {rows.shape}")
+        if (int(rows.min()) < 0 or int(rows.max()) >= m
+                or int(cols.min()) < 0 or int(cols.max()) >= n):
+            raise ValueError(f"pattern coordinates outside ({m}, {n})")
+        if (m, n) != (self.m, self.n) and not self.alg.feasible(
+                m=m, n=n, r=self.r, p=self.p, c=self.c):
+            raise ValueError(f"{self.alg.name} infeasible for pattern "
+                             f"shape ({m}, {n}) on this grid")
+        return self._derive(rows=rows, cols=cols, vals=vals, m=m, n=n,
+                            _coo_sort=None)
+
+    def spmm_batched(self, Ys, vals=None,
+                     session: Optional["Session"] = None,
+                     pad_to: int | None = None) -> List[torch.Tensor]:
+        """One SpMM round over column-concatenated right-hand sides.
+
+        ``Ys`` are ``(n, r_i)`` operands (numpy or tensors).  They are
+        concatenated along columns on the grid's device, zero-padded to
+        the summed widths rounded up to the family's r-multiple (or to
+        ``pad_to``, a bucket that bounds the widths a long-running
+        server plans for), run as ONE :meth:`spmm` on the problem of
+        that width, and split back: a list of ``(m, r_i)`` views of one
+        tensor.  Output columns are independent (``out[:, j]`` reads
+        only ``Y[:, j]``, and no kernel's sum order depends on the
+        width), so each equals its RHS run alone bit for bit.  ``vals``
+        and ``session`` as for :meth:`spmm`; under a process group the
+        result is gathered (every rank calls this)."""
+        Ys = [Y if isinstance(Y, torch.Tensor) else np.asarray(Y, np.float32)
+              for Y in Ys]
+        if not Ys:
+            return []
+        for Y in Ys:
+            if Y.ndim != 2 or Y.shape[0] != self.n:
+                raise ValueError(f"every RHS must be (n={self.n}, r_i), "
+                                 f"got {tuple(Y.shape)}")
+        widths = [int(Y.shape[1]) for Y in Ys]
+        mult = self.alg.min_r_multiple(self.grid)
+        r_tot = -(-max(sum(widths), 1) // mult) * mult
+        if pad_to is not None:
+            if pad_to < r_tot or pad_to % mult:
+                raise ValueError(f"pad_to={pad_to} must be a multiple of "
+                                 f"{mult} and >= {r_tot}")
+            r_tot = pad_to
+        cat = torch.zeros((self.n, r_tot), dtype=torch.float32,
+                          device=self.grid.device)
+        off = 0
+        for Y, w in zip(Ys, widths):
+            cat[:, off:off + w] = _dense(self, Y)
+            off += w
+        prob = self.with_r(r_tot)
+        out = gathered(prob.spmm(cat, vals=vals, session=session))
+        outs, off = [], 0
+        for w in widths:
+            outs.append(out[:, off:off + w])
+            off += w
+        return outs
 
     # -- elastic recovery ----------------------------------------------------
     def replan(self, *, devices=None, group=None, algorithm: str = "auto",
@@ -1222,6 +1333,15 @@ def spmm_t(problem: DistProblem, A, vals=None,
     return problem.spmm_t(A, vals=vals, session=session, backend=backend)
 
 
+def spmm_batched(problem: DistProblem, Ys, vals=None,
+                 session: Optional[Session] = None,
+                 pad_to: int | None = None) -> List[torch.Tensor]:
+    """One SpMM round over many right-hand sides, the serving batcher's
+    aggregation primitive: see :meth:`DistProblem.spmm_batched`."""
+    return problem.spmm_batched(Ys, vals=vals, session=session,
+                                pad_to=pad_to)
+
+
 def fusedmm(problem: DistProblem, X, Y, elision: str = "auto",
             session: Optional[Session] = None, *,
             backend: str | None = None):
@@ -1442,8 +1562,7 @@ class ElasticProblem:
     grid, and value-identical after a re-plan wherever the accumulations
     are exact.  ``recoveries`` records every handled fault;
     :class:`FaultRecoveryError` (with that history) is raised when
-    ``policy.max_retries`` is exhausted.  ``spmm_batched`` comes with the
-    serving slice.
+    ``policy.max_retries`` is exhausted.
     """
 
     def __init__(self, problem: DistProblem,
@@ -1513,6 +1632,12 @@ class ElasticProblem:
         return self._run("fusedmm",
                          lambda p: p.fusedmm(X, Y, elision=elision,
                                              session=self.session))
+
+    def spmm_batched(self, Ys, vals=None, pad_to: int | None = None):
+        return self._run(
+            "spmm_batched",
+            lambda p: p.spmm_batched(Ys, vals=vals, session=self.session,
+                                     pad_to=pad_to))
 
     # -- derived-problem rounds, resiliently ---------------------------------
     def run_round(self, label: str, fn):

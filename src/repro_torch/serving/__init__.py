@@ -1,0 +1,19 @@
+"""Serving layer: continuous batching over the distributed api.
+
+Port of the reference's distributed serving engine
+(``repro.serving``'s requests, pool, batcher and server): coalesced
+SDDMM/SpMM rounds over pooled graph deployments, each round on the
+port's hand-written kernels.  :class:`ServingEngine` is the engine;
+:func:`replay_trace` replays an open-loop arrival trace through it.
+The reference's LM decode path (``decode``, ``engine``) is not ported.
+"""
+from repro_torch.serving.pool import Deployment, SessionPool, content_key
+from repro_torch.serving.requests import (AdmissionError, AggregateRequest,
+                                          RequestQueue, ScoreRequest, Ticket)
+from repro_torch.serving.server import ServingEngine, replay_trace
+
+__all__ = [
+    "AdmissionError", "AggregateRequest", "Deployment", "RequestQueue",
+    "ScoreRequest", "ServingEngine", "SessionPool", "Ticket",
+    "content_key", "replay_trace",
+]
