@@ -34,6 +34,27 @@ Phases, each printing one JSON line:
            (R-MAT, 16 edges a row, permuted, as
            benchmarks/bench_fig8_strong_scaling.py draws it, at scale 21:
            drawing and packing scale 22 on the host takes over 120 s);
+  obs      observability, the kernel router and conformance on the card
+           (repro_torch.obs, api.activate, repro_torch.analysis), on the
+           main phase's problem and pack when that phase ran: (A) the
+           main path traced at full size, sddmm, spmm, spmm_t and
+           fusedmm in each cell, without and with a Session, untraced
+           then traced --reps times: traced == untraced bit for bit, one
+           round span a call, its event spans aligned with
+           schedule_events and tiling it, the kernels launched inside
+           the traced rounds (bulk forms), each cell's traced device ms
+           beside the untraced call's ms, the Chrome trace written to
+           chiprun_out/TRACE_obs_main.json; (B) drift at p = 8 stacked,
+           c = 2, ER 2^OBS_DRIFT_SCALE, every dense op and cell of the
+           four families with and without a Session (within [0.99,
+           1.01], each round's event words summing to its model) and one
+           comm="sparse" cell a family (no model, no drift), device ms,
+           GB/s and moves per collective kind from the spans; (C)
+           api.activate(problem, its pack): routed ops == the problem's
+           results bit for bit and within 2e-3 of the local kernels,
+           another pack and backend="ref" not routed, the hook cleared;
+           (D) run_conformance over every registry cell on 8 stacked
+           ranks (64 x 64, r = 16), every cell passing;
   families the other three families at the main path's width and size
            (--families-scale, 2^22 by default): make_problem with
            algorithm="auto" on one card must choose the reference's
@@ -134,7 +155,11 @@ Phases, each printing one JSON line:
            rank in one counted pass, ms per call (beside the stacked
            run's), the device split, each collective kind's ms and GB/s
            in a serial pass, and d15's overlap against serial (bitwise
-           and timed).  A rank that fails, or any still running after
+           and timed); after d15's cells, on two cards or more, the obs
+           cell: d15 "fused" traced on every rank (drift 1.0, device ms
+           per collective kind from its spans), every rank's log
+           gathered and the rendezvous simulation drained, then made to
+           deadlock by one rank's copy skipping a collective.  A rank that fails, or any still running after
            DIST_TIMEOUT_S, fails the phase, and every rank is stopped.
            With two cards or more each rank also takes one sampled-loss
            step (apps/als.py) on the "auto" problem, and its gradients
@@ -198,7 +223,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
-PHASES = ("build", "kernels", "main", "families", "comm_sparse",
+PHASES = ("build", "kernels", "main", "obs", "families", "comm_sparse",
           "rmat_padding", "stacked", "faults", "serving", "dist", "train")
 
 # tests/test_kernels.py shapes and tolerances
@@ -529,7 +554,20 @@ def gat_graph_on_card(torch, m, per_row, seed):
     return (key // m).int().cpu().numpy(), (key % m).int().cpu().numpy()
 
 
-def phase_main(torch, scale: int, reps: int, rmat_scale: int):
+def main_pack(prob):
+    """The main path's local pack: phase 0, rank (0, 0) of the d15 plan
+    (at p = 1 the whole matrix)."""
+    from repro_torch.core import sparse
+    plan = prob.plan("normal")
+    return sparse.RowTiledCOO(plan.rows_local[0][0, 0], plan.cols[0][0, 0],
+                              plan.vals[0][0, 0], plan.tile_base[0][0, 0],
+                              plan.block_shape, plan.row_tile)
+
+
+def phase_main(torch, scale: int, reps: int, rmat_scale: int,
+               keep: dict | None = None):
+    """The main path; with ``keep`` (a dict), its problem, pack and
+    operands are left there for the obs phase."""
     from repro_torch.core import api, sparse
     from repro_torch.kernels import ops
     from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
@@ -607,10 +645,7 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
           "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)})
 
     # each kernel at the main path's shapes (phase 0, rank (0, 0))
-    plan = prob.plan("normal")
-    S = sparse.RowTiledCOO(plan.rows_local[0][0, 0], plan.cols[0][0, 0],
-                           plan.vals[0][0, 0], plan.tile_base[0][0, 0],
-                           plan.block_shape, plan.row_tile)
+    S = main_pack(prob)
     pk = (S.tile_base, S.rows_local, S.cols, S.vals)
     rt = S.row_tile
     crow = torch.zeros(m + 1, dtype=torch.int64, device="cuda")
@@ -744,6 +779,8 @@ def phase_main(torch, scale: int, reps: int, rmat_scale: int):
           "nz_block": S.nz_block, "row_tile": rt,
           "stream_read_gb_per_s": gbps, "checks": ck.n,
           "kernels": kernels, "rmat": power_law})
+    if keep is not None:
+        keep.update(prob=prob, S=S, X=X, Y=Y)
     return kernels
 
 
@@ -2387,6 +2424,385 @@ def phase_train(torch, scale: int, apps_scale: int, reps: int):
     return total
 
 
+# ---------------------------------------------------------------------------
+# obs: tracing, drift, the kernel router and conformance on the card
+# ---------------------------------------------------------------------------
+
+#: the main path's calls the obs phase traces, each without and with a
+#: Session
+OBS_CALLS = [("sddmm", "none"), ("spmm", "none"), ("spmm_t", "none"),
+             ("fusedmm", "none"), ("fusedmm", "reuse"), ("fusedmm", "fused")]
+#: the drift section's size: ER 2^OBS_DRIFT_SCALE at p = 8, c = 2 stacked
+OBS_DRIFT_SCALE = 18
+OBS_P, OBS_C = 8, 2
+
+
+def obs_call(prob, op, el, X, Y, session=None):
+    """One call of ``op`` (``el`` for fusedmm) through the problem."""
+    if op == "sddmm":
+        return prob.sddmm(X, Y, session=session)
+    if op == "spmm":
+        return prob.spmm(Y, session=session)
+    if op == "spmm_t":
+        return prob.spmm_t(X, session=session)
+    return prob.fusedmm(X, Y, elision=el, session=session)
+
+
+def result_tensors(res):
+    """The tensors of a result: dense outputs, a SparseResult's raw
+    values (one tensor a phase for d15)."""
+    from repro_torch.core import api
+    if isinstance(res, api.SparseResult):
+        return _leaves(res.raw)
+    if isinstance(res, (tuple, list)):
+        return [t for r in res for t in result_tensors(r)]
+    return [res]
+
+
+def _counts_delta(ops, before):
+    now = ops.form_counts()
+    return {k: {f: n - before[k].get(f, 0) for f, n in v.items()
+                if n - before[k].get(f, 0)} for k, v in now.items()}
+
+
+def check_spans(ck, prob, rnd, what):
+    """A round span's events align with the schedule and tile it."""
+    ev = prob.alg.schedule_events(prob, rnd.op, rnd.elision)
+    if [(e.point, e.phase) for e in rnd.events] != ev:
+        raise AssertionError(f"{what}: spans {rnd.events} vs schedule {ev}")
+    t = rnd.t0
+    for e in rnd.events:
+        if abs(e.t0 - t) > 1e-9 + 1e-6 * abs(t):
+            raise AssertionError(f"{what}: event spans leave a gap")
+        t += e.dur
+    if abs(t - (rnd.t0 + rnd.dur)) > 1e-9 + 1e-6 * rnd.dur:
+        raise AssertionError(f"{what}: event spans do not tile the round")
+    if prob.grid.device.type == "cuda" and rnd.device_ms is None:
+        raise AssertionError(f"{what}: no device time on the card")
+    ck.n += 1
+
+
+def loop_ms(torch, fn, n: int) -> float:
+    """Device milliseconds a call of ``fn`` over ``n`` calls queued back
+    to back (events around them, one synchronize).  One more call goes
+    first, untimed, so the card is busy while the timed calls are
+    queued and no launch's host latency lands in the span."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    fn()
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def obs_main_path(torch, ck, prob, X, Y, reps):
+    """(A) The main path traced at full width: each call of OBS_CALLS,
+    without and with a Session (a fresh one for the untraced calls and
+    one for the traced), untraced then traced; the first traced result
+    == the first untraced bit for bit, one round span per traced call
+    aligned with the schedule and tiling it, the hand-written kernels
+    launched inside the traced rounds; each cell's traced rounds' median
+    device ms beside the untraced call's median (``time_ms``), and the
+    ms a call of ``reps`` calls back to back (``loop_ms``), untraced and
+    traced in turns (untraced, traced, traced, untraced): what tracing
+    costs.  A cell traces 2 ``reps`` + 3 rounds.  The Chrome trace is
+    written under chiprun_out/."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    prob.transposed().plan("transpose")    # spmm_t's pack, planned once
+    torch.cuda.synchronize()
+    pack_t_s = time.perf_counter() - t0
+    tr = obs.Tracer()
+    forms = {k: {} for k in ops.KERNELS}
+
+    def traced(fn):
+        before = ops.form_counts()
+        with obs.trace(tr):
+            out = fn()
+        for k, v in _counts_delta(ops, before).items():
+            for f, n in v.items():
+                forms[k][f] = forms[k].get(f, 0) + n
+        return out
+
+    cells = []
+    for op, el in OBS_CALLS:
+        for with_s in (False, True):
+            tag = op + (f"[{el}]" if op == "fusedmm" else "") \
+                + ("+sess" if with_s else "")
+            s_u = api.Session() if with_s else None
+            s_t = api.Session() if with_s else None
+            base = result_tensors(obs_call(prob, op, el, X, Y, s_u))
+            untraced_ms = time_ms(
+                torch, lambda: obs_call(prob, op, el, X, Y, s_u), reps)
+            n0 = len(tr._rounds)
+            got = traced(lambda: result_tensors(
+                obs_call(prob, op, el, X, Y, s_t)))
+            if len(got) != len(base):
+                raise AssertionError(f"obs {tag}: result structure")
+            for a, b in zip(got, base):
+                ck.equal(a, b, f"obs {tag} traced == untraced")
+            del got, base
+            loops = {"untraced": [], "traced": []}
+            for kind in ("untraced", "traced", "traced", "untraced"):
+                sess = s_t if kind == "traced" else s_u
+
+                def run():
+                    return loop_ms(torch, lambda: obs_call(
+                        prob, op, el, X, Y, sess), reps)
+                loops[kind].append(traced(run) if kind == "traced"
+                                   else run())
+            if len(tr._rounds) - n0 != 2 * reps + 3:
+                raise AssertionError(f"obs {tag}: {len(tr._rounds) - n0} "
+                                     f"round spans for {2 * reps + 3} "
+                                     f"calls")
+            cells.append((tag, n0, untraced_ms, loops))
+            torch.cuda.empty_cache()
+    rounds = tr.rounds                      # one synchronize
+    out = {}
+    for tag, n0, untraced_ms, loops in cells:
+        mine = rounds[n0:n0 + 2 * reps + 3]
+        for rnd in mine:
+            check_spans(ck, prob, rnd, f"obs {tag}")
+        out[tag] = {"traced_ms": statistics.median(r.dur * 1e3
+                                                   for r in mine),
+                    "untraced_ms": untraced_ms,
+                    "untraced_loop_ms": loops["untraced"],
+                    "traced_loop_ms": loops["traced"]}
+    launches = {k: sum(v.values()) for k, v in forms.items()}
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"obs: {k} not launched in the traced "
+                                 f"rounds: {forms}")
+    if {f for v in forms.values() for f in v} != {"bulk"}:
+        raise AssertionError(f"obs: traced rounds took forms {forms}")
+    out_dir = ROOT / "chiprun_out"
+    paths = obs.write_artifacts(str(out_dir), "obs_main", tracer=tr)
+    size = pathlib.Path(paths["trace"]).stat().st_size
+    return {"rounds": len(rounds), "pack_transposed_s": pack_t_s,
+            "cells": out,
+            "launches": launches, "forms": forms,
+            "trace": str(pathlib.Path(paths["trace"]).relative_to(ROOT)),
+            "trace_bytes": size}
+
+
+def spans_by_kind(rounds):
+    """{kind: device ms, bytes, moves, GB/s} from event spans: each
+    event's moves' device time and its words (4 bytes a word)."""
+    out = {}
+    for rnd in rounds:
+        for e in rnd.events:
+            if not e.words or e.device_ms is None:
+                continue
+            k = out.setdefault(e.kind, {"ms": 0.0, "bytes": 0.0,
+                                        "moves": 0})
+            k["ms"] += e.device_ms
+            k["bytes"] += 4 * e.words
+            k["moves"] += e.moves
+    for k in out.values():
+        k["gb_per_s"] = k["bytes"] / k["ms"] / 1e6 if k["ms"] else None
+    return out
+
+
+def obs_drift(torch, ck, scale):
+    """(B) Drift at p = 8 stacked, c = 2, ER 2^scale, r = 128, in all
+    four families: every dense op and cell without and with a Session,
+    each called twice (drift within [0.99, 1.01], each round's per-event
+    modeled words summing to its model) and one comm="sparse" cell a
+    family (no model, no drift); each second (warm) call's device ms,
+    and device ms, GB/s and moves per collective kind from the warm
+    calls' spans (a first call also packs its plan and allocates)."""
+    from repro_torch import obs
+    from repro_torch.core import api
+    m = n = 1 << scale
+    r = 128
+    rows, cols, vals = erdos_renyi_on_card(torch, m, n, 16, 3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    X = torch.randn((m, r), generator=g, device="cuda")
+    Y = torch.randn((n, r), generator=g, device="cuda")
+    devs = [torch.device("cuda")] * OBS_P
+    tr = obs.Tracer()
+    fams = {}
+    t0 = time.perf_counter()
+    for fam in ("d15", "s15", "d25", "s25"):
+        prob = api.make_problem(rows, cols, vals, (m, n), r, algorithm=fam,
+                                c=OBS_C, devices=devs)
+        n0 = len(tr._rounds)
+        with obs.trace(tr):
+            for op, el in OBS_CALLS:
+                if op == "fusedmm" and el not in prob.alg.elisions:
+                    continue
+                for with_s in (False, True):
+                    sess = api.Session() if with_s else None
+                    obs_call(prob, op, el, X, Y, sess)
+                    obs_call(prob, op, el, X, Y, sess)
+        dense_n = len(tr._rounds) - n0
+        sp = api.make_problem(rows, cols, vals, (m, n), r, algorithm=fam,
+                              c=OBS_C, devices=devs, comm="sparse")
+        with obs.trace(tr):
+            obs_call(sp, "fusedmm", prob.alg.elisions[0], X, Y)
+        fams[fam] = (prob, n0, dense_n)
+        del sp
+        torch.cuda.empty_cache()
+    plan_and_run_s = time.perf_counter() - t0
+    rounds = tr.rounds
+    out = {"m": m, "r": r, "p": OBS_P, "c": OBS_C, "families": {},
+           "seconds": plan_and_run_s}
+    for fam, (prob, n0, dense_n) in fams.items():
+        dense = rounds[n0:n0 + dense_n]
+        warm = dense[1::2]
+        sparse_rnd = rounds[n0 + dense_n]
+        drifts = []
+        for rnd in dense:
+            what = f"obs drift {fam} {rnd.op}[{rnd.elision}]" \
+                + ("+sess" if rnd.session else "")
+            check_spans(ck, prob, rnd, what)
+            if rnd.drift is None or not 0.99 <= rnd.drift <= 1.01:
+                raise AssertionError(f"{what}: drift {rnd.drift}")
+            if sum(e.words for e in rnd.events) != rnd.modeled_words:
+                raise AssertionError(f"{what}: event words do not sum to "
+                                     f"the round's model")
+            drifts.append(rnd.drift)
+            ck.n += 1
+        if sparse_rnd.comm != "sparse" or sparse_rnd.modeled_words \
+                is not None or sparse_rnd.drift is not None:
+            raise AssertionError(f"obs drift {fam}: the sparse round has a "
+                                 f"model or a drift")
+        ck.n += 1
+        out["families"][fam] = {
+            "rounds": dense_n, "drift_min": min(drifts),
+            "drift_max": max(drifts),
+            "round_ms": {f"{r_.op}[{r_.elision}]"
+                         + ("+sess" if r_.session else ""): r_.dur * 1e3
+                         for r_ in warm},
+            "sparse_first_ms": sparse_rnd.dur * 1e3,
+            "sparse_words": sparse_rnd.measured_words["total"],
+            "comm": spans_by_kind(warm)}
+    return out
+
+
+def obs_router(torch, ck, prob, S, X, Y):
+    """(C) The router at full width: ``api.activate(prob, S)`` with S the
+    local pack of the same matrix; routed ops == the problem's own
+    results bit for bit and within 2e-3 of the local kernels on S,
+    another pack falls through, ``backend="ref"`` wins, the hook is
+    cleared afterwards."""
+    import dataclasses
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    m = prob.m
+    if tuple(S.shape) != (prob.m, prob.n):
+        raise AssertionError(f"router: pack of shape {S.shape}")
+    local = {"sddmm": ops.sddmm(X, Y, S, backend="cuda").vals,
+             "spmm": ops.spmm(S, Y, m=m, backend="cuda")}
+    lf, lR = ops.fusedmm(X, Y, S, m=m, backend="cuda")
+    t0 = time.perf_counter()
+    with api.activate(prob, S) as router:
+        idx, ok = router._slot_index()
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        R_ = ops.sddmm(X, Y, S)
+        out = ops.spmm(S, Y, m=m)
+        f, fR = ops.fusedmm(X, Y, S, m=m)
+        torch.cuda.synchronize()
+        routed_s = time.perf_counter() - t0
+        if router.routed != 3:
+            raise AssertionError(f"router routed {router.routed} calls")
+        other = dataclasses.replace(S)
+        fell = ops.spmm(other, Y, m=m)
+        ref = ops.spmm(S, Y, m=m, backend="ref")
+        if router.routed != 3:
+            raise AssertionError("another pack or backend='ref' routed")
+        ck.equal(fell, local["spmm"], "router: another pack falls through")
+        err_ref = ck.close(ref, local["spmm"], 2e-3, "router: ref wins")
+        del fell, ref, other
+    if ops._DIST_ROUTER is not None:
+        raise AssertionError("router: hook left set")
+    ck.n += 1
+    want_R = prob.sddmm(X, Y).values_tensor()
+    ck.equal(R_.vals.reshape(-1)[ok], want_R[idx[ok]],
+             "router sddmm == problem")
+    if bool((R_.vals.reshape(-1)[~ok] != 0).any()):
+        raise AssertionError("router sddmm: padding slots not zero")
+    ck.equal(out, prob.spmm(Y), "router spmm == problem")
+    want_f, want_fR = prob.fusedmm(X, Y)
+    ck.equal(f, want_f, "router fusedmm == problem")
+    ck.equal(fR.vals.reshape(-1)[ok], want_fR.values_tensor()[idx[ok]],
+             "router fusedmm R == problem")
+    del want_R, want_f, want_fR
+    errs = {"sddmm": ck.close(R_.vals, local["sddmm"], 2e-3,
+                              "router sddmm vs local"),
+            "spmm": ck.close(out, local["spmm"], 2e-3,
+                             "router spmm vs local"),
+            "fusedmm": ck.close(f, lf, 2e-3, "router fusedmm vs local"),
+            "fusedmm_R": ck.close(fR.vals, lR.vals, 2e-3,
+                                  "router fusedmm R vs local"),
+            "ref_vs_local": err_ref}
+    return {"slot_index_s": index_s, "routed_calls_s": routed_s,
+            "max_abs_err_vs_local": errs}
+
+
+def obs_conformance(torch, ck):
+    """(D) Every registry cell, dense and sparse, on 8 stacked ranks on
+    the card at the reference's sweep size (64 x 64, r = 16)."""
+    from repro_torch.analysis import conformance
+    t0 = time.perf_counter()
+    rep = conformance.run_conformance(
+        devices=[torch.device("cuda")] * OBS_P)
+    bad = [(c["cell"], c["errors"]) for c in rep["cells"]
+           if c["verdict"] != "pass"]
+    if bad:
+        raise AssertionError(f"conformance on the card: {bad}")
+    ck.n += len(rep["cells"])
+    return {"cells": len(rep["cells"]), "pass": rep["pass"],
+            "structural": rep["structural"],
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_obs(torch, scale: int, reps: int, main_state=None):
+    """The obs phase: (A) the main path traced at full width, (B) drift
+    at p = 8 stacked, (C) the router at full width, (D) conformance on
+    the card.  Reuses the main phase's problem and pack where that phase
+    ran; returns the launches of (A)'s traced rounds."""
+    from repro_torch.core import api
+    ck = Checker(torch)
+    if main_state is None:
+        m = n = 1 << scale
+        rows, cols, vals = erdos_renyi_on_card(torch, m, n, 16, 0)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        X = torch.randn((m, 128), generator=g, device="cuda")
+        Y = torch.randn((n, 128), generator=g, device="cuda")
+        prob = api.make_problem(rows, cols, vals, (m, n), 128,
+                                algorithm="d15")
+        S = main_pack(prob)
+    else:
+        prob, S, X, Y = (main_state[k] for k in ("prob", "S", "X", "Y"))
+    rep = {"phase": "obs", "m": prob.m, "r": prob.r, "nnz": prob.nnz}
+    t0 = time.perf_counter()
+    rep["main"] = obs_main_path(torch, ck, prob, X, Y, reps)
+    rep["main"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["router"] = obs_router(torch, ck, prob, S, X, Y)
+    rep["router"]["seconds"] = time.perf_counter() - t0
+    launches = rep["main"]["launches"]
+    del prob, S, X, Y
+    if main_state is not None:
+        main_state.clear()
+    torch.cuda.empty_cache()
+    rep["drift"] = obs_drift(torch, ck, OBS_DRIFT_SCALE)
+    torch.cuda.empty_cache()
+    rep["conformance"] = obs_conformance(torch, ck)
+    rep["checks"] = ck.n
+    emit(rep)
+    return launches
+
+
 NVLINK_GB_PER_S = 450.0   # H100 SXM NVLink 4, each direction (data sheet)
 DIST_TIMEOUT_S = 900      # the dist phase's ranks, spawn to exit
 #: (algorithm, cells): d15's three cells are the main path on the cards;
@@ -2402,62 +2818,27 @@ DIST_PROBLEMS_ONE = [("d15", ("fused",))]
 
 
 def _timed_backend(torch):
-    """The torch.distributed backend with CUDA events around each
-    collective, in a serial pass: the ranks are lined up first (the card
-    idle, then an all-reduce of one word), so a span holds the transfer
-    and not a wait for a peer's kernel."""
-    import torch.distributed as dist
-    from repro_torch.core.collectives import Dist
+    """The serial pass's collective backend: the port's per-move timer
+    (``repro_torch.obs.moves``, CUDA events around each move) with the
+    ranks lined up before each move (the card idle, then an all-reduce
+    of one word), so a span holds the transfer and not a wait for a
+    peer's kernel.  ``comm_by_kind`` reads it."""
+    from repro_torch.obs import moves
 
-    class Timed(Dist):
-        def __init__(self, grid):
-            super().__init__(grid)
-            self.spans = []
+    def timed(grid):
+        return moves.timed_backend(grid, barrier=True)
 
-        def _span(self, fn, *args, **kwargs):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            dist.all_reduce(torch.zeros(1, device=self.grid.device),
-                            group=self.grid.group)
-            torch.cuda.synchronize()
-            e0.record()
-            out = fn(*args, **kwargs)
-            e1.record()
-            ev = self.log[-1]
-            crossed = self.grid.shape[self.grid.dim(ev.axis)] > 1
-            self.spans.append((ev.kind, ev.words, crossed, e0, e1))
-            return out
+    return timed
 
-        def permute(self, *args, **kwargs):
-            return self._span(super().permute, *args, **kwargs)
 
-        def all_gather(self, *args, **kwargs):
-            return self._span(super().all_gather, *args, **kwargs)
-
-        def psum_scatter(self, *args, **kwargs):
-            return self._span(super().psum_scatter, *args, **kwargs)
-
-        def by_kind(self):
-            """{kind: ms, bytes, moves, GB/s and share of NVLink's rate}
-            over the collectives that crossed a rank (4-byte words)."""
-            torch.cuda.synchronize()
-            out = {}
-            for kind, words, crossed, e0, e1 in self.spans:
-                if not crossed:
-                    continue
-                k = out.setdefault(kind, {"ms": 0.0, "bytes": 0.0,
-                                          "moves": 0})
-                k["ms"] += e0.elapsed_time(e1)
-                k["bytes"] += 4 * words
-                k["moves"] += 1
-            for k in out.values():
-                k["gb_per_s"] = k["bytes"] / k["ms"] / 1e6 if k["ms"] else None
-                k["nvlink_share"] = (k["gb_per_s"] / NVLINK_GB_PER_S
-                                     if k["gb_per_s"] else None)
-            return out
-
-    return Timed
+def comm_by_kind(coll):
+    """{kind: ms, bytes, moves, GB/s and share of NVLink's rate} over the
+    collectives of a timed backend that crossed a rank."""
+    out = coll.by_kind()
+    for k in out.values():
+        k["nvlink_share"] = (k["gb_per_s"] / NVLINK_GB_PER_S
+                             if k["gb_per_s"] else None)
+    return out
 
 
 def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
@@ -2592,7 +2973,7 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
                 else {}
             coll = Timed(prob.grid)
             fn(*args, **kwargs, **over, coll=coll)
-            cell["comm"] = coll.by_kind()
+            cell["comm"] = comm_by_kind(coll)
             cell["comm_ms"] = sum(k["ms"] for k in cell["comm"].values())
             if prob.alg.name == "d15":
                 # overlap == serial bit for bit; timed in turns
@@ -2609,6 +2990,8 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
             del fn, args, kwargs
             row["cells"][el] = cell
             torch.cuda.empty_cache()
+        if algorithm == "d15" and world > 1:
+            row["obs"] = dist_obs(torch, ck, prob, X, Y, world, reps)
         row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         report["problems"][algorithm] = row
         del prob, stacked
@@ -2623,6 +3006,52 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
         report["faults"] = dist_faults(torch, dist, ck, rank, world, scale)
     report["checks"] = ck.n
     return report
+
+
+def dist_obs(torch, ck, prob, X, Y, world, reps):
+    """The obs cell on the cards: d15 "fused" traced ``reps`` times back
+    to back on every rank (drift 1.0 on each round; the rounds' device
+    ms, and per collective kind the spans' device ms of all rounds but
+    the first, which also holds the ranks' skew on arrival), every
+    rank's log of the last call gathered (``all_gather_object`` over
+    NCCL) and the rendezvous simulation drained; then, with one rank's
+    copy of the logs skipping a collective, the simulation must
+    deadlock."""
+    from repro_torch import obs
+    from repro_torch.analysis import conformance
+    t0 = time.perf_counter()
+    tr = obs.Tracer()
+    with obs.trace(tr):
+        for _ in range(reps):
+            prob.fusedmm(X, Y, elision="fused")
+    rounds = tr.rounds
+    if len(rounds) != reps:
+        raise AssertionError(f"dist obs: {len(rounds)} rounds for {reps}")
+    for rnd in rounds:
+        check_spans(ck, prob, rnd, "dist obs")
+        if rnd.drift != 1.0:
+            raise AssertionError(f"dist obs: drift {rnd.drift} on rank "
+                                 f"{prob.grid.rank}")
+    logs = conformance.gather_logs(prob.grid, prob.last_collectives.log)
+    counts = [len(v) for v in logs.values()]
+    drained = conformance.simulate_rendezvous(
+        conformance.rank_programs_from_logs(logs, world))
+    if not drained["ok"]:
+        raise AssertionError(f"dist obs: rendezvous stuck {drained}")
+    logs[world - 1] = logs[world - 1][1:]
+    broken = conformance.simulate_rendezvous(
+        conformance.rank_programs_from_logs(logs, world))
+    if broken["ok"]:
+        raise AssertionError("dist obs: a skipped collective drained")
+    ck.n += 3
+    return {"drifts": [r.drift for r in rounds],
+            "round_ms": [r.dur * 1e3 for r in rounds],
+            "events": [[e.point, e.phase, e.kind, e.moves, e.device_ms]
+                       for e in rounds[-1].events if e.moves],
+            "comm": spans_by_kind(rounds[1:]),
+            "collectives": counts,
+            "rendezvous_fired": drained["fired"],
+            "seconds": time.perf_counter() - t0}
 
 
 #: the R-MAT problems of the four-card comm="sparse" cells: "auto"'s
@@ -2699,7 +3128,7 @@ def dist_rmat(torch, dist, ck, rank, world, scale, reps, Timed):
                 else {}
             coll = Timed(prob.grid)
             fn(*args, **kwargs, **over, coll=coll)
-            by_kind = coll.by_kind()
+            by_kind = comm_by_kind(coll)
             rows_out[name] = {
                 "family": prob.alg.name, "c": prob.c, "cell": el,
                 "plan_s": plan_s, "launches": launches,
@@ -3401,7 +3830,8 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
     train_launches, sparse_launches, fault_launches = None, None, None
-    serving_launches = None
+    serving_launches, obs_launches = None, None
+    main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
         if ph == "build":
@@ -3410,7 +3840,11 @@ def main(argv=None) -> int:
             phase_kernels(torch)
         elif ph == "main":
             kernels = phase_main(torch, args.scale, args.reps,
-                                 args.rmat_scale)
+                                 args.rmat_scale, keep=main_state)
+        elif ph == "obs":
+            obs_launches = phase_obs(torch, args.scale, args.reps,
+                                     main_state or None)
+            main_state = None
         elif ph == "families":
             family_launches = phase_families(torch, args.families_scale,
                                              args.reps, args.scale)
@@ -3450,6 +3884,8 @@ def main(argv=None) -> int:
                                       else fault_launches[row["name"]])
             row["serving_launches"] = (None if serving_launches is None
                                        else serving_launches[row["name"]])
+            row["obs_launches"] = (None if obs_launches is None
+                                   else obs_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

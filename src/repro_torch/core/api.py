@@ -24,8 +24,11 @@ Dense results come back as torch tensors on the grid's device (the
 reference assembles numpy on the host); sampled results are
 :class:`SparseResult` with host (numpy) COO views.  Every executor call
 records its collectives in ``DistProblem.last_collectives``.  Every call
-passes the fault guard first (``repro_torch.distributed.faults``); the
-tracer hooks of the reference come with their slice.
+passes the fault guard first (``repro_torch.distributed.faults``), then
+opens a round span when an obs tracer is armed (``repro_torch.obs``);
+with none armed that costs one attribute read.  :func:`activate` routes
+``repro_torch.kernels.ops`` calls on a bound local pack through a
+problem (mesh-active mode).
 
 **Elastic recovery** (reference ``api.py``'s last part): :class:`
 ElasticProblem` retries a call that dies with a retryable fault on the
@@ -48,6 +51,7 @@ bit for bit) on every rank.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -63,15 +67,31 @@ from repro_torch.core import device as _device
 from repro_torch.core.collectives import Backend, coll_for
 from repro_torch.core.grid import make_grid15, make_grid25
 from repro_torch.distributed import faults
-from repro_torch.obs import metrics as obs_metrics
 
 __all__ = [
     "ALGORITHMS", "Algorithm", "DistProblem", "RankBlock", "Session",
     "SparseResult", "gathered", "make_problem", "sddmm", "spmm", "spmm_t",
     "spmm_batched", "fusedmm", "ElasticProblem", "RetryPolicy",
     "FaultRecoveryError", "RankRetired", "RETRYABLE_ERRORS",
-    "problem_from_meta", "degrade",
+    "problem_from_meta", "degrade", "activate",
 ]
+
+
+def _tracer_active():
+    """The armed obs tracer, or None.
+
+    The import is inside the function by design (lint rule R1):
+    ``repro_torch.core`` is the foundation layer and stays importable
+    without the obs stack; resolving through ``sys.modules`` per call
+    also keeps the tests' monkeypatching of the module visible."""
+    from repro_torch.obs import tracer as obs_tracer
+    return obs_tracer.active()
+
+
+def _metrics_active():
+    """The armed obs metrics registry, or None (lazy, as above)."""
+    from repro_torch.obs import metrics as obs_metrics
+    return obs_metrics.active()
 
 # ---------------------------------------------------------------------------
 # Results
@@ -257,28 +277,37 @@ class Algorithm:
         return self.shard_x(prob, arr), False
 
     def _run(self, prob, call, backend):
+        """Run one executor call on its collective backend: the round's
+        (a ``coll`` in the call's keywords, which a tracer supplies),
+        else a fresh one for the grid."""
         fn, args, kwargs, post = call
-        coll = coll_for(prob.grid)
+        kwargs = dict(kwargs)
+        coll = coll_for(prob.grid, kwargs.pop("coll", None))
         res = fn(*args, **kwargs, coll=coll, backend=backend)
         prob.last_collectives = coll
         return post(res)
 
-    def sddmm(self, prob, X, Y, session=None, backend=None) -> SparseResult:
-        return self._run(prob, self._sddmm_call(prob, X, Y, session),
-                         backend)
+    def sddmm(self, prob, X, Y, session=None, backend=None,
+              coll=None) -> SparseResult:
+        return self._run(prob, _on(self._sddmm_call(prob, X, Y, session),
+                                   coll), backend)
 
-    def spmm(self, prob, Y, vals=None, session=None, backend=None):
-        return self._run(prob, self._spmm_call(prob, Y, vals, session),
-                         backend)
+    def spmm(self, prob, Y, vals=None, session=None, backend=None,
+             coll=None):
+        return self._run(prob, _on(self._spmm_call(prob, Y, vals, session),
+                                   coll), backend)
 
-    def spmm_t(self, prob, A, vals=None, session=None, backend=None):
-        return self._run(prob, self._spmm_t_call(prob, A, vals, session),
+    def spmm_t(self, prob, A, vals=None, session=None, backend=None,
+               coll=None):
+        return self._run(prob, _on(self._spmm_t_call(prob, A, vals,
+                                                     session), coll),
                          backend)
 
     def fusedmm(self, prob, X, Y, elision: str,
-                session: Optional["Session"], backend=None):
-        return self._run(prob, self._fusedmm_call(prob, X, Y, elision,
-                                                  session), backend)
+                session: Optional["Session"], backend=None, coll=None):
+        return self._run(prob, _on(self._fusedmm_call(prob, X, Y, elision,
+                                                      session), coll),
+                         backend)
 
     def _sddmm_call(self, prob, X, Y, session):
         raise NotImplementedError
@@ -291,6 +320,15 @@ class Algorithm:
 
     def _fusedmm_call(self, prob, X, Y, elision, session):
         raise NotImplementedError
+
+
+def _on(call, coll):
+    """An executor call that runs on the collective backend ``coll``
+    (None: a fresh one)."""
+    if coll is None:
+        return call
+    fn, args, kwargs, post = call
+    return fn, args, dict(kwargs, coll=coll), post
 
 
 def register(cls):
@@ -1102,21 +1140,37 @@ class DistProblem:
               backend: str | None = None) -> SparseResult:
         """R = S * (X @ Y.T) sampled at nnz(S); X (m, r), Y (n, r)."""
         faults.guard("sddmm", self)
-        return self.alg.sddmm(self, X, Y, session=session, backend=backend)
+        tr = _tracer_active()
+        if tr is None:
+            return self.alg.sddmm(self, X, Y, session=session,
+                                  backend=backend)
+        with tr.round(self, "sddmm", session=session) as coll:
+            return self.alg.sddmm(self, X, Y, session=session,
+                                  backend=backend, coll=coll)
 
     def spmm(self, Y, vals=None, session: Optional["Session"] = None, *,
              backend: str | None = None) -> torch.Tensor:
         """out = S(vals) @ Y, (m, r) on the grid's device; Y is (n, r)."""
         faults.guard("spmm", self)
-        return self.alg.spmm(self, Y, vals=vals, session=session,
-                             backend=backend)
+        tr = _tracer_active()
+        if tr is None:
+            return self.alg.spmm(self, Y, vals=vals, session=session,
+                                 backend=backend)
+        with tr.round(self, "spmm", session=session) as coll:
+            return self.alg.spmm(self, Y, vals=vals, session=session,
+                                 backend=backend, coll=coll)
 
     def spmm_t(self, A, vals=None, session: Optional["Session"] = None, *,
                backend: str | None = None) -> torch.Tensor:
         """out = S(vals)^T @ A, (n, r) on the grid's device; A is (m, r)."""
         faults.guard("spmm_t", self)
-        return self.alg.spmm_t(self, A, vals=vals, session=session,
-                               backend=backend)
+        tr = _tracer_active()
+        if tr is None:
+            return self.alg.spmm_t(self, A, vals=vals, session=session,
+                                   backend=backend)
+        with tr.round(self, "spmm_t", session=session) as coll:
+            return self.alg.spmm_t(self, A, vals=vals, session=session,
+                                   backend=backend, coll=coll)
 
     def fusedmm(self, X, Y, elision: str = "auto",
                 session: Optional["Session"] = None, *,
@@ -1128,7 +1182,13 @@ class DistProblem:
         of :mod:`repro_torch.kernels.ops`."""
         el = self.resolve_elision(elision, session)
         faults.guard("fusedmm", self, elision=el)
-        return self.alg.fusedmm(self, X, Y, el, session, backend=backend)
+        tr = _tracer_active()
+        if tr is None:
+            return self.alg.fusedmm(self, X, Y, el, session,
+                                    backend=backend)
+        with tr.round(self, "fusedmm", elision=el, session=session) as coll:
+            return self.alg.fusedmm(self, X, Y, el, session,
+                                    backend=backend, coll=coll)
 
     def schedule_words(self, op: str, elision: str = "auto",
                        session: Optional["Session"] = None):
@@ -1243,6 +1303,11 @@ class Session:
     def stats(self) -> dict:
         return dict(hits=self.hits, misses=self.misses,
                     entries=len(self._cache), capacity=self._max_entries)
+
+    def clear(self):
+        """Drop every cached replication and the identity memo."""
+        self._cache.clear()
+        self._id_memo.clear()
 
     def __len__(self):
         return len(self._cache)
@@ -1587,7 +1652,7 @@ class ElasticProblem:
                            p=self.problem.p,
                            coord=getattr(e, "coord", None))
                 self.recoveries.append(rec)
-                reg = obs_metrics.active()
+                reg = _metrics_active()
                 if reg is not None:
                     reg.inc("elastic.faults", 1, op=label,
                             kind=type(e).__name__)
@@ -1649,3 +1714,100 @@ class ElasticProblem:
         derive any per-round state from its argument rather than close
         over a pre-fault derivation."""
         return self._run(label, fn)
+
+
+# ---------------------------------------------------------------------------
+# Local-kernel routing (repro_torch.kernels.ops)
+# ---------------------------------------------------------------------------
+
+class _Router:
+    """Routes ``ops.sddmm/spmm/fusedmm`` calls on a bound RowTiledCOO
+    pack to the active DistProblem.  Only exact pack identity routes
+    (and, for SpMM and FusedMM, the problem's row count); other packs
+    and shapes fall through to the local kernels.  While a routed call
+    runs nothing routes, so the problem's own executors, which call
+    ``ops`` on their packs, never come back here.  (The reference also
+    lets traced arguments fall through; eager torch has no tracers.)"""
+
+    def __init__(self, problem: DistProblem, pack):
+        self.problem, self.pack = problem, pack
+        self.routed = 0            # calls routed so far
+        self._busy = False
+        self._slots = None
+
+    def _owns(self, S, m=None) -> bool:
+        return (S is self.pack and not self._busy
+                and (m is None or m == self.problem.m))
+
+    @contextlib.contextmanager
+    def _routing(self):
+        self._busy = True
+        self.routed += 1
+        try:
+            yield
+        finally:
+            self._busy = False
+
+    def _slot_index(self):
+        """(position in the problem's COO, holds a nonzero) of every slot
+        of the bound pack, matched on the host (:meth:`DistProblem.
+        coo_sort`, :func:`_match_coo`) once and kept on the pack's
+        device.  Padding slots point at (tile_base, 0), which may
+        collide with a real nonzero, so a slot whose pack value is 0
+        holds none."""
+        if self._slots is None:
+            S, prob = self.pack, self.problem
+            key = (S.rows_global().reshape(-1).cpu().numpy().astype(np.int64)
+                   * prob.n + S.cols.reshape(-1).cpu().numpy())
+            idx, ok = _match_coo(*prob.coo_sort(), key)
+            dev = S.vals.device
+            ok = torch.from_numpy(ok).to(dev) & (S.vals.reshape(-1) != 0)
+            self._slots = (torch.from_numpy(idx).to(dev), ok)
+        return self._slots
+
+    def _sample(self, result: SparseResult):
+        """A distributed result re-injected into the bound pack's slots,
+        in the dtype and on the device of the local kernel's result."""
+        S = self.pack
+        idx, ok = self._slot_index()
+        vals = result.values_tensor().to(S.vals.device)
+        out = torch.where(ok, torch.index_select(vals, 0, idx),
+                          vals.new_zeros(()))
+        return S.with_vals(out.reshape(S.vals.shape).to(S.vals.dtype))
+
+    def sddmm(self, A, B, S):
+        if not self._owns(S):
+            return NotImplemented
+        with self._routing():
+            return self._sample(self.problem.sddmm(A, B))
+
+    def spmm(self, S, B, m):
+        if not self._owns(S, m):
+            return NotImplemented
+        with self._routing():
+            out = gathered(self.problem.spmm(B))
+        return out.to(device=B.device, dtype=B.dtype)
+
+    def fusedmm(self, A, B, S, m):
+        if not self._owns(S, m):
+            return NotImplemented
+        with self._routing():
+            out, R = self.problem.fusedmm(A, B)
+            R = self._sample(R)
+        return gathered(out).to(device=B.device, dtype=B.dtype), R
+
+
+@contextlib.contextmanager
+def activate(problem: DistProblem, local_pack):
+    """Route ``repro_torch.kernels.ops`` calls on ``local_pack`` through
+    the distributed problem while the context is live (mesh-active
+    mode); yields the router, whose ``routed`` counts the routed calls.
+    An explicit ``backend=`` always runs the local kernels."""
+    from repro_torch.kernels import ops
+    prev = ops._DIST_ROUTER
+    router = _Router(problem, local_pack)
+    ops._DIST_ROUTER = router
+    try:
+        yield router
+    finally:
+        ops._DIST_ROUTER = prev

@@ -51,6 +51,7 @@ class Event:
     axis: str      # the rank axis
     words: float   # per-device words on the wire
     point: Optional[Tuple[str, int]] = None   # schedule event it belongs to
+    offset: Optional[int] = None   # a permute's: rank i sends to i + offset
 
 
 class Backend:
@@ -61,8 +62,9 @@ class Backend:
         self.grid = grid
         self.log: List[Event] = []
 
-    def _note(self, kind: str, axis: str, words: int, point) -> None:
-        self.log.append(Event(kind, axis, float(words), point))
+    def _note(self, kind: str, axis: str, words: int, point,
+              offset=None) -> None:
+        self.log.append(Event(kind, axis, float(words), point, offset))
 
     def _rank(self, x: torch.Tensor) -> torch.Tensor:
         """One rank's block of a tensor in local storage."""
@@ -93,10 +95,11 @@ class Backend:
         return self.permute(x, axis or self.grid.axes[0], -1 if back else 1,
                             point=point)
 
-    def _note_permute(self, x: torch.Tensor, axis: str, point) -> None:
+    def _note_permute(self, x: torch.Tensor, axis: str, offset: int,
+                      point) -> None:
         blk = self._rank(x)
         self._note("collective-permute", axis,
-                   blk.numel() * blk.element_size() / 4, point)
+                   blk.numel() * blk.element_size() / 4, point, offset)
 
     def words(self):
         """Per-event (kind, words) in issue order; the moves tagged with
@@ -120,7 +123,7 @@ class Stacked(Backend):
                 point=None, then: Callable | None = None) -> torch.Tensor:
         """A roll of the axis's dimension (see :meth:`Backend.permute`)."""
         d = self.grid.dim(axis)
-        self._note_permute(x, axis, point)
+        self._note_permute(x, axis, offset, point)
         if x.shape[d] > 1 and offset % x.shape[d]:
             x = torch.roll(x, shifts=offset, dims=d)
         if then is not None:
@@ -210,7 +213,7 @@ class Dist(Backend):
         import torch.distributed as dist
         g = self.grid
         d = g.dim(axis)
-        self._note_permute(x, axis, point)
+        self._note_permute(x, axis, offset, point)
         size = g.shape[d]
         if offset % size == 0:
             if then is not None:

@@ -21,7 +21,6 @@ from repro_torch.core import costmodel
 from repro_torch.core.collectives import Ring
 from repro_torch.core.sparse import (RowTiledCOO, clamp_row_tile,
                                      pack_row_tiled_arrays, stable_order)
-from repro_torch.training import compression
 
 
 #: an empty COO block, for (row, col) blocks no nonzero falls in
@@ -299,11 +298,17 @@ def put_sets(sets: np.ndarray, width: int, fill: int, grid) -> torch.Tensor:
 
 
 def _wire(x, compress):
-    return compression.to_bf16(x) if compress == "bf16" else x
+    if compress != "bf16":
+        return x
+    from repro_torch.training import compression   # lazy: lint rule R1
+    return compression.to_bf16(x)
 
 
 def _unwire(x, dtype, compress):
-    return compression.from_bf16(x, dtype) if compress == "bf16" else x
+    if compress != "bf16":
+        return x
+    from repro_torch.training import compression   # lazy: lint rule R1
+    return compression.from_bf16(x, dtype)
 
 
 def _flat_rows(idx: torch.Tensor, height: int) -> torch.Tensor:

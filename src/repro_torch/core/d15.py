@@ -268,17 +268,19 @@ def _shift_sparse(plan: PlanD15) -> bool:
     return plan.smeta is not None and plan.smeta.shift
 
 
-def _b_ring(coll, plan: PlanD15, B, n_shifts, overlap):
+def _b_ring(coll, plan: PlanD15, B, n_shifts, overlap, start=0):
     """B phase by phase: the dense ring of ``n_shifts`` shifts, or, where
     the plan prunes the shift channel, phase t's chunk by a direct pruned
     send from its home layer (t = 1 .. L-1; phase 0's is local, and B
-    stays home)."""
+    stays home).  Its k-th move is the schedule's shift event
+    ``start + k``."""
     if not _shift_sparse(plan):
-        return Ring(coll, lambda y, k: coll.shift(y), B, n_shifts, overlap)
+        return Ring(coll, lambda y, k: coll.shift(
+            y, point=("shift", start + k)), B, n_shifts, overlap)
     _, _, send, recv = plan.sup
     return common.pruned_ring(coll, B, send, recv, coll.grid.layer, 1,
                               plan.nB, compress=plan.smeta.compress,
-                              overlap=overlap)
+                              overlap=overlap, start=start)
 
 
 def _sddmm_phase(grid, plan, t, T, B_t, swap, tk):
@@ -298,7 +300,8 @@ def _spmm_phase(grid, plan, t, vals, D, m, tk):
 
 def _sddmm_phases(grid, coll, plan, T, B0, overlap, tk, swap=False,
                   keep_home=False):
-    """L SDDMM phases against a shifting B; returns (vals list, B home).
+    """L SDDMM phases against a shifting B (the round's first L shift
+    events); returns (vals list, B home).
 
     ``keep_home`` issues the L-th shift, which brings B back home for a
     second round; otherwise the round's final position is dead.  (Pruned
@@ -321,7 +324,7 @@ def _gather(coll, plan: PlanD15, A, pre_gathered):
         return A
     sm = plan.smeta
     if sm is None or not sm.gather:
-        return coll.all_gather(A)
+        return coll.all_gather(A, point=("gather", 0))
     send, recv = plan.sup[:2]
     return common.pruned_gather_rows(coll, A, send, recv,
                                      compress=sm.compress,
@@ -355,6 +358,12 @@ def schedule_events(grid: Grid15, op: str, elision: str = "none"):
         return ([("gather", 0)] + _phase_shift(2 * L)
                 + [("reduce", 2 * L - 1)])
     raise ValueError(f"unknown op {op!r}")
+
+
+#: schedule events that move as several collectives, (op, point) ->
+#: kinds in issue order (the analysis layer splits the event's words
+#: evenly over them), as in the reference
+WIRE_EXPANSIONS: dict = {}
 
 
 def schedule_words(grid: Grid15, plan: PlanD15, op: str,
@@ -433,7 +442,7 @@ def spmma_d15(grid: Grid15, plan: PlanD15, B, overlap: bool = True, *,
         T = acc(T, _spmm_phase(grid, plan, t, None, ring.cur, plan.cmA,
                                 tk))
         ring.advance()
-    return coll.psum_scatter(T)
+    return coll.psum_scatter(T, point=("reduce", grid.L - 1))
 
 
 def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
@@ -452,10 +461,14 @@ def spmmb_d15(grid: Grid15, plan: PlanD15, A, overlap: bool = True,
     return _traveling_spmm(grid, coll, plan, T, None, overlap, tk)
 
 
-def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
+def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk, start=0):
     """L phases of S^T-pack SpMM against T whose (nB, r) output travels
-    the ring and arrives home after the full cycle."""
+    the ring (shift events ``start`` ..) and arrives home after the full
+    cycle."""
     L = grid.L
+
+    def shift(x, t):
+        return coll.shift(x, point=("shift", start + t))
 
     def contrib(t):
         return _spmm_phase(grid, plan, t,
@@ -466,13 +479,13 @@ def _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk):
     if overlap:
         nxt = contrib(0)
         for t in range(L):
-            B_cur, works = coll.issue(lambda: coll.shift(acc(B_cur, nxt)))
+            B_cur, works = coll.issue(lambda: shift(acc(B_cur, nxt), t))
             if t + 1 < L:
                 nxt = contrib(t + 1)
             coll.wait(works)
     else:
         for t in range(L):
-            B_cur = coll.shift(acc(B_cur, contrib(t)))
+            B_cur = shift(acc(B_cur, contrib(t)), t)
     return B_cur
 
 
@@ -506,13 +519,14 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         T = _gather(coll, plan, A, pre_gathered)
         r_vals, B_home = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
                                        keep_home=True)
-        ring = _b_ring(coll, plan, B_home, L - 1, overlap)
+        ring = _b_ring(coll, plan, B_home, L - 1, overlap, start=L)
         T2 = None
         for t in range(L):
             T2 = acc(T2, _spmm_phase(grid, plan, t, r_vals[t], ring.cur,
                                       plan.cmA, tk))
             ring.advance()
-        return coll.psum_scatter(T2), tuple(r_vals)
+        return (coll.psum_scatter(T2, point=("reduce", 2 * L - 1)),
+                tuple(r_vals))
 
     if elision == "reuse":
         # FusedMMB: replicate A once; it serves the SDDMM *and* the SpMMB.
@@ -521,7 +535,8 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
         T = _gather(coll, plan, A, pre_gathered)                 # single AG
         r_vals, _ = _sddmm_phases(grid, coll, plan, T, B, overlap, tk,
                                   swap=True)
-        out = _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk)
+        out = _traveling_spmm(grid, coll, plan, T, r_vals, overlap, tk,
+                              start=L)
         return out, tuple(r_vals)
 
     if elision == "fused":
@@ -536,7 +551,8 @@ def fusedmm_d15(grid: Grid15, plan: PlanD15, A, B, elision: str = "auto",
             T2 = acc(T2, contrib)
             r_vals.append(R_t)
             ring.advance()
-        return coll.psum_scatter(T2), tuple(r_vals)
+        return (coll.psum_scatter(T2, point=("reduce", L - 1)),
+                tuple(r_vals))
 
     raise ValueError(f"unknown elision {elision!r}")
 

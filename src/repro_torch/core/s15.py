@@ -301,6 +301,12 @@ def schedule_events(grid: Grid15, op: str, elision: str = "none"):
     raise ValueError(f"unknown op {op!r}")
 
 
+#: schedule events that move as several collectives, (op, point) ->
+#: kinds in issue order (the analysis layer splits the event's words
+#: evenly over them), as in the reference
+WIRE_EXPANSIONS: dict = {}
+
+
 def schedule_words(grid: Grid15, plan: PlanS15, op: str,
                    elision: str = "none", pre_gathered=(False, False)):
     """Per-device wire words for each schedule event, aligned 1:1 with

@@ -324,6 +324,14 @@ def schedule_events(grid: Grid25, op: str, elision: str = "none"):
     raise ValueError(f"unknown op {op!r}")
 
 
+#: schedule events that move as several collectives, (op, point) ->
+#: kinds in issue order (the analysis layer splits the event's words
+#: evenly over them), as in the reference
+WIRE_EXPANSIONS: dict = {
+    ("fusedmm", "reduce"): ("reduce-scatter", "all-gather"),
+}
+
+
 def schedule_words(grid: Grid25, plan: PlanS25, op: str,
                    elision: str = "none", pre_gathered: bool = False):
     """Per-device wire words for each schedule event, aligned 1:1 with

@@ -190,6 +190,25 @@ def pack_row_tiled_arrays(rows: np.ndarray, cols: np.ndarray,
     return rl, cl, vl, tb, row_tile
 
 
+def pack_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+             shape: Tuple[int, int], capacity: int | None = None,
+             pad_multiple: int = 8, *, device=None) -> PaddedCOO:
+    """Raw COO triplets as a PaddedCOO of static capacity (the
+    reference's), placed on ``device`` (default: cuda)."""
+    nnz = int(rows.shape[0])
+    cap = capacity if capacity is not None \
+        else _round_up(max(nnz, 1), pad_multiple)
+    if nnz > cap:
+        raise ValueError(f"nnz={nnz} exceeds capacity={cap}")
+    r = np.zeros(cap, np.int32)
+    c = np.zeros(cap, np.int32)
+    v = np.zeros(cap, np.float32)
+    r[:nnz], c[:nnz], v[:nnz] = rows, cols, vals
+    dev = _device.resolve(device)
+    return PaddedCOO(torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev),
+                     torch.from_numpy(v).to(dev), shape)
+
+
 def pack_row_tiled(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                    shape: Tuple[int, int], *, row_tile: int = 256,
                    nz_block: int = 256, nblocks: int | None = None,

@@ -15,6 +15,11 @@ reference, and the refusals stay: a non-divisor ``r_tile`` and a
 ``blocks_per_step`` that divides the pack's ``window_groups`` (proved on
 the host when the plan was made) is not checked again, so the executors'
 launches read nothing back from the card.
+
+While ``repro_torch.core.api.activate(problem, S)`` is live, calls on
+the bound pack ``S`` with no explicit ``backend`` run the distributed
+problem instead (``_DIST_ROUTER``); the router answers NotImplemented
+for anything it does not own, which falls through to the local kernels.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from repro_torch.kernels.spmm import spmm_cuda
 BACKENDS = ("cuda", "ref")
 _DEFAULT_BACKEND = "cuda"
 KERNELS = {"spmm": spmm_cuda, "sddmm": sddmm_cuda, "fusedmm": fusedmm_cuda}
+
+#: the distributed routing hook, set by ``repro_torch.core.api.activate``
+_DIST_ROUTER = None
 
 
 def set_default_backend(backend: str) -> None:
@@ -105,6 +113,10 @@ def sddmm(A, B, S: RowTiledCOO, backend: str | None = None, *,
           r_tile: int | None = None,
           blocks_per_step: int | None = None) -> RowTiledCOO:
     """R = S * (A @ B.T) sampled at nnz(S); returns S with new values."""
+    if _DIST_ROUTER is not None and backend is None:
+        routed = _DIST_ROUTER.sddmm(A, B, S)
+        if routed is not NotImplemented:
+            return routed
     if _backend(backend) == "ref":
         return _ref.sddmm(A, B, S)
     r_tile, bps = _resolve_tiling(S, B.shape[0], B.shape[-1], r_tile,
@@ -120,6 +132,10 @@ def spmm(S: RowTiledCOO, B, m: int | None = None,
          blocks_per_step: int | None = None):
     """out = S @ B (shape (m, r))."""
     m = m if m is not None else S.shape[0]
+    if _DIST_ROUTER is not None and backend is None:
+        routed = _DIST_ROUTER.spmm(S, B, m)
+        if routed is not NotImplemented:
+            return routed
     if _backend(backend) == "ref":
         return _ref.spmm(S, B, m)
     r_tile, bps = _resolve_tiling(S, B.shape[0], B.shape[-1], r_tile,
@@ -134,6 +150,10 @@ def fusedmm(A, B, S: RowTiledCOO, m: int | None = None,
             blocks_per_step: int | None = None):
     """FusedMMA: out = SDDMM(A,B,S) @ B; returns (out, R)."""
     m = m if m is not None else S.shape[0]
+    if _DIST_ROUTER is not None and backend is None:
+        routed = _DIST_ROUTER.fusedmm(A, B, S, m)
+        if routed is not NotImplemented:
+            return routed
     if _backend(backend) == "ref":
         return _ref.fusedmm(A, B, S, m)
     r_tile, bps = _resolve_tiling(S, B.shape[0], B.shape[-1], r_tile,
