@@ -176,6 +176,24 @@ Phases, each printing one JSON line:
            survivors re-plan onto the largest feasible p and equal the
            stacked run of that p on card 0 and the fault-free p = 4
            result bit for bit, the others leave with api.RankRetired;
+           then serving on the group (ServingEngine(group=): rank 0 the
+           front end, the others following its tick records): (A) the
+           serving phase's cell A (ER 2^--scale, integer data, CF
+           factors deployed with group=, "auto" at p) through replay_trace
+           at 1, 8 and 32 clients batched and 1 and 8 solo, each score
+           exact and equal to the same traffic on the stacked run of p
+           on card 0 (tick reports too), p50/p99, requests a second and
+           each tick's record bytes, broadcast ms and gather ms; the 8
+           lookups in one tick (exact, and the stacked run's exact); a
+           DeviceLost at rank 3 in a score tick (p -> 2) and at rank 1
+           in a lookup tick (-> 1), the ranks left out following on;
+           the traffic again on the degraded group with the Session
+           re-warmed; (B) the serving phase's cell B (GAT at
+           2^--apps-scale nodes) on the group, the served rows bit for
+           bit gat_layer_distributed's on the group and within 2e-3 of
+           its plain version; at world size 1 a front end with no
+           follower at 2^DIST_SERVE_ONE_SCALE rows, equal to the engine
+           without a group bit for bit;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -202,7 +220,8 @@ the dist phase and sections A and B of the train phase (2^scale rows),
 the faults phase's (e) and the serving phase's cell B (``--scale`` its
 cell A), ``--rmat-scale`` the
 power-law timing and ``--comm-scale`` the comm_sparse phase and the
-dist phase's R-MAT cells for rehearsals;
+dist phase's R-MAT cells for rehearsals; ``--dist-serving-only`` runs
+the dist phase's serving cells alone;
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -2842,7 +2861,8 @@ def comm_by_kind(coll):
 
 
 def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
-              comm_scale: int, out_dir: str) -> None:
+              comm_scale: int, out_dir: str, apps_scale: int = 20,
+              serving_only: bool = False) -> None:
     """One rank of the dist phase, on card ``rank``, over NCCL; writes its
     report to ``out_dir``.  Any failed check raises (a non-zero exit)."""
     import datetime
@@ -2855,9 +2875,16 @@ def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
                             timeout=datetime.timedelta(seconds=600))
     try:
         report = _dist_rank(torch, dist, rank, world, scale, reps,
-                            comm_scale)
-    finally:
-        dist.destroy_process_group()
+                            comm_scale, apps_scale, serving_only)
+    except BaseException:
+        # leave at once: the peers may wait in a collective this rank
+        # never joins, and destroy_process_group would wait with them
+        import os
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
     with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(report, f)
 
@@ -2868,10 +2895,45 @@ def _leaves(res):
     return [res]
 
 
-def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
+def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
+               apps_scale, serving_only=False):
+    import gc
+    t_rank = time.perf_counter()
+    ck = Checker(torch)
+    report = {"rank": rank, "world": world, "problems": {}}
+    if not serving_only:
+        _dist_cells(torch, dist, ck, rank, world, scale, reps, comm_scale,
+                    report)
+    # serving on the group, each cell's launches counted on this rank in
+    # its served segments alone (LaunchWindows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"dist rank {rank}: the serving cells start at "
+        f"+{time.perf_counter() - t_rank:.1f} s")
+    t0 = time.perf_counter()
+    if world > 1:
+        serve = {"als": dist_serving(torch, dist, ck, rank, world, scale),
+                 "gat": dist_serving_gat(torch, dist, ck, rank, world,
+                                         apps_scale)}
+    else:
+        serve = {"one": dist_serving_one(torch, dist, ck, min(
+            scale, DIST_SERVE_ONE_SCALE))}
+    torch.cuda.synchronize()
+    serve.update(launches={cell: rec["launches"]
+                           for cell, rec in serve.items()},
+                 seconds=time.perf_counter() - t0)
+    report["serving"] = serve
+    report["checks"] = ck.n
+    return report
+
+
+def _dist_cells(torch, dist, ck, rank, world, scale, reps, comm_scale,
+                report):
+    """The dist phase's cells before serving, into ``report``: the
+    families' cells beside the stacked run, then (world > 1) the sampled
+    loss, the R-MAT cells and the fault cells."""
     from repro_torch.core import api, costmodel
     from repro_torch.kernels import ops
-    ck = Checker(torch)
     dev = torch.device("cuda", rank)
     m = n = 1 << scale
     r, per_row, seed = 128, 16, 0
@@ -2880,8 +2942,7 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
     X = torch.randn((m, r), generator=g, device="cuda")
     Y = torch.randn((n, r), generator=g, device="cuda")
     Timed = _timed_backend(torch)
-    report = {"rank": rank, "world": world, "m": m, "r": r,
-              "nnz": int(len(vals)), "problems": {}}
+    report.update(m=m, r=r, nnz=int(len(vals)))
     for algorithm, cells in DIST_PROBLEMS if world > 1 \
             else DIST_PROBLEMS_ONE:
         torch.cuda.reset_peak_memory_stats()
@@ -3004,8 +3065,6 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale):
         report["rmat"] = dist_rmat(torch, dist, ck, rank, world,
                                    comm_scale, reps, Timed)
         report["faults"] = dist_faults(torch, dist, ck, rank, world, scale)
-    report["checks"] = ck.n
-    return report
 
 
 def dist_obs(torch, ck, prob, X, Y, world, reps):
@@ -3264,6 +3323,567 @@ def dist_faults(torch, dist, ck, rank, world, scale):
     return rec
 
 
+#: the dist phase's serving cells: cell A's traffic, (engine, clients a
+#: burst); the ranks its two faults lose (4 -> 2 -> 1); the rows of the
+#: world-1 cell (cut from 2^22 to keep the one-card script's time)
+DIST_SERVE_TRAFFIC = [("batched", 1), ("batched", 8), ("batched", 32),
+                      ("solo", 1), ("solo", 8)]
+DIST_SERVE_LOST = (3, 1)
+DIST_SERVE_ONE_SCALE = 20
+
+
+class LaunchWindows:
+    """The kernel launches of one cell's served segments on this rank.
+    A window sets every count to 0 as it opens and adds the counts to
+    the cell's sums as it closes; ``paused()`` inside one leaves out
+    what runs in it (the front end's stacked run beside the group's),
+    so the sums count the served path alone."""
+
+    def __init__(self):
+        self.launches, self.forms = {}, {}
+
+    def _add(self):
+        from repro_torch.kernels import ops
+        for k, v in ops.launch_counts().items():
+            self.launches[k] = self.launches.get(k, 0) + v
+        for k, f in ops.form_counts().items():
+            mine = self.forms.setdefault(k, {})
+            for form, v in f.items():
+                mine[form] = mine.get(form, 0) + v
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from repro_torch.kernels import ops
+        ops.reset_launch_counts()
+        try:
+            yield
+        finally:
+            self._add()
+
+    @contextlib.contextmanager
+    def paused(self):
+        from repro_torch.kernels import ops
+        self._add()
+        try:
+            yield
+        finally:
+            ops.reset_launch_counts()
+
+    def held(self, kernels, what):
+        """The sums, after failing if a kernel of ``kernels`` never
+        launched in a window."""
+        for k in kernels:
+            if self.launches.get(k, 0) <= 0:
+                raise AssertionError(f"{what}: {k} kernel not launched: "
+                                     f"{self.launches}")
+        return {"launches": self.launches, "forms": self.forms}
+
+
+def served(eng, fn, win, plan=None):
+    """One served segment on a group, counted in the window ``win`` on
+    every rank: ``fn`` (the front end's submissions and ticks) then
+    ``stop()`` on the front end, ``follow()`` on every other rank;
+    ``plan`` armed on every rank.  (fn's result or None, the fault
+    controller.)"""
+    from repro_torch.distributed import faults
+    with (faults.inject(plan) if plan is not None
+          else contextlib.nullcontext()) as ctl, win():
+        if eng.front_end:
+            out = fn()
+            eng.stop()
+        else:
+            out = None
+            eng.follow()
+    return out, ctl
+
+
+@contextlib.contextmanager
+def recording(eng, keep):
+    """Inside the block, append each tick's report of ``eng`` (the front
+    end's), without its tickets, to ``keep``.  The wrapper leaves with
+    the block: an engine attribute holding its own bound method would tie
+    the engine, its pool and their device memory into a reference cycle
+    that only the collector frees."""
+    orig = eng.tick
+
+    def tick():
+        rep = orig()
+        keep.append({k: v for k, v in rep.items() if k != "tickets"})
+        return rep
+
+    eng.tick = tick
+    try:
+        yield keep
+    finally:
+        del eng.tick
+
+
+def gather_seconds(torch, spent):
+    """A ``patched`` wrapper of ``_Grid.gather_stacked`` recording each
+    outermost call's seconds, the card synchronised before and after
+    (so a gather holds its wait for the slowest peer)."""
+    def wrap(orig):
+        depth = [0]
+
+        def spy(self, x):
+            if depth[0]:
+                return orig(self, x)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(self, x)
+            finally:
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t0)
+                depth[0] -= 1
+        return spy
+    return wrap
+
+
+def tick_split(torch, eng, fn):
+    """Run ``fn`` (submits and ticks once) with the result gathers timed:
+    the tick's report (ms: wall, record broadcast, gather) and fn's
+    result."""
+    from repro_torch.core import grid as grid_mod
+    spent, keep = [], []
+    with recording(eng, keep), patched(grid_mod._Grid, "gather_stacked",
+                                       gather_seconds(torch, spent)):
+        out = fn()
+    rep = keep[-1]
+    return {"requests": rep["requests"], "rounds": rep["rounds"],
+            "tick_ms": rep["wall"] * 1e3,
+            "broadcast_ms": rep.get("broadcast_ms"),
+            "record_bytes": rep.get("record_bytes"),
+            "gather_ms": sum(spent) * 1e3}, out
+
+
+def score_figures(torch, ck, eng, dep, catalog, want, conc, tag):
+    """On the front end: the open-loop score traffic at ``conc`` clients
+    a burst (a replay of 2 bursts to warm, then SERVE_BURSTS measured:
+    p50/p99, requests a second, each tick's wall and record), every
+    answer against the exact dots; then 3 one-burst ticks with their
+    gathers timed.  Returns (figures, the burst ticks' answers by
+    catalog index, their (requests, rounds))."""
+    from repro_torch import serving
+    serving.replay_trace(eng, score_trace(dep, conc, 2, catalog)[0])
+    trace, order = score_trace(dep, conc, SERVE_BURSTS, catalog)
+    with recording(eng, []) as keep:
+        res = serving.replay_trace(eng, trace)
+    for t, k in zip(res["tickets"], order):
+        ck.equal(t.result(), want[k], f"{tag} c{conc} score == exact")
+    fig = {"concurrency": conc, "served": res["served"],
+           "p50_ms": res["p50"] * 1e3, "p99_ms": res["p99"] * 1e3,
+           "requests_per_s": res["throughput"], "ticks": len(keep),
+           "tick_ms": [k["wall"] * 1e3 for k in keep],
+           "broadcast_ms": [k.get("broadcast_ms") for k in keep],
+           "record_bytes": [k.get("record_bytes") for k in keep]}
+    answers, reports, splits = [], [], []
+    _, order = score_trace(dep, conc, 1, catalog)
+    for _ in range(3):
+        split, rep = tick_split(torch, eng, lambda: one_burst(
+            serving, dep, eng, conc, catalog))
+        splits.append(split)
+        reports.append((rep["requests"], rep["rounds"]))
+        answers.append([(k, t.result()) for k, t in zip(order,
+                                                      rep["tickets"])])
+    fig["split"] = splits
+    return fig, answers, reports
+
+
+def stamper(tag):
+    """A log of elapsed seconds at each named step (one line each)."""
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        log(f"{tag} +{time.perf_counter() - t0:.1f} s: {what}")
+    return stamp
+
+
+def dist_serving(torch, dist, ck, rank, world, scale):
+    """The dist phase's serving cell A on the group (see the module
+    doc); this rank's record.  The front end (rank 0) submits, ticks
+    and checks; the other ranks follow its tick records."""
+    import gc
+    from repro_torch import serving
+    from repro_torch.apps import als
+    from repro_torch.core import api
+    from repro_torch.distributed import faults
+    from repro_torch.serving import pool as pool_mod
+    group = dist.group.WORLD
+    front = rank == 0
+    dev = torch.device("cuda", rank)
+    m, r = 1 << scale, 128
+    stamp = stamper(f"dist serving rank {rank}")
+    t0 = time.perf_counter()
+    rows, cols, vals, U, V = integer_problem(torch, m, 16, r, 0)
+    rec = {"m": m, "r": r, "nnz": int(len(vals)),
+           "gen_s": time.perf_counter() - t0}
+    stamp("data drawn")
+    pool = serving.SessionPool(capacity=2)
+    digest_s = []
+    with patched(pool_mod, "content_key", seconds_of(digest_s)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dep = als.deploy_factors(pool, rows, cols, vals, (m, m), U, V,
+                                 group=group)
+        torch.cuda.synchronize()
+    rec["deploy"] = {"seconds": time.perf_counter() - t0,
+                     "digest_s": digest_s[0], "family": dep.problem.alg.name,
+                     "c": dep.problem.c, "p": dep.problem.p}
+    stamp("deployed")
+    win = LaunchWindows()
+    engines = {"batched": serving.ServingEngine(pool, max_batch=64,
+                                                group=group),
+               "solo": serving.ServingEngine(pool, max_batch=64,
+                                             batching=False,
+                                             use_session=False, group=group)}
+    eng = engines["batched"]
+    rng = np.random.default_rng(3)
+    catalog = [(rng.integers(0, m, SERVE_QUERY),
+                rng.integers(0, m, SERVE_QUERY))
+               for _ in range(SERVE_CATALOG)]
+    want, st = None, {}     # st: the stacked run (front end only)
+    if front:
+        want = [exact_scores(torch, U, V, qr, qc) for qr, qc in catalog]
+        # the same deployment stacked at p = world on card 0 (the same
+        # content, so the group's key)
+        pool4 = serving.SessionPool(capacity=2)
+        with patched(pool_mod, "content_key",
+                     lambda orig: lambda *a, **k: dep.key):
+            st["dep"] = als.deploy_factors(pool4, rows, cols, vals, (m, m),
+                                           U, V, devices=[dev] * world)
+        st["batched"] = serving.ServingEngine(pool4, max_batch=64)
+        st["solo"] = serving.ServingEngine(pool4, max_batch=64,
+                                           batching=False, use_session=False)
+        del pool4
+        rows_t = torch.from_numpy(rows).to(dev).long()
+        cols_t = torch.from_numpy(cols).to(dev).long()
+        vals_t = torch.from_numpy(vals).to(dev).double()
+        stamp("stacked run deployed")
+    del U, V            # the deployments hold their own copies
+    torch.cuda.empty_cache()
+    seen = {}       # catalog index -> the stacked run's answer
+
+    def same_as_stacked(k, got, what):
+        ck.equal(got, want[k], f"{what} == exact")
+        if k in seen:
+            ck.equal(got, seen[k], f"{what} == stacked p = {world}")
+
+    # score traffic: batched and solo, beside the stacked run's
+    def traffic(mode, conc):
+        fig, ans, reps = score_figures(torch, ck, engines[mode], dep,
+                                       catalog, want, conc, "dist serving")
+        with win.paused():
+            fig4, ans4, reps4 = score_figures(torch, ck, st[mode],
+                                              st["dep"], catalog, want,
+                                              conc, "dist serving stacked")
+        if reps != reps4:
+            raise AssertionError(f"dist serving {mode} c{conc}: tick "
+                                 f"reports {reps} != stacked {reps4}")
+        for a, b in zip(ans, ans4):
+            for (k, x), (_, y) in zip(a, b):
+                seen.setdefault(k, y)
+                same_as_stacked(k, x, f"dist serving {mode} c{conc}")
+        log(f"dist serving p={world} {mode} c{conc}: p50 "
+            f"{fig['p50_ms']:.2f} ms, p99 {fig['p99_ms']:.2f} ms, "
+            f"{fig['requests_per_s']:.0f} req/s (stacked p50 "
+            f"{fig4['p50_ms']:.2f} ms)")
+        return {"mode": mode, "cards": fig, "stacked": fig4}
+
+    rec["scores"] = []
+    for mode, conc in DIST_SERVE_TRAFFIC:
+        out, _ = served(engines[mode], lambda: traffic(mode, conc), win)
+        rec["scores"].append(out)
+        stamp(f"scores {mode} c{conc}")
+
+    # the 8 lookups in one tick, beside the stacked run's
+    def lookups(tag, Ws):
+        split4 = None
+        if st:
+            # the stacked run first, then freed: its deployment and the
+            # group's (m, 512) rounds would not fit on card 0 together.
+            # Its Session's replicas (U, V, then the round's operand) go
+            # before and after its tick, to keep card 0's peak down
+            with win.paused():
+                e4 = st["batched"]
+                t4 = [als.lookup_embeddings(e4, st["dep"], W) for W in Ws]
+                st["dep"].session.clear()
+                rep4 = e4.tick()
+                st["dep"].session.clear()
+                stamp(f"{tag}: the stacked run ticked")
+                for W, t in zip(Ws, t4):
+                    ck.equal(t.result(), exact_spmm(torch, rows_t, cols_t,
+                                                    vals_t, W, m),
+                             f"dist {tag} stacked p = {world} == exact")
+                split4 = {"requests": rep4["requests"],
+                          "rounds": rep4["rounds"],
+                          "tick_ms": rep4["wall"] * 1e3}
+                del t4, rep4, e4
+                st.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        def tick():
+            tickets = [als.lookup_embeddings(eng, dep, W) for W in Ws]
+            eng.tick()
+            return tickets
+
+        split, tickets = tick_split(torch, eng, tick)
+        stamp(f"{tag}: ticked")
+        # held to the exact products, as the stacked run's were: the two
+        # runs' lookups are equal bit for bit
+        for W, t in zip(Ws, tickets):
+            ck.equal(t.result(), exact_spmm(torch, rows_t, cols_t, vals_t,
+                                            W, m),
+                     f"dist {tag} w={W.shape[1]} == exact")
+        if split4 is not None:
+            if (split4["requests"], split4["rounds"]) != (split["requests"],
+                                                          split["rounds"]):
+                raise AssertionError(f"dist lookups: {split} != {split4}")
+            split["stacked"] = split4
+        split["record_gb_per_s"] = (split["record_bytes"] / 1e6
+                                    / split["broadcast_ms"])
+        split["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del tickets
+        torch.cuda.empty_cache()
+        return split
+
+    def lookup_weights(widths, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randint(-3, 4, (m, w), generator=g,
+                              device=dev).float() for w in widths]
+
+    # every rank drops the Session's replicas of U and V at once (the
+    # next score tick misses them again on every rank): 8 GiB a card of
+    # headroom for the (m, 512) round
+    dep.session.clear()
+    torch.cuda.empty_cache()
+    rec["lookups"], _ = served(eng, lambda: lookups(
+        "lookups", lookup_weights(LOOKUP_WIDTHS, 5)), win)
+    stamp("lookups")
+
+    # the losses: rank 3 in a score tick, then rank 1 in a lookup tick
+    def lose(op):
+        if op == "sddmm":
+            tickets = [als.predict_scores(eng, dep, *catalog[k])
+                       for k in range(SERVE_CATALOG)]
+            rep = eng.tick()
+            for k, t in enumerate(tickets):
+                same_as_stacked(k, t.result(), "dist serving after a loss")
+            return {"tick_ms": rep["wall"] * 1e3}
+        W2 = lookup_weights((16,), 6)
+        return lookups("lookup after a loss", W2)
+
+    rec["losses"] = []
+    for op, lost in zip(("sddmm", "spmm"), DIST_SERVE_LOST):
+        plan = faults.FaultPlan.scripted(faults.FaultSpec(
+            op=op, kind="device_lost", rank=lost, round=0))
+        held = dep.retired is None
+        p_before = dep.problem.p
+        degrade_s = []
+        with patched(api, "degrade", seconds_of(degrade_s)):
+            out, ctl = served(eng, lambda: lose(op), win, plan)
+        ev = {"op": op, "lost_rank": lost, "fired": len(ctl.fired),
+              "replan_host_s": degrade_s[0] if degrade_s else None}
+        if not held:
+            ev["outcome"] = "away"
+        elif dep.retired is not None:
+            ev.update(outcome="retired", p_after=dep.retired.p)
+        else:
+            ev.update(outcome="recovered", p=p_before, p_after=dep.problem.p,
+                      family_after=dep.problem.alg.name,
+                      c_after=dep.problem.c)
+            if dep.problem.p >= p_before:
+                raise AssertionError(f"dist serving: {op} loss left p "
+                                     f"{p_before}")
+        if out is not None:
+            ev["first_tick"] = out
+        rec["losses"].append(ev)
+        stamp(f"loss in {op}: {ev['outcome']}")
+        if front:
+            log(f"dist serving: DeviceLost({lost}) in {op}: p {p_before} -> "
+                f"{dep.problem.p}, re-plan {ev['replan_host_s']:.3f} host "
+                f"s, first tick {out['tick_ms']:.0f} ms")
+
+    # the traffic again on the degraded group, then the Session re-warmed
+    def again():
+        figs = [score_figures(torch, ck, eng, dep, catalog, want, conc,
+                              "dist serving degraded")[0]
+                for conc in SERVE_CONCURRENCY]
+        steady = []
+        for _ in range(2):
+            tickets = [als.predict_scores(eng, dep, *catalog[k])
+                       for k in range(SERVE_CATALOG)]
+            wall = eng.tick()["wall"]
+            for k, t in enumerate(tickets):
+                same_as_stacked(k, t.result(), "dist serving degraded")
+            steady.append({"tick_ms": wall * 1e3,
+                           "session": dep.session.stats()})
+        if steady[1]["session"]["hits"] <= steady[0]["session"]["hits"]:
+            raise AssertionError(f"dist serving: no Session hit after "
+                                 f"re-warming {steady}")
+        return {"scores": figs, "steady": steady,
+                "lookup": lookups("lookup degraded",
+                                  lookup_weights((16,), 6))}
+
+    rec["degraded"], _ = served(eng, again, win)
+    stamp("degraded traffic")
+    rec["pool"] = pool.stats()
+    rec.update(win.held(("sddmm", "spmm"), f"dist serving rank {rank}"))
+    del dep, engines, eng, pool
+    if front:
+        del rows_t, cols_t, vals_t, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_serving_gat(torch, dist, ck, rank, world, scale):
+    """The dist phase's serving cell B: GAT inference at 2^scale nodes
+    on the group, each client's rows bit for bit gat_layer_distributed's
+    on the same group and within 2e-3 of its plain version."""
+    import torch.nn.functional as F
+    from repro_torch import serving
+    from repro_torch.apps import gat
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    group = dist.group.WORLD
+    dev = torch.device("cuda", rank)
+    m, d = 1 << scale, 128
+    stamp = stamper(f"dist serving GAT rank {rank}")
+    rows, cols = gat_graph_on_card(torch, m, 16, 0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H = torch.randn((m, d), generator=g, device="cuda")
+    params = gat.init_gat_layer(
+        torch.Generator(device="cuda").manual_seed(0), d, d)
+    rec = {"m": m, "d": d, "nnz": int(len(rows))}
+    pool = serving.SessionPool(capacity=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dep = gat.gat_deploy_layer(pool, rows, cols, m, H, params, group=group)
+    torch.cuda.synchronize()
+    rec["deploy"] = {"seconds": time.perf_counter() - t0,
+                     "family": dep.problem.alg.name, "c": dep.problem.c}
+    stamp("deployed")
+    graphP = api.make_problem(rows, cols, np.ones(len(rows), np.float32),
+                              (m, m), d, group=group)
+    full = gat.gat_layer_distributed(graphP, H, params)
+    ops.set_default_backend("ref")
+    try:
+        plain = gat.gat_layer_distributed(graphP, H, params)
+    finally:
+        ops.set_default_backend("cuda")
+    stamp("distributed layer and its plain version")
+    eng = serving.ServingEngine(pool, max_batch=64, group=group)
+
+    def queries():
+        rng = np.random.default_rng(4)
+        ticks, worst = [], 0.0
+        for i in range(2 + GAT_TICKS):  # the first packs; the last splits
+            clients = [np.sort(rng.choice(m, GAT_QUERY, replace=False))
+                       for _ in range(GAT_CLIENTS)]
+
+            def query():
+                t0 = time.perf_counter()
+                scores = [gat.gat_submit_scores(eng, dep, ids)[0]
+                          for ids in clients]
+                rep1 = eng.tick()
+                aggs = [gat.gat_submit_aggregate(eng, dep, ids, t.result())
+                        for ids, t in zip(clients, scores)]
+                rep2 = eng.tick()
+                torch.cuda.synchronize()
+                return rep1, rep2, aggs, time.perf_counter() - t0
+
+            split = None
+            if i == 1 + GAT_TICKS:
+                split, (rep1, rep2, aggs, wall) = tick_split(torch, eng,
+                                                             query)
+            else:
+                rep1, rep2, aggs, wall = query()
+            for ids, t in zip(clients, aggs):
+                idx = torch.from_numpy(ids).to(dev)
+                got = F.elu(t.result())[idx]
+                ck.equal(got, full[idx], "dist served GAT rows == "
+                         "distributed layer")
+                worst = max(worst, ck.close(got, plain[idx], 2e-3,
+                                            "dist served GAT rows vs plain"))
+            ticks.append({
+                "score_tick_ms": rep1["wall"] * 1e3,
+                "aggregate_tick_ms": rep2["wall"] * 1e3,
+                "broadcast_ms": [rep1["broadcast_ms"], rep2["broadcast_ms"]],
+                "record_bytes": [rep1["record_bytes"], rep2["record_bytes"]],
+                "rounds": [rep1["rounds"], rep2["rounds"]],
+                "query_ms": wall * 1e3, "aggregate_split": split})
+            del aggs
+        qms = sorted(t["query_ms"] for t in ticks[1:-1])
+        log(f"dist serving GAT p={world}: query ticks "
+            f"{qms[0]:.1f}-{qms[-1]:.1f} ms")
+        return {"ticks": ticks, "p50_ms": float(np.percentile(qms, 50)),
+                "p99_ms": float(np.percentile(qms, 99)),
+                "requests_per_s": GAT_CLIENTS * len(qms) / (sum(qms) / 1e3),
+                "max_abs_err_vs_plain": worst}
+
+    win = LaunchWindows()
+    rec["queries"], _ = served(eng, queries, win)
+    stamp("queries")
+    rec["session"] = dep.session.stats()
+    rec.update(win.held(("sddmm", "spmm"),
+                        f"dist serving GAT rank {rank}"))
+    del dep, eng, pool, graphP, full, plain, H
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_serving_one(torch, dist, ck, scale):
+    """World 1: cell A's score traffic at 1 and 8 clients at 2^scale rows
+    through a front end with no follower, == the same traffic on an
+    engine without a group, bit for bit, answers and tick reports."""
+    from repro_torch import serving
+    from repro_torch.apps import als
+    from repro_torch.serving import pool as pool_mod
+    dev = torch.device("cuda", 0)
+    m, r = 1 << scale, 128
+    rows, cols, vals, U, V = integer_problem(torch, m, 16, r, 0)
+    pool = serving.SessionPool(capacity=1)
+    t0 = time.perf_counter()
+    dep = als.deploy_factors(pool, rows, cols, vals, (m, m), U, V,
+                             group=dist.group.WORLD)
+    rec = {"m": m, "deploy_s": time.perf_counter() - t0,
+           "family": dep.problem.alg.name}
+    pool1 = serving.SessionPool(capacity=1)
+    with patched(pool_mod, "content_key",
+                 lambda orig: lambda *a, **k: dep.key):
+        dep1 = als.deploy_factors(pool1, rows, cols, vals, (m, m), U, V,
+                                  devices=[dev])
+    eng = serving.ServingEngine(pool, max_batch=64, group=dist.group.WORLD)
+    plain = serving.ServingEngine(pool1, max_batch=64)
+    rng = np.random.default_rng(3)
+    catalog = [(rng.integers(0, m, SERVE_QUERY),
+                rng.integers(0, m, SERVE_QUERY))
+               for _ in range(SERVE_CATALOG)]
+    want = [exact_scores(torch, U, V, qr, qc) for qr, qc in catalog]
+    rec["scores"] = []
+    win = LaunchWindows()
+    for conc in (1, 8):
+        with win():
+            fig, ans, reps = score_figures(torch, ck, eng, dep, catalog,
+                                           want, conc, "world-1 serving")
+        fig1, ans1, reps1 = score_figures(torch, ck, plain, dep1, catalog,
+                                          want, conc, "world-1 no group")
+        if reps != reps1:
+            raise AssertionError(f"world-1 serving c{conc}: {reps} != "
+                                 f"{reps1}")
+        for a, b in zip(ans, ans1):
+            for (_, x), (_, y) in zip(a, b):
+                ck.equal(x, y, f"world-1 serving c{conc} == no group")
+        rec["scores"].append({"group": fig, "no_group": fig1})
+    eng.stop()
+    rec.update(win.held(("sddmm",), "world-1 serving"))
+    del dep, dep1, eng, plain, pool, pool1, U, V
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3271,9 +3891,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_dist(torch, scale: int, reps: int, comm_scale: int):
+def phase_dist(torch, scale: int, reps: int, comm_scale: int,
+               apps_scale: int, serving_only: bool = False):
     """One process per visible card over NCCL (``dist_rank``); fails if
-    a rank fails or any outlives DIST_TIMEOUT_S (all are stopped)."""
+    a rank fails or any outlives DIST_TIMEOUT_S (all are stopped).
+    ``serving_only``: the serving cells alone (a cheaper rehearsal)."""
     import multiprocessing
     import signal
     import tempfile
@@ -3295,7 +3917,8 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int):
         init = f"tcp://localhost:{_free_port()}"
         procs = [ctx.Process(target=dist_rank, args=(rk, world, init, scale,
                                                      reps, comm_scale,
-                                                     out_dir))
+                                                     out_dir, apps_scale,
+                                                     serving_only))
                  for rk in range(world)]
         # a SIGTERM (a time limit around the script) unwinds through the
         # finally below, which stops every rank
@@ -3339,7 +3962,15 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int):
                               .get("cells", {}).items()},
                   "faults": rr.get("faults")}
                   for rr in ranks]}
-    if world > 1:
+    serve = ranks[0]["serving"]
+    report["serving"] = dict(serve, ranks=[{
+        "rank": rr["rank"], "seconds": rr["serving"]["seconds"],
+        "launches": rr["serving"]["launches"],
+        "deploy_s": rr["serving"].get("als", {}).get("deploy"),
+        "gat_deploy_s": rr["serving"].get("gat", {}).get("deploy"),
+        "losses": rr["serving"].get("als", {}).get("losses")}
+        for rr in ranks])
+    if world > 1 and not serving_only:
         # the survivors recovered onto the degraded group, every other
         # rank (the lost one among them) retired
         outs = [rr["faults"]["outcome"] for rr in ranks]
@@ -3347,8 +3978,21 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int):
         if outs != ["recovered"] * p_after + ["retired"] * (world - p_after) \
                 or outs[DIST_FAULT_LOST] != "retired":
             raise AssertionError(f"dist faults: outcomes {outs}")
+    if world > 1:
+        # serving: the first loss retires the ranks past the degraded p,
+        # the second every survivor but the front end; the rest followed
+        first, second = ([rr["serving"]["als"]["losses"][i]["outcome"]
+                          for rr in ranks] for i in (0, 1))
+        p1 = serve["als"]["losses"][0]["p_after"]
+        if first != ["recovered"] * p1 + ["retired"] * (world - p1) or \
+                first[DIST_SERVE_LOST[0]] != "retired" or \
+                second != ["recovered"] + ["retired"] * (p1 - 1) \
+                + ["away"] * (world - p1):
+            raise AssertionError(f"dist serving: outcomes {first}, "
+                                 f"{second}")
     emit(report)
-    return ranks[0]["problems"]["d15"]["launches"]
+    return (None if serving_only else ranks[0]["problems"]["d15"]
+            ["launches"], [rr["serving"]["launches"] for rr in ranks])
 
 
 # ---------------------------------------------------------------------------
@@ -3817,6 +4461,8 @@ def main(argv=None) -> int:
     ap.add_argument("--families-scale", type=int, default=22)
     ap.add_argument("--apps-scale", type=int, default=20)
     ap.add_argument("--comm-scale", type=int, default=22)
+    ap.add_argument("--dist-serving-only", action="store_true",
+                    help="the dist phase runs its serving cells alone")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -3830,7 +4476,7 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     kernels, family_launches, dist_launches = None, None, None
     train_launches, sparse_launches, fault_launches = None, None, None
-    serving_launches, obs_launches = None, None
+    serving_launches, obs_launches, dist_serving_launches = None, None, None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -3860,8 +4506,9 @@ def main(argv=None) -> int:
             serving_launches = phase_serving(torch, args.scale,
                                              args.apps_scale)
         elif ph == "dist":
-            dist_launches = phase_dist(torch, args.scale, args.reps,
-                                       args.comm_scale)
+            dist_launches, dist_serving_launches = phase_dist(
+                torch, args.scale, args.reps, args.comm_scale,
+                args.apps_scale, args.dist_serving_only)
         elif ph == "rmat_padding":
             phase_rmat_padding(torch, args.comm_scale - 2)
         elif ph == "train":
@@ -3884,6 +4531,10 @@ def main(argv=None) -> int:
                                       else fault_launches[row["name"]])
             row["serving_launches"] = (None if serving_launches is None
                                        else serving_launches[row["name"]])
+            row["dist_serving_launches"] = (
+                None if dist_serving_launches is None
+                else [{cell: c[row["name"]] for cell, c in rk.items()}
+                      for rk in dist_serving_launches])
             row["obs_launches"] = (None if obs_launches is None
                                    else obs_launches[row["name"]])
         emit({"kernels": kernels})

@@ -256,20 +256,22 @@ def run_als_distributed(m=1024, n=1024, nnz_per_row=8, r=32, rounds=3,
 
 def deploy_factors(pool, rows, cols, vals, shape, U, V, *,
                    algorithm: str = "auto", c=None, devices=None,
-                   comm: str = "dense", row_tile: int = 32,
+                   group=None, comm: str = "dense", row_tile: int = 32,
                    nz_block: int = 32):
     """Deploy trained CF factors for serving: the ratings graph plus the
     factor matrices ``U (m, r)`` / ``V (n, r)`` (numpy or tensors) as
     stationary operands, uploaded to the grid's device once.  The pool
     key digests the factors too, so re-deploying after a training
     refresh is a miss and the identical deploy a hit.  Prediction
-    traffic then moves only (user, item) coordinate lists."""
+    traffic then moves only (user, item) coordinate lists.  Under a
+    process group (``group=``) every rank makes this call with the same
+    data (``pool.deploy``'s collective)."""
     if U.shape[1] != V.shape[1]:
         raise ValueError(f"factor widths differ: {tuple(U.shape)} vs "
                          f"{tuple(V.shape)}")
     return pool.deploy(rows, cols, vals, shape, int(U.shape[1]),
                        operands={"U": U, "V": V}, algorithm=algorithm,
-                       c=c, devices=devices, comm=comm,
+                       c=c, devices=devices, group=group, comm=comm,
                        row_tile=row_tile, nz_block=nz_block)
 
 

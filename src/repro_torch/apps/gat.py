@@ -219,7 +219,7 @@ def gat_forward_distributed(graphP: api.DistProblem, H0, layers,
 def gat_deploy_layer(pool, rows, cols, n_nodes, H, p: GATParams, *,
                      head: int = 0, n_heads: int = 1,
                      algorithm: str = "auto", c=None, devices=None,
-                     comm: str = "dense", row_tile: int = 32,
+                     group=None, comm: str = "dense", row_tile: int = 32,
                      nz_block: int = 32):
     """Deploy one GAT head for serving: the graph plus its stationary
     operands, computed once on the grid's device as
@@ -227,11 +227,17 @@ def gat_deploy_layer(pool, rows, cols, n_nodes, H, p: GATParams, *,
     aggregation SpMM reads) and ``A* = [u, 1]`` / ``B* = [1, v]``, whose
     r = 2 SDDMM gives the additive attention logits.  Client queries
     then move only coordinates and attention values.  ``rows`` must be
-    sorted (:func:`graph_coo`'s order; the row softmax needs it)."""
+    sorted (:func:`graph_coo`'s order; the row softmax needs it).
+    Under a process group (``group=``) every rank makes this call and
+    computes the operands on its own device (``devices[rank]``)."""
     rows, cols = np.asarray(rows), np.asarray(cols)
     if rows.size > 1 and not bool(np.all(rows[1:] >= rows[:-1])):
         raise ValueError("gat_deploy_layer: rows must be sorted")
-    dev = _device.resolve(devices[0] if devices is not None else None)
+    own = 0
+    if group is not None and devices is not None:
+        import torch.distributed as dist
+        own = dist.get_rank(group)
+    dev = _device.resolve(devices[own] if devices is not None else None)
     H = torch.as_tensor(H, dtype=torch.float32, device=dev)
     d_out = p.W.shape[1] // n_heads
     hc = slice(head * d_out, (head + 1) * d_out)
@@ -242,7 +248,8 @@ def gat_deploy_layer(pool, rows, cols, n_nodes, H, p: GATParams, *,
                        (n_nodes, n_nodes), d_out,
                        operands={"A": A_star, "B": B_star, "Wh": Wh},
                        algorithm=algorithm, c=c, devices=devices,
-                       comm=comm, row_tile=row_tile, nz_block=nz_block)
+                       group=group, comm=comm, row_tile=row_tile,
+                       nz_block=nz_block)
 
 
 def gat_query_edges(deployment, node_ids):
@@ -299,7 +306,8 @@ def gat_layer_served(engine, deployment, node_ids, activation=F.elu):
     :func:`gat_layer_distributed`'s rows bit for bit: the same padded
     score width, softmax and aggregation, and the activation over the
     whole output as there (on the CPU a vectorised ``expm1`` rounds an
-    entry by where it falls in the tensor)."""
+    entry by where it falls in the tensor).  Under a process group it
+    runs on the front end while the other ranks follow."""
     node_ids = np.unique(np.asarray(node_ids).reshape(-1))
     t_score, _ = gat_submit_scores(engine, deployment, node_ids)
     engine.tick()

@@ -1566,14 +1566,12 @@ def degrade(problem: DistProblem, lost_rank: Optional[int] = None, *,
 
     Under a process group every process of the old group calls this
     with the same ``lost_rank`` (the fault harness raises the same fault
-    on every rank).  The search makes no group; then every process calls
-    ``torch.distributed.new_group`` once with the surviving global ranks
-    (the group must span the job, as ``new_group`` requires), and the
-    processes outside the new group enter the ``new_group`` calls of its
-    fiber subgroups too.  The first p survivors get the re-planned
-    problem; the lost rank and the survivors beyond p raise
-    :class:`RankRetired`.  A process that has really died cannot take
-    part: a fresh rendezvous is not covered."""
+    on every rank).  The search makes no group; then every process of
+    the old group makes the new group with the surviving global ranks
+    (``grid.new_group``, which first agrees on its name).  The first p
+    survivors get the re-planned problem; the lost rank and the
+    survivors beyond p raise :class:`RankRetired`.  A process that has
+    really died cannot take part: a fresh rendezvous is not covered."""
     grid = problem.grid
     if lost_rank is not None and not 0 <= lost_rank < grid.p:
         raise ValueError(f"lost_rank {lost_rank} outside the grid's "
@@ -1588,16 +1586,14 @@ def degrade(problem: DistProblem, lost_rank: Optional[int] = None, *,
     if devices is not None:
         raise ValueError("under a process group degrade drops lost_rank; "
                          "it takes no devices")
-    import torch.distributed as dist
     from repro_torch.core import grid as _grid
     keep = [i for i in range(grid.p) if i != lost_rank]
-    p_new, shape = _largest_feasible(problem, len(keep), algorithm)
+    p_new, _ = _largest_feasible(problem, len(keep), algorithm)
     ranks = keep[:p_new]
     members = [grid.global_ranks[i] for i in ranks]
     problem.release()
-    new = dist.new_group(ranks=members)
+    new = _grid.new_group(members, grid)
     if grid.rank not in ranks:
-        _grid.shadow_fiber_groups(shape, members)
         raise RankRetired(f"rank {grid.rank} holds no rank of the degraded "
                           f"grid of {p_new} (lost rank {lost_rank})",
                           grid.rank, p_new, lost_rank)

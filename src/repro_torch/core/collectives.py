@@ -140,8 +140,10 @@ class Stacked(Backend):
                    (c - 1) * self._rank(x).numel(), point)
         front = x.shape[:nd - 1]
         if cols:
+            # contiguous: at one column a slab the reshape would be a
+            # strided view, and the kernels take contiguous operands
             full = x.movedim(nd - 1, nd).reshape(
-                *front, 1, x.shape[nd], c * x.shape[nd + 1])
+                *front, 1, x.shape[nd], c * x.shape[nd + 1]).contiguous()
         else:
             full = x.reshape(*front, 1, c * x.shape[nd], *x.shape[nd + 1:])
         return full.expand(*front, c, *full.shape[nd:])
@@ -248,9 +250,9 @@ class Dist(Backend):
         out = blk.new_empty((c * blk.shape[0], *blk.shape[1:]))
         self.wait([dist.all_gather_into_tensor(out, blk, group=g.fiber_group,
                                                async_op=True)])
-        if cols:
+        if cols:     # contiguous at one column a block too (Stacked's)
             out = out.reshape(c, *blk.shape).movedim(0, 1).reshape(
-                blk.shape[0], c * blk.shape[1])
+                blk.shape[0], c * blk.shape[1]).contiguous()
         return out.reshape(*g.local_shape, *out.shape)
 
     def psum_scatter(self, x: torch.Tensor, *, point=None) -> torch.Tensor:

@@ -140,9 +140,11 @@ class _Grid:
             return x
         import torch.distributed as dist
         blk = x.contiguous()
-        parts = [torch.empty_like(blk) for _ in range(self.p)]
-        dist.all_gather(parts, blk, group=self.group)
-        return torch.cat(parts).reshape(*self.shape, *x.shape[self.ndim:])
+        # into one buffer: a list of parts and their concatenation would
+        # hold the gathered result twice
+        out = blk.new_empty((self.p * blk.shape[0], *blk.shape[1:]))
+        dist.all_gather_into_tensor(out, blk, group=self.group)
+        return out.reshape(*self.shape, *x.shape[self.ndim:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +253,32 @@ def _group_devices(devices, group):
 _FIBER_GROUPS: dict = {}
 
 
+def _agree_on_group_names(group, device) -> None:
+    """Bring torch's count of the groups this process has made
+    (``distributed_c10d._world.group_count``) to one value on every
+    process of ``group``, the largest, before they make groups together.
+    ``new_group`` names a group by that count (with
+    ``use_local_synchronization=True``, by its ranks and this process's
+    own number of groups, which can differ the same way), and the
+    processes that make a group must agree on its name.  Their counts
+    can differ: a process that left a degraded grid (``api.degrade``)
+    missed the groups its members made since."""
+    import torch.distributed as dist
+    world = dist.distributed_c10d._world
+    n = torch.tensor([world.group_count], dtype=torch.int64, device=device)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
+    world.group_count = int(n.item())
+
+
+def new_group(members, among: _Grid):
+    """``torch.distributed.new_group(members)``, made by every process
+    of the grid ``among`` (a superset of ``members``) after they agree
+    on its name."""
+    import torch.distributed as dist
+    _agree_on_group_names(among.group, among.device)
+    return dist.new_group(ranks=list(members))
+
+
 def _fibers(shape, global_ranks):
     """(head coordinates, the fiber's global ranks) of each fiber of a
     grid of ``shape`` over ``global_ranks`` (row-major), in the order
@@ -260,23 +288,13 @@ def _fibers(shape, global_ranks):
         yield head, [int(g) for g in ranks[head]]
 
 
-def shadow_fiber_groups(shape, global_ranks) -> None:
-    """Take part, from a process outside the grid, in making the fiber
-    subgroups of a grid of ``shape`` over ``global_ranks``: every process
-    of the job enters ``new_group`` for each of them
-    (``api.degrade`` under a process group)."""
-    import torch.distributed as dist
-    if shape[-1] > 1:
-        for _, members in _fibers(shape, global_ranks):
-            dist.new_group(members)
-
-
 def _fiber_group(grid: _Grid):
     """This process's fiber subgroup of ``grid``: made once per (group,
     shape), every process building every fiber's in one order."""
     import torch.distributed as dist
     key = (grid.group, grid.shape)
     if key not in _FIBER_GROUPS:
+        _agree_on_group_names(grid.group, grid.device)
         for head, members in _fibers(grid.shape, grid.global_ranks):
             sub = dist.new_group(members)
             if head == grid.coords[:-1]:

@@ -5,6 +5,10 @@ Port of the reference's distributed serving engine
 SDDMM/SpMM rounds over pooled graph deployments, each round on the
 port's hand-written kernels.  :class:`ServingEngine` is the engine;
 :func:`replay_trace` replays an open-loop arrival trace through it.
+Across cards the engine runs over a process group: a front end (rank 0)
+broadcasts each tick's requests and every rank runs the tick's rounds
+(:meth:`ServingEngine.follow` on the others, ended by
+:meth:`ServingEngine.stop`).
 The reference's LM decode path (``decode``, ``engine``) is not ported.
 """
 from repro_torch.serving.pool import Deployment, SessionPool, content_key

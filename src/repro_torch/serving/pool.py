@@ -76,6 +76,10 @@ class Deployment:
     session: api.Session
     operands: Dict[str, torch.Tensor]
     pins: int = 0
+    #: under a process group, the :class:`api.RankRetired` that took this
+    #: process out of the deployment's degraded grid (None while it holds
+    #: a rank): the engine runs none of the deployment's rounds here
+    retired: Optional[api.RankRetired] = None
     #: zero-padded copies of the deployed operands, by (key, width,
     #: device): ticks hand the Session the same tensor, which its
     #: identity memo recognises without hashing
@@ -184,16 +188,34 @@ class SessionPool:
             self._deployments.move_to_end(key)
         return dep
 
+    def resident(self, key: str) -> Optional[Deployment]:
+        """The resident deployment of ``key``, if any, leaving the LRU
+        order as it is (a serving rank resolving a tick record)."""
+        return self._deployments.get(key)
+
     def deploy(self, rows, cols, vals, shape, r, *, operands=None,
                algorithm: str = "auto", c: Optional[int] = None,
-               devices=None, comm: str = "dense",
+               devices=None, group=None, comm: str = "dense",
                row_tile: int = 32, nz_block: int = 32) -> Deployment:
-        """Deploy (or find) a graph.  ``devices`` as for
+        """Deploy (or find) a graph.  ``devices`` and ``group`` as for
         ``api.make_problem`` (default: one card); the key does not name
-        them, as the reference's does not."""
+        them, as the reference's does not.
+
+        Under a process group this is a collective: every process makes
+        the same call (each hashes its own copy of the content, all at
+        once) and the keys are compared across the group, which raises
+        on every process if any differs.  The pool's hits, misses and
+        evictions then follow one sequence on every process."""
         key = content_key(rows, cols, vals, shape, r,
                           algorithm=algorithm, comm=comm,
                           operands=operands)
+        if group is not None:
+            import torch.distributed as dist
+            keys = [None] * dist.get_world_size(group)
+            dist.all_gather_object(keys, key, group=group)
+            if len(set(keys)) != 1:
+                raise ValueError(f"deploy under a process group: the ranks' "
+                                 f"content keys differ: {keys}")
         dep = self._deployments.get(key)
         if dep is not None:
             self.hits += 1
@@ -202,7 +224,7 @@ class SessionPool:
         self.misses += 1
         prob = api.make_problem(rows, cols, vals, shape, r,
                                 algorithm=algorithm, c=c, devices=devices,
-                                comm=comm, row_tile=row_tile,
+                                group=group, comm=comm, row_tile=row_tile,
                                 nz_block=nz_block)
         session = api.Session(max_entries=self.session_entries)
         dev = prob.grid.device

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 __all__ = ["AdmissionError", "AggregateRequest", "RequestQueue",
-           "ScoreRequest", "Ticket", "digest", "hash_array"]
+           "ScoreRequest", "Ticket", "WireRequest", "digest", "from_wire",
+           "hash_array", "to_wire"]
 
 #: elements of a device tensor copied to the host at a time for hashing
 _HASH_CHUNK = 1 << 26
@@ -183,6 +184,75 @@ class AggregateRequest:
     @property
     def width(self) -> int:
         return int(self.Y.shape[1])
+
+
+@dataclasses.dataclass
+class WireRequest:
+    """A request as it travels in a tick record, from the front end of a
+    process group to the other ranks (:mod:`repro_torch.serving.server`).
+
+    It names its deployment by content key and carries the front end's
+    grouping keys, so a rank that rebuilds it (:func:`from_wire`) groups
+    it as the front end does: a tensor's key is its identity on the
+    front end, which means nothing in another process.  Each dense
+    operand is ``("operand", name)``, a deployment operand that every
+    rank holds already, or ``("tensor", i)``, the tick's i-th sent
+    tensor; ``operands`` are (X, Y) for a score request and (Y, vals)
+    for an aggregate one (vals None: the deployed values)."""
+    kind: str
+    deployment: str
+    rows: Optional[np.ndarray]
+    cols: Optional[np.ndarray]
+    operands: tuple
+    keys: tuple
+    width: int
+
+
+def _operand_ref(deployment, a, sent: list):
+    """How operand ``a`` travels: by name if it is one of the
+    deployment's operands, else as the index of its tensor in ``sent``
+    (each distinct object sent once a tick)."""
+    if a is None:
+        return None
+    for name, t in deployment.operands.items():
+        if t is a:
+            return ("operand", name)
+    for i, b in enumerate(sent):
+        if b is a:
+            return ("tensor", i)
+    sent.append(a)
+    return ("tensor", len(sent) - 1)
+
+
+def to_wire(request, sent: list) -> WireRequest:
+    """``request``'s wire form; the operands that must travel are
+    appended to ``sent`` (numpy arrays or tensors, as submitted)."""
+    dep = request.deployment
+    if request.kind == "score":
+        return WireRequest("score", dep.key, request.rows, request.cols,
+                           (_operand_ref(dep, request.X, sent),
+                            _operand_ref(dep, request.Y, sent)),
+                           (request.x_key, request.y_key), request.width)
+    return WireRequest("aggregate", dep.key, None, None,
+                       (_operand_ref(dep, request.Y, sent),
+                        _operand_ref(dep, request.vals, sent)),
+                       (request.vals_key,), request.width)
+
+
+def from_wire(w: WireRequest, deployment, tensors):
+    """The request ``w`` names, on this rank's ``deployment`` with the
+    tick's received ``tensors``: equal to the front end's, keys and all
+    (the front end validated it when it was submitted)."""
+    def operand(ref):
+        if ref is None:
+            return None
+        kind, v = ref
+        return deployment.operand(v) if kind == "operand" else tensors[v]
+
+    a, b = (operand(ref) for ref in w.operands)
+    if w.kind == "score":
+        return ScoreRequest(deployment, w.rows, w.cols, a, b, *w.keys)
+    return AggregateRequest(deployment, a, b, *w.keys)
 
 
 @dataclasses.dataclass
