@@ -210,6 +210,26 @@ Phases, each printing one JSON line:
            loops) at r = d = 128 on 2^--apps-scale rows (2^20 by
            default): the losses falling, the trainable GAT layer against
            gat_layer_distributed, packing seconds, ms and device split.
+  lm       the LM zoo's serving path (repro_torch.models, serving.decode,
+           launch.serve) in float32: (C) every registered architecture's
+           reduced config on the card against the same weights on the
+           CPU, prefill of 2 x 16 and 2 decode steps (HuBERT, an
+           encoder, its forward alone), logits within 1e-4; (A)
+           llama3.2-1b at full width and depth (1.24e9 parameters,
+           random from a seed) through launch.serve.main, 2 batches of 4
+           prompts x 16 tokens and 16 generated: prefill s, decode
+           p50/p99 ms, tokens a second, the memory peak, every decode
+           step against a full forward of the same tokens (teacher
+           forcing, 5e-3) and every step against the same model on the
+           CPU (1e-3); (B) DeepSeek-V2-Lite at full width (MLA, 64
+           experts top-6 and 2 shared) with its depth cut to the dense
+           layer and 3 MoE layers, served the same way and held to the
+           CPU copy (prefills, the first batch's decode steps); then
+           one of its MoE layers at 4 x 512 tokens, dispatch="spmm"
+           (the Hopper SpMM, 2 bulk launches counted) against
+           dispatch="einsum" within 2e-4, both calls' ms, and the
+           dispatch and combine packs' kernel against its plain version
+           with its bound, plain and torch.sparse.mm ms.
 
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
@@ -234,6 +254,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -243,7 +264,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("build", "kernels", "main", "obs", "families", "comm_sparse",
-          "rmat_padding", "stacked", "faults", "serving", "dist", "train")
+          "rmat_padding", "stacked", "faults", "serving", "dist", "train",
+          "lm")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
@@ -4452,6 +4474,346 @@ def phase_serving(torch, scale: int, apps_scale: int):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the LM zoo's serving path
+# ---------------------------------------------------------------------------
+
+LM_SERVE = ["--batches", "2", "--batch", "4", "--prompt-len", "16",
+            "--gen", "16"]
+LM_TF_TOL = 5e-3        # teacher forcing, tests/test_serving.py:45
+LM_CPU_TOL = 1e-3       # the card against the same model on the CPU
+LM_REDUCED_TOL = 1e-4   # the reduced configs, card against CPU
+LM_MOE_TOL = 2e-4       # dispatch="spmm" against "einsum", test_models.py
+LM_MOE_TOKENS = (4, 512)
+
+
+def cpu_copy(torch, cfg, model):
+    """The same model on the CPU (each weight copied with ``.to``)."""
+    from repro_torch.models import model as M
+    cpu = M.empty_model(cfg)
+    cpu.load_state_dict({k: v.to("cpu") for k, v in
+                         model.state_dict().items()}, assign=True)
+    return cpu
+
+
+def lm_serve(torch, cfg):
+    """``launch.serve.main(LM_SERVE)`` with ``cfg`` in place of the
+    arch's: returns the model it built, each batch's JSON line, and each
+    prefill's and decode step's tokens, logits and host seconds (the
+    card synchronised before the clock is read, as serve does)."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import decode
+    rec = {"models": [], "prefill": [], "decode": []}
+
+    def keep_model(orig):
+        def init(*a, **k):
+            rec["models"].append(orig(*a, **k))
+            return rec["models"][-1]
+        return init
+
+    def recording(key):
+        def wrap(orig):
+            def step(cfg_, pcfg, model, batch, *rest):
+                t0 = time.perf_counter()
+                logits, cache = orig(cfg_, pcfg, model, batch, *rest)
+                torch.cuda.synchronize()
+                rec[key].append((batch["tokens"], logits,
+                                 time.perf_counter() - t0))
+                return logits, cache
+            return step
+        return wrap
+
+    out = io.StringIO()
+    with contextlib.ExitStack() as st:
+        st.enter_context(patched(M, "init_params", keep_model))
+        st.enter_context(patched(decode, "prefill", recording("prefill")))
+        st.enter_context(patched(decode, "decode_step",
+                                 recording("decode")))
+        st.enter_context(patched(serve, "resolve_config",
+                                 lambda orig: lambda arch, smoke: cfg))
+        st.enter_context(contextlib.redirect_stdout(out))
+        rc = serve.main(LM_SERVE)
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        log(f"[serve {cfg.name}] {ln}")
+    if rc != 0 or not lines or lines[-1] != "SERVING DONE":
+        raise AssertionError(f"lm: serve exited {rc}: {lines[-3:]}")
+    rec["lines"] = [json.loads(ln) for ln in lines[:-1]]
+    return rec
+
+
+def _per_batch(rec, key):
+    n = len(rec["prefill"])
+    steps = len(rec[key]) // n
+    return [rec[key][b * steps:(b + 1) * steps] for b in range(n)]
+
+
+def lm_report(rec):
+    """Each batch's JSON line with its wall seconds (prefill and every
+    decode step) and tokens a second."""
+    out = []
+    for line, pre, dec in zip(rec["lines"], rec["prefill"],
+                              _per_batch(rec, "decode")):
+        wall = pre[2] + sum(s for _, _, s in dec)
+        out.append({**line, "wall_s": wall,
+                    "tokens_per_s": line["tokens"] / wall})
+    return out
+
+
+def lm_teacher_forcing(torch, ck, cfg, pcfg, model, rec):
+    """Each batch's prefill and decode logits against one full forward
+    of the same tokens on the card; returns the largest error."""
+    from repro_torch.models import model as M
+    err = 0.0
+    for (prompt, logits_p, _), dec in zip(rec["prefill"],
+                                          _per_batch(rec, "decode")):
+        toks = torch.cat([prompt] + [t for t, _, _ in dec], dim=1)
+        with torch.inference_mode():
+            full, _, _ = M.forward(cfg, pcfg, model, {"tokens": toks},
+                                   want_cache=False)
+        s0 = prompt.shape[1]
+        err = max(err, ck.close(logits_p[:, -1], full[:, s0 - 1],
+                                LM_TF_TOL, f"lm {cfg.name} prefill"))
+        for i, (_, logits, _) in enumerate(dec):
+            err = max(err, ck.close(logits[:, 0], full[:, s0 + i],
+                                    LM_TF_TOL,
+                                    f"lm {cfg.name} decode step {i}"))
+    return err
+
+
+def lm_against_cpu(torch, ck, cfg, pcfg, model, rec, decode_batches):
+    """The prefill logits of every batch, and the decode logits of the
+    first ``decode_batches`` batches fed the card's tokens, against the
+    same model on the CPU; returns (largest error, CPU seconds)."""
+    from repro_torch.serving import decode
+    t0 = time.perf_counter()
+    cpu = cpu_copy(torch, cfg, model)
+    err = 0.0
+    for b, ((prompt, logits_p, _), dec) in enumerate(
+            zip(rec["prefill"], _per_batch(rec, "decode"))):
+        want, cache = decode.prefill(cfg, pcfg, cpu,
+                                     {"tokens": prompt.cpu()})
+        err = max(err, ck.close(logits_p.cpu(), want, LM_CPU_TOL,
+                                f"lm {cfg.name} prefill, card vs CPU"))
+        if b >= decode_batches:
+            continue
+        cache = decode.extend_cache(cache, len(dec))
+        for i, (tok, logits, _) in enumerate(dec):
+            want, cache = decode.decode_step(cfg, pcfg, cpu,
+                                             {"tokens": tok.cpu()}, cache)
+            err = max(err, ck.close(logits.cpu(), want, LM_CPU_TOL,
+                                    f"lm {cfg.name} decode step {i}, "
+                                    f"card vs CPU"))
+    return err, time.perf_counter() - t0
+
+
+def lm_full(torch, ck, cfg, pcfg, teacher, decode_batches):
+    """Serve ``cfg`` through launch.serve on the card and check it;
+    returns (report, the model)."""
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = lm_serve(torch, cfg)
+    report = {"arch": cfg.name, "params": cfg.param_count(),
+              "d_model": cfg.d_model, "layers": cfg.n_layers,
+              "batches": lm_report(rec),
+              "serve_s": time.perf_counter() - t0,
+              # the serve's own peak, above what earlier phases hold
+              "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+              "held_gib": held / 2**30,
+              "serve_launches": ops.launch_counts()}
+    model = rec["models"][0]
+    if teacher:
+        report["teacher_forcing_err"] = lm_teacher_forcing(
+            torch, ck, cfg, pcfg, model, rec)
+    report["cpu_err"], report["cpu_s"] = lm_against_cpu(
+        torch, ck, cfg, pcfg, model, rec, decode_batches)
+    return report, model
+
+
+def lm_moe_packs(torch, ck, cfg, layer, x, reps):
+    """The dispatch and combine packs of one routing of ``x``: the
+    kernel against its plain version on the same inputs, its ms, bound,
+    plain ms and ``torch.sparse.mm``'s (CSR) ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    E, d = cfg.moe_experts, cfg.d_model
+    xf = x.reshape(-1, d)
+    _, _, gate_v, slot, keep, C = MOE.route(cfg, layer, xf)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    y = torch.randn((E * C, d), generator=g, device="cuda")
+    packs = {"dispatch": (MOE.dispatch_pack(slot, keep, xf.shape[0], E * C,
+                                            xf.dtype), xf),
+             "combine": (MOE.combine_pack(slot, gate_v * keep, E * C), y)}
+    out = {}
+    for name, (S, Bd) in packs.items():
+        m = S.shape[0]
+
+        def kern(S=S, Bd=Bd, m=m):
+            return ops.spmm(S, Bd, m=m, r_tile=d, blocks_per_step=1)
+
+        def plain(S=S, Bd=Bd, m=m):
+            return ops.spmm(S, Bd, m=m, backend="ref")
+        coo = S.to_padded_coo()
+        with warnings.catch_warnings():   # sparse CSR is "beta" in torch
+            warnings.simplefilter("ignore", UserWarning)
+            sp = torch.sparse_coo_tensor(
+                torch.stack([coo.rows.long(), coo.cols.long()]), coo.vals,
+                (m, Bd.shape[0])).coalesce().to_sparse_csr()
+        bound = _bound(torch, S, d, m, "spmm")
+        out[name] = {
+            "m": m, "n": Bd.shape[0], "r": d, "nnz": bound[5],
+            "slots": S.rows_local.numel(), "row_tile": S.row_tile,
+            "max_abs_err": ck.close(kern(), plain(), 2e-3,
+                                    f"lm moe {name} kernel vs plain"),
+            "ms": time_ms(torch, kern, reps),
+            "plain_ms": time_ms(torch, plain, reps),
+            "library_ms": time_ms(torch, lambda sp=sp, Bd=Bd:
+                                  torch.sparse.mm(sp, Bd), reps),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
+
+
+def lm_moe_layer(torch, ck, cfg, pcfg, layer, reps):
+    """One MoE layer at LM_MOE_TOKENS tokens: dispatch="spmm" (the
+    Hopper SpMM) against "einsum", the SpMM launches and forms of one
+    counted call, both calls' ms, and each pack's kernel; returns
+    (report, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    B, S = LM_MOE_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda")
+    with torch.inference_mode():
+        want, _ = MOE.moe(cfg, pcfg, layer, x, dispatch="einsum")
+        ops.reset_launch_counts()
+        got, _ = MOE.moe(cfg, pcfg, layer, x, dispatch="spmm")
+        torch.cuda.synchronize()
+        launches, forms = ops.launch_counts(), ops.form_counts()
+        err = ck.close(got, want, LM_MOE_TOL, "lm moe spmm vs einsum")
+        if launches["spmm"] != 2 or forms["spmm"].get("bulk", 0) != 2:
+            raise AssertionError(f"lm moe: expected 2 bulk SpMM launches, "
+                                 f"got {launches} {forms}")
+        report = {"tokens": B * S, "experts": cfg.moe_experts,
+                  "top_k": cfg.moe_top_k,
+                  "capacity": int(cfg.capacity_factor * B * S
+                                  * cfg.moe_top_k / cfg.moe_experts),
+                  "launches": launches, "forms": forms, "err": err,
+                  "spmm_ms": time_ms(torch, lambda: MOE.moe(
+                      cfg, pcfg, layer, x, dispatch="spmm"), reps),
+                  "einsum_ms": time_ms(torch, lambda: MOE.moe(
+                      cfg, pcfg, layer, x, dispatch="einsum"), reps),
+                  "packs": lm_moe_packs(torch, ck, cfg, layer, x, reps)}
+    return report, launches
+
+
+def lm_reduced(torch, ck, pcfg):
+    """Every registered architecture's reduced config on the card
+    against the same model on the CPU: prefill of 2 x 16 and 2 decode
+    steps (HuBERT, an encoder: the forward alone)."""
+    from repro_torch.launch.train import SMOKE_MODULES, resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import decode
+    out = {}
+    for arch in SMOKE_MODULES:
+        cfg = resolve_config(arch, True)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        model = M.init_params(cfg, g, device="cuda")
+        cpu = cpu_copy(torch, cfg, model)
+        rng = np.random.default_rng(4)
+
+        def batch_of(n, first, cfg=cfg, rng=rng):
+            if cfg.embed_inputs:
+                return {"tokens": torch.as_tensor(
+                    rng.integers(0, cfg.vocab, (2, n)))}
+            b = {"embeds": torch.as_tensor(
+                rng.standard_normal((2, n, cfg.d_model)),
+                dtype=torch.float32)}
+            if cfg.pos_dims == 3 and first:
+                b["positions"] = torch.as_tensor(
+                    rng.integers(0, n, (2, n, 3)))
+            return b
+
+        def on_card(batch):
+            return {k: v.to("cuda") for k, v in batch.items()}
+        b0 = batch_of(16, True)
+        if not cfg.causal:
+            with torch.inference_mode():
+                got, _, _ = M.forward(cfg, pcfg, model, on_card(b0),
+                                      want_cache=False)
+                want, _, _ = M.forward(cfg, pcfg, cpu, b0, want_cache=False)
+            out[arch] = {"err": ck.close(got.cpu(), want, LM_REDUCED_TOL,
+                                         f"lm {arch} forward"),
+                         "decode_steps": 0}
+            continue
+        got, c_card = decode.prefill(cfg, pcfg, model, on_card(b0))
+        want, c_cpu = decode.prefill(cfg, pcfg, cpu, b0)
+        err = ck.close(got.cpu(), want, LM_REDUCED_TOL, f"lm {arch} prefill")
+        c_card = decode.extend_cache(c_card, 2)
+        c_cpu = decode.extend_cache(c_cpu, 2)
+        for i in range(2):
+            step = ({"tokens": got[:, -1].argmax(-1)[:, None].cpu()}
+                    if cfg.embed_inputs else batch_of(1, False))
+            got, c_card = decode.decode_step(cfg, pcfg, model,
+                                             on_card(step), c_card)
+            want, c_cpu = decode.decode_step(cfg, pcfg, cpu, step, c_cpu)
+            err = max(err, ck.close(got.cpu(), want, LM_REDUCED_TOL,
+                                    f"lm {arch} decode step {i}"))
+        out[arch] = {"err": err, "decode_steps": 2}
+    return out
+
+
+def deepseek_cut():
+    """(DeepSeek-V2-Lite at full width with its depth cut to the dense
+    layer and 3 MoE layers, the full config)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.configs import deepseek_v2_lite_16b as ds
+    full = get_config("deepseek-v2-lite-16b")
+    return dataclasses.replace(
+        full, name="deepseek-v2-lite-16b-cut",
+        segments=(((ds.DENSE0,), 1), ((ds.MOE,), 3))), full
+
+
+def phase_lm(torch, reps: int):
+    """The LM zoo's serving path on the card: (C) every reduced config
+    against the CPU, (A) llama3.2-1b at full width and depth through
+    launch.serve, (B) DeepSeek-V2-Lite at full width (depth cut) through
+    launch.serve and one MoE layer's SpMM dispatch.  Returns the
+    launches of the counted SpMM dispatch."""
+    from repro_torch.config import ParallelConfig, get_config
+    ck = Checker(torch)
+    pcfg = ParallelConfig(compute_dtype="float32")
+    t0 = time.perf_counter()
+    report = {"phase": "lm", "device": torch.cuda.get_device_name(0),
+              "reduced": lm_reduced(torch, ck, pcfg)}
+    report["seconds_reduced"] = time.perf_counter() - t0
+    report["llama"], model = lm_full(torch, ck, get_config("llama3.2-1b"),
+                                     pcfg, teacher=True, decode_batches=2)
+    del model
+    report["seconds_llama"] = time.perf_counter() - t0
+    cut, full = deepseek_cut()
+    report["deepseek"], model = lm_full(torch, ck, cut, pcfg,
+                                        teacher=False, decode_batches=1)
+    report["deepseek"]["cut"] = (
+        f"layers {full.n_layers} -> {cut.n_layers} (the dense layer 0 and "
+        f"3 MoE layers), params {full.param_count()} -> "
+        f"{cut.param_count()}")
+    report["moe_layer"], launches = lm_moe_layer(
+        torch, ck, cut, pcfg, model.segments[1][0].blk0.moe, reps)
+    del model
+    torch.cuda.empty_cache()
+    report.update(launches=launches, checks=ck.n,
+                  seconds=time.perf_counter() - t0)
+    emit(report)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4477,6 +4839,7 @@ def main(argv=None) -> int:
     kernels, family_launches, dist_launches = None, None, None
     train_launches, sparse_launches, fault_launches = None, None, None
     serving_launches, obs_launches, dist_serving_launches = None, None, None
+    lm_launches = None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -4514,6 +4877,8 @@ def main(argv=None) -> int:
         elif ph == "train":
             train_launches = phase_train(torch, args.scale, args.apps_scale,
                                          args.reps)
+        elif ph == "lm":
+            lm_launches = phase_lm(torch, args.reps)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
@@ -4537,6 +4902,8 @@ def main(argv=None) -> int:
                       for rk in dist_serving_launches])
             row["obs_launches"] = (None if obs_launches is None
                                    else obs_launches[row["name"]])
+            row["lm_launches"] = (None if lm_launches is None
+                                  else lm_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,5 +1,5 @@
-"""Carry packed state across from the reference, so both frameworks can
-run the *same* pack.
+"""Carry packed state and parameters across from the reference, so both
+frameworks can run the *same* pack or model.
 
 The functions take the reference's objects by duck typing: any object
 with the attributes of ``repro.core.sparse.RowTiledCOO`` or of a
@@ -148,3 +148,69 @@ def gat_params_from_numpy(W, a1, a2, *, device=None):
     dev = _device.resolve(device)
     return GATParams(*(torch.from_numpy(np.array(a, np.float32)).to(dev)
                        for a in (W, a1, a2)))
+
+
+def _lm_leaves(tree, prefix, out):
+    """Flatten a reference parameter pytree (dicts, lists; leaves any
+    array) into ``{dotted path: leaf}``."""
+    if isinstance(tree, dict):
+        for name, sub in tree.items():
+            _lm_leaves(sub, f"{prefix}{name}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            _lm_leaves(sub, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def lm_params_from_numpy(cfg, params, *, device=None, dtype=None):
+    """The port's LM (``models.model.Model``) holding the weights of a
+    reference parameter pytree (``repro.models.model.init_params``'s
+    layout, leaves as arrays ``numpy.asarray`` can read), as ``dtype``
+    (default float32) on ``device`` (default: the card).
+
+    A segment that repeats (``cnt > 1``) holds its leaves stacked on a
+    leading repeat axis, which is unstacked into the segment's
+    ``ModuleList``; a segment with ``cnt == 1`` has none.  The names map
+    one to one (``blk{i}``, ``attn``/``mamba``/``mlp``/``moe``/
+    ``shared``, ``norm1``/``norm2``, ``embed``/``head``/``final_norm``);
+    a missing or extra leaf, or a leaf of another shape, is refused.
+    """
+    from repro_torch.models import model as M
+    dev = _device.resolve(device)
+    dtype = dtype or torch.float32
+    segs = params.get("segments", ())
+    if len(segs) != len(cfg.segments):
+        raise ValueError(f"{len(segs)} segments for a config of "
+                         f"{len(cfg.segments)}")
+    flat = _lm_leaves({k: v for k, v in params.items() if k != "segments"},
+                      "", {})
+    for si, (seg, (_, cnt)) in enumerate(zip(segs, cfg.segments)):
+        for name, leaf in _lm_leaves(seg, "", {}).items():
+            arr = np.asarray(leaf, dtype=np.float32)
+            if cnt == 1:
+                flat[f"segments.{si}.0.{name}"] = arr
+                continue
+            if arr.shape[:1] != (cnt,):
+                raise ValueError(f"segments.{si}.{name}: leading axis "
+                                 f"{arr.shape[:1]} is not the segment's "
+                                 f"{cnt} repeats")
+            for ri in range(cnt):
+                flat[f"segments.{si}.{ri}.{name}"] = arr[ri]
+    model = M.empty_model(cfg)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"parameter leaves missing {missing}, extra {extra}")
+    state = {}
+    for name, shape in want.items():
+        arr = np.asarray(flat[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, the model's "
+                             f"{shape}")
+        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
+                                                          dtype=dtype)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

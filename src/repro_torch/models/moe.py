@@ -1,0 +1,213 @@
+"""Mixture-of-Experts with top-k routing, static capacity, shared experts.
+
+Port of ``repro.models.moe``.  Dispatch is sort-free and static-shape:
+(token, k)-assignments are ranked per expert with a cumulative-sum
+position (drop on overflow -- standard capacity-factor semantics),
+scattered to (E, C, d) expert buffers, run as one grouped matmul per
+weight, and combined with the gate weights.  (The reference's
+expert-parallel ``constrain`` on the buffers places nothing on one card
+and is dropped.)
+
+``dispatch="spmm"`` is the paper's integration point: the dispatch and
+combine are sparse matrices, run through ``ops.spmm`` -- the Hopper SpMM
+(``kernels/csrc/spmm.cu``) for tensors on the card, its plain version on
+the CPU.  The reference packs each as one window of ``E*C`` (resp.
+``T``) rows holding one block of all ``T*k`` entries, rows unsorted; the
+kernels refuse that pack (a window's float32 accumulator must fit in
+shared memory, and its blocks must be sorted by window).  The port packs
+them as the kernels take them, on the card and with nothing read back
+to the host, in windows of ``MOE_ROW_TILE`` rows:
+
+* dispatch ``D`` (E*C, T), ``D[slot, t] = 1``: the kept slots are
+  distinct, so sorting the assignments by slot is a scatter to position
+  ``slot``; every row of ``E*C`` (padded up to a multiple of the row
+  tile) gets one entry, of value 0 where no assignment landed, and each
+  window is one block of ``MOE_ROW_TILE`` entries;
+* combine ``G`` (T, E*C), ``G[t, slot] = gate``: the assignments in
+  (token, k) order are already sorted by row, ``k`` entries a row
+  (dropped ones of value 0); ``T`` is padded up to a multiple of the row
+  tile and each window is one block of ``MOE_ROW_TILE * k`` entries.
+
+The padded rows are sliced off the products.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.sparse import RowTiledCOO
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Init, init_mlp, swiglu
+
+#: rows of one output window of the MoE dispatch/combine packs (the bulk
+#: SpMM keeps a window's float32 accumulator of 128 columns in 64 KiB)
+MOE_ROW_TILE = 128
+
+
+class MoE(nn.Module):
+    """Router (d, E), expert weights w1, w3 (E, d, ff), w2 (E, ff, d),
+    and the shared experts' MLP."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        d, E, ff = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+        self.router = init.normal((d, E), 0.02)
+        self.w1 = init.normal((E, d, ff), 0.02)
+        self.w3 = init.normal((E, d, ff), 0.02)
+        self.w2 = init.normal((E, ff, d), 0.02)
+        if cfg.moe_shared:
+            self.shared = init_mlp(init, d, cfg.moe_shared * ff)
+
+
+def init_moe(init: Init, cfg) -> MoE:
+    return MoE(init, cfg)
+
+
+def _experts(p, buf):
+    """The grouped SwiGLU over expert buffers (E, C, d)."""
+    h = torch.bmm(buf, p.w1.to(buf.dtype))
+    g = torch.bmm(buf, p.w3.to(buf.dtype))
+    h = h * F.silu(g.float()).to(buf.dtype)
+    return torch.bmm(h, p.w2.to(buf.dtype))
+
+
+def _shared(p, xf):
+    return swiglu(xf[None], p.shared.w1, p.shared.w3, p.shared.w2)[0]
+
+
+def route(cfg, p, xf):
+    """Top-k routing of tokens ``xf`` (T, d) with static capacity.
+
+    The router runs in float32; the gates are renormalised over the top
+    k.  Returns ``(probs, gate_i, gate_v, slot, keep, C)``: each (token,
+    k)-assignment's expert, gate and slot ``expert * C + rank`` (the rank
+    in its expert's queue by an exclusive cumulative sum, clipped to C-1),
+    and whether it is kept (rank < C).
+    """
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = xf.shape[0]
+    logits = xf.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_v, gate_i = torch.topk(probs, k, dim=-1)       # (T, k)
+    gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
+    C = int(cfg.capacity_factor * T * k / E) or 1
+    flat = F.one_hot(gate_i, E).reshape(T * k, E)
+    ranks = torch.cumsum(flat, dim=0) - flat                  # exclusive
+    rank = (ranks * flat).sum(-1).reshape(T, k)               # (T, k)
+    keep = rank < C
+    slot = gate_i * C + torch.clamp_max(rank, C - 1)          # (T, k)
+    return probs, gate_i, gate_v, slot, keep, C
+
+
+def moe(cfg, pcfg, p, x, dispatch: str = "einsum"):
+    """x (B, S, d) -> (B, S, d).  Also returns aux losses dict."""
+    del pcfg
+    B, S, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    xf = x.reshape(T, d)
+    probs, gate_i, gate_v, slot, keep, C = route(cfg, p, xf)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, gate_i.reshape(-1),
+        torch.ones((T * k,), dtype=torch.float32, device=x.device)) / (T * k)
+    aux = {"lb_loss": E * torch.sum(me * ce)}
+
+    if dispatch == "spmm":
+        return _moe_spmm(cfg, p, xf, gate_v, slot, keep, C, B, S), aux
+    if dispatch != "einsum":
+        raise ValueError(f"dispatch must be 'einsum' or 'spmm', got "
+                         f"{dispatch!r}")
+
+    # scatter tokens into expert buffers (E*C, d); a dropped assignment
+    # adds zeros at slot E*C-1
+    tok_idx = torch.arange(T, device=x.device)[:, None].expand(T, k)
+    src = torch.where(keep.reshape(-1, 1), xf[tok_idx.reshape(-1)], 0.0)
+    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device).index_add_(
+        0, torch.where(keep, slot, E * C - 1).reshape(-1), src)
+    y = _experts(p, buf.reshape(E, C, d)).reshape(E * C, d)
+
+    # combine in compute dtype
+    gates = (gate_v * keep).to(x.dtype)
+    out = (y[slot.reshape(-1)].reshape(T, k, d) * gates[..., None]).sum(1)
+    if cfg.moe_shared:
+        out = out + _shared(p, xf)
+    return out.reshape(B, S, d), aux
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def dispatch_pack(slot, keep, T: int, m: int, dtype):
+    """The dispatch matrix D (m = E*C, T), ``D[slot, t] = 1`` for each
+    kept assignment, as a RowTiledCOO of ``m`` rounded up to a multiple
+    of MOE_ROW_TILE rows: window w is one block of MOE_ROW_TILE entries,
+    entry i at row i (its token, or token 0 with value 0 where no
+    assignment landed)."""
+    row_tile = MOE_ROW_TILE
+    dev = slot.device
+    k = slot.shape[1]
+    mp = _round_up(m, row_tile)
+    nw = mp // row_tile
+    pos = torch.where(keep, slot, mp).reshape(-1)   # dropped -> spare slot
+    tok = torch.arange(T, dtype=torch.int32, device=dev).repeat_interleave(k)
+    cols = torch.zeros((mp + 1,), dtype=torch.int32, device=dev)
+    cols.index_put_((pos,), tok)
+    vals = torch.zeros((mp + 1,), dtype=dtype, device=dev)
+    vals.index_put_((pos,), torch.ones((), dtype=dtype, device=dev))
+    rows_local = torch.arange(row_tile, dtype=torch.int32,
+                              device=dev).repeat(nw).reshape(nw, row_tile)
+    tile_base = torch.arange(0, mp, row_tile, dtype=torch.int32, device=dev)
+    return RowTiledCOO(rows_local, cols[:mp].reshape(nw, row_tile),
+                       vals[:mp].reshape(nw, row_tile), tile_base,
+                       (mp, T), row_tile)
+
+
+def combine_pack(slot, gates, m: int):
+    """The combine matrix G (T, m = E*C), ``G[t, slot] = gate``, as a
+    RowTiledCOO of ``T`` rounded up to a multiple of MOE_ROW_TILE rows:
+    window w is one block of ``MOE_ROW_TILE * k`` entries in (token, k)
+    order (the padded tokens' entries are slot 0 with value 0)."""
+    row_tile = MOE_ROW_TILE
+    dev = slot.device
+    T, k = slot.shape
+    Tp = _round_up(T, row_tile)
+    nw = Tp // row_tile
+    cols = torch.zeros((Tp * k,), dtype=torch.int32, device=dev)
+    cols[:T * k] = slot.reshape(-1)
+    vals = torch.zeros((Tp * k,), dtype=gates.dtype, device=dev)
+    vals[:T * k] = gates.reshape(-1)
+    rows_local = torch.arange(row_tile, dtype=torch.int32,
+                              device=dev).repeat_interleave(k).repeat(nw)
+    tile_base = torch.arange(0, Tp, row_tile, dtype=torch.int32, device=dev)
+    bk = row_tile * k
+    return RowTiledCOO(rows_local.reshape(nw, bk), cols.reshape(nw, bk),
+                       vals.reshape(nw, bk), tile_base, (Tp, m), row_tile)
+
+
+def _moe_spmm(cfg, p, xf, gate_v, slot, keep, C, B, S):
+    """Dispatch/combine as SpMM through the port's sparse kernels.
+
+    dispatch matrix D: (E*C, T) with D[slot, t] = 1      -> buf = D @ x
+    combine  matrix G: (T, E*C) with G[t, slot] = gate   -> out = G @ y
+    (packed as the module docstring says; ``r_tile`` and
+    ``blocks_per_step`` are given, so ``ops`` reads nothing back).
+    """
+    T, d = xf.shape
+    E = cfg.moe_experts
+    m = E * C
+    xf = xf.contiguous()
+    disp = dispatch_pack(slot, keep, T, m, xf.dtype)
+    buf = ops.spmm(disp, xf, m=disp.shape[0], r_tile=d,
+                   blocks_per_step=1)[:m]
+    y = _experts(p, buf.reshape(E, C, d)).reshape(m, d)
+    comb = combine_pack(slot, (gate_v * keep).to(xf.dtype), m)
+    out = ops.spmm(comb, y, m=comb.shape[0], r_tile=d,
+                   blocks_per_step=1)[:T]
+    if cfg.moe_shared:
+        out = out + _shared(p, xf)
+    return out.reshape(B, S, d)
