@@ -193,7 +193,14 @@ Phases, each printing one JSON line:
            bit gat_layer_distributed's on the group and within 2e-3 of
            its plain version; at world size 1 a front end with no
            follower at 2^DIST_SERVE_ONE_SCALE rows, equal to the engine
-           without a group bit for bit;
+           without a group bit for bit; last the LM train step on the
+           group: at world size 1 one step of llama3.2-1b at full width
+           (2 layers) with a group of one against none, bit for bit; on
+           more cards llama3.2-1b at full width and depth data-parallel
+           (global batch 8 x 512, 3 steps, every rank's parameters equal
+           bit for bit after each, the gradient sum's ms and GB/s), step
+           0 against one card within 1e-4, then remesh(2, 1) from a
+           checkpoint and 3 more steps (step 6), the other ranks retired;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -230,6 +237,25 @@ Phases, each printing one JSON line:
            dispatch="einsum" within 2e-4, both calls' ms, and the
            dispatch and combine packs' kernel against its plain version
            with its bound, plain and torch.sparse.mm ms.
+  train_lm the LM zoo's training path (training/, launch.train, the MoE
+           dispatch's backward) in float32: (C) every reduced config, one
+           train step on the card against the same weights and batch on
+           the CPU, the loss and every gradient leaf within 1e-4; (A)
+           llama3.2-1b at full width and depth (1.24e9 parameters, random
+           from a seed) through launch.train.main at its defaults (seq
+           512, batch 8), 4 steps: step 0's loss within 10% of ln(vocab),
+           every loss and grad norm finite, the optimizer's step 4; each
+           step's ms, tokens a second and the memory peak; (A2) the same
+           at full width with its depth cut to 2 layers: 6 steps straight
+           against 3 steps, a checkpoint, main resuming and 3 more, the
+           parameters within 1e-6; (B) one DeepSeek-V2-Lite MoE layer at
+           full width, 4 x 512 tokens, forward and backward under
+           dispatch="spmm" (4 bulk SpMM and 1 SDDMM launches counted)
+           against "einsum", every gradient leaf within 1e-3 of its
+           largest magnitude, both passes' ms, and the backward's three
+           launches (D^T and G^T SpMM, the gate SDDMM) against their plain
+           versions with their bounds, plain ms and torch.sparse.mm /
+           sampled_addmm ms.
 
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
@@ -241,7 +267,8 @@ the faults phase's (e) and the serving phase's cell B (``--scale`` its
 cell A), ``--rmat-scale`` the
 power-law timing and ``--comm-scale`` the comm_sparse phase and the
 dist phase's R-MAT cells for rehearsals; ``--dist-serving-only`` runs
-the dist phase's serving cells alone;
+the dist phase's serving cells alone, ``--dist-train-only`` its train
+cells alone;
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -265,20 +292,25 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("build", "kernels", "main", "obs", "families", "comm_sparse",
           "rmat_padding", "stacked", "faults", "serving", "dist", "train",
-          "lm")
+          "lm", "train_lm")
 
 # tests/test_kernels.py shapes and tolerances
 SHAPES = [(128, 128, 64, 4), (256, 128, 128, 8), (512, 384, 128, 8),
           (384, 512, 256, 2), (128, 640, 32, 16)]
 TILINGS = [(128, 1), (64, 1), (32, 2), (32, 4)]
 # (m, n, r, nonzeros per row, row_tile, nz_block, dtype name, the form the
-# spmm and sddmm wrappers must choose, the fused kernel's route); the last
-# two have windows of 8192 entries, 32 staged index chunks each
+# spmm and sddmm wrappers must choose (or (sddmm's, spmm's) where they
+# differ), the fused kernel's route); the two at r = 128 have windows of
+# 8192 entries, 32 staged index chunks each; the last is the width of the
+# MoE dispatch's backward at DeepSeek-V2-Lite's d = 2,048 in float32, where
+# SDDMM's rows exceed the bulk form's 1,024 bytes
 FORM_CASES = [(256, 192, 34, 6, 64, 32, "float32", "load", "two_pass"),
               (256, 192, 36, 6, 64, 32, "bfloat16", "load", "load"),
               (256, 192, 36, 6, 64, 32, "float32", "bulk", "bulk"),
               (512, 4096, 128, 64, 128, 64, "float32", "bulk", "bulk"),
-              (512, 4096, 128, 64, 128, 64, "bfloat16", "bulk", "bulk")]
+              (512, 4096, 128, 64, 128, 64, "bfloat16", "bulk", "bulk"),
+              (256, 192, 2048, 6, 64, 32, "float32", ("load", "bulk"),
+               "two_pass")]
 
 
 def _misaligned(torch, x):
@@ -473,9 +505,11 @@ def phase_kernels(torch):
         got = sddmm_cuda(*args(S), A, B, row_tile=row_tile)
         want = sddmm_plain(*args(S), A, B, row_tile=row_tile)
         out = spmm_cuda(*args(S), B, row_tile=row_tile, m=m)
-        if (sddmm_cuda.last_form, spmm_cuda.last_form) != (form, form):
+        want_forms = form if isinstance(form, tuple) else (form, form)
+        if (sddmm_cuda.last_form, spmm_cuda.last_form) != want_forms:
             raise AssertionError(f"{tag}: forms {sddmm_cuda.last_form}/"
-                                 f"{spmm_cuda.last_form}, want {form}")
+                                 f"{spmm_cuda.last_form}, want "
+                                 f"{want_forms}")
         tol = 2e-5 if f32 else 0.12 * np.sqrt(r) / 8
         worst["sddmm"] = max(worst["sddmm"],
                              ck.close(got, want, tol, f"sddmm {tag}"))
@@ -514,7 +548,7 @@ def phase_kernels(torch):
             if (sddmm_cuda.last_form, spmm_cuda.last_form,
                     fusedmm_cuda.last_form) != ("load",) * 3:
                 raise AssertionError(f"{tag}: unaligned vals kept bulk")
-        forms.append(f"{form}/{fused}: {tag}")
+        forms.append(f"{'/'.join(want_forms)}/{fused}: {tag}")
     # windows no block touches are exactly zero
     S = sparse.pack_row_tiled(np.array([0, 1, 2], np.int32),
                               np.array([5, 6, 7], np.int32),
@@ -2884,7 +2918,7 @@ def comm_by_kind(coll):
 
 def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
               comm_scale: int, out_dir: str, apps_scale: int = 20,
-              serving_only: bool = False) -> None:
+              only: str | None = None) -> None:
     """One rank of the dist phase, on card ``rank``, over NCCL; writes its
     report to ``out_dir``.  Any failed check raises (a non-zero exit)."""
     import datetime
@@ -2897,7 +2931,7 @@ def dist_rank(rank: int, world: int, init: str, scale: int, reps: int,
                             timeout=datetime.timedelta(seconds=600))
     try:
         report = _dist_rank(torch, dist, rank, world, scale, reps,
-                            comm_scale, apps_scale, serving_only)
+                            comm_scale, apps_scale, only, out_dir)
     except BaseException:
         # leave at once: the peers may wait in a collective this rank
         # never joins, and destroy_process_group would wait with them
@@ -2918,16 +2952,32 @@ def _leaves(res):
 
 
 def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
-               apps_scale, serving_only=False):
+               apps_scale, only=None, out_dir=None):
     import gc
     t_rank = time.perf_counter()
     ck = Checker(torch)
     report = {"rank": rank, "world": world, "problems": {}}
-    if not serving_only:
+    if only is None:
         _dist_cells(torch, dist, ck, rank, world, scale, reps, comm_scale,
                     report)
-    # serving on the group, each cell's launches counted on this rank in
-    # its served segments alone (LaunchWindows)
+    if only in (None, "serving"):
+        _dist_serving(torch, dist, ck, rank, world, scale, apps_scale,
+                      t_rank, report)
+    if only in (None, "train"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dist rank {rank}: the train cells start at "
+            f"+{time.perf_counter() - t_rank:.1f} s")
+        report["train"] = dist_train(torch, dist, ck, rank, world, out_dir)
+    report["checks"] = ck.n
+    return report
+
+
+def _dist_serving(torch, dist, ck, rank, world, scale, apps_scale, t_rank,
+                  report):
+    """Serving on the group into ``report``, each cell's launches counted
+    on this rank in its served segments alone (LaunchWindows)."""
+    import gc
     gc.collect()
     torch.cuda.empty_cache()
     log(f"dist rank {rank}: the serving cells start at "
@@ -2945,8 +2995,6 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
                            for cell, rec in serve.items()},
                  seconds=time.perf_counter() - t0)
     report["serving"] = serve
-    report["checks"] = ck.n
-    return report
 
 
 def _dist_cells(torch, dist, ck, rank, world, scale, reps, comm_scale,
@@ -3906,6 +3954,222 @@ def dist_serving_one(torch, dist, ck, scale):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the LM train step over the group
+# ---------------------------------------------------------------------------
+
+#: the four-card train cell: global batch, sequence, steps before and
+#: after remesh(DIST_TRAIN_REMESH, 1)
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 8, 512, 3
+DIST_TRAIN_REMESH = 2
+DIST_TRAIN_TOL = 1e-4   # step 0 against one card, loss and grad norm
+
+
+def param_prints(torch, model):
+    """(parameters, 2) int64: each parameter's float32 bits summed plain
+    and weighted by position, to compare replicas across ranks."""
+    out = []
+    for p in model.parameters():
+        w = p.detach().reshape(-1).view(torch.int32).long()
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append(torch.stack([w.sum(), (w * pos).sum()]))
+        del w, pos
+    return torch.stack(out)
+
+
+def _same_on_ranks(torch, dist, x, group, what):
+    """``x`` equal bit for bit on every rank of ``group``."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    if not all(torch.equal(q, parts[0]) for q in parts):
+        raise AssertionError(f"{what}: the ranks differ")
+
+
+def _llama_cut(layers):
+    import dataclasses
+    from repro_torch.config import get_config
+    full = get_config("llama3.2-1b")
+    (sb, _), = full.segments
+    return dataclasses.replace(full, name=f"llama3.2-1b-{layers}l",
+                               segments=((sb, layers),))
+
+
+def dist_train_steps(torch, dist, cfg, mesh, model, state, steps, dev):
+    """``steps`` train steps of ``cfg`` on this rank's rows of the global
+    batch, every rank's parameters compared after each; returns each
+    step's metrics and ms (host clock, the card synchronised)."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.training import data as D
+    from repro_torch.training import train_step as ts
+    pcfg = ParallelConfig(compute_dtype="float32")
+    tcfg = TrainConfig(seq_len=DIST_TRAIN_SEQ, global_batch=DIST_TRAIN_BATCH,
+                       steps=100)
+    step, _, _ = ts.make_train_step(cfg, pcfg, tcfg, mesh)
+    pipe = D.SyntheticLM(cfg.vocab, DIST_TRAIN_SEQ, DIST_TRAIN_BATCH)
+    lo, hi = ts.data_rows(mesh, DIST_TRAIN_BATCH)
+    out = []
+    for i in steps:
+        b = {k: torch.as_tensor(v).to(dev)
+             for k, v in pipe.batch(i, lo, hi).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if mesh is not None and mesh.data_group is not None:
+            _same_on_ranks(torch, dist, param_prints(torch, model),
+                           mesh.data_group, f"dist train step {i} params")
+        out.append(dict({k: float(v) for k, v in m.items()}, step=i, ms=ms,
+                        rows=[lo, hi]))
+    return out
+
+
+@contextlib.contextmanager
+def timed_sums(torch, rec):
+    """``train_step.ordered_sum`` timed (the card synchronised around
+    each call): its ms and float32 bytes into ``rec``."""
+    from repro_torch.training import train_step as ts
+
+    def wrap(orig):
+        def call(tensors, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(tensors, group)
+            torch.cuda.synchronize()
+            rec.append(((time.perf_counter() - t0) * 1e3,
+                        sum(t.numel() * t.element_size() for t in tensors)))
+        return call
+    with patched(ts, "ordered_sum", wrap):
+        yield rec
+
+
+def dist_train(torch, dist, ck, rank, world, out_dir):
+    """The LM train step over the group.  World 1: one step of llama3.2-1b
+    at full width (depth cut) with a group of one against none, bit for
+    bit.  More: llama3.2-1b at full width and depth data-parallel over
+    every rank, DIST_TRAIN_STEPS steps of one global batch (every rank's
+    parameters equal bit for bit after each; the gradient sum's ms and
+    GB/s), step 0 against one card; then remesh(2, 1) from a checkpoint,
+    DIST_TRAIN_STEPS more steps (step == 2 * DIST_TRAIN_STEPS), the
+    ranks left out raising api.RankRetired."""
+    import dataclasses
+    import gc
+    from repro_torch.core.api import RankRetired
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    dev = torch.device("cuda", rank)
+    t0 = time.perf_counter()
+    mesh = lmesh.make_local_mesh(device=dev)
+
+    def fresh(cfg):
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = M.init_params(cfg, g, device=dev)
+        return model, opt.init_opt_state(model)
+
+    if world == 1:
+        cfg = _llama_cut(TRAIN_LM_CUT_LAYERS)
+        one = dataclasses.replace(mesh, data_group=dist.new_group([0]))
+        res = {}
+        for name, m in (("group_of_one", one), ("none", None)):
+            model, state = fresh(cfg)
+            res[name] = (dist_train_steps(torch, dist, cfg, m, model, state,
+                                          range(1), dev),
+                         param_prints(torch, model))
+            del model, state
+        ck.equal(res["group_of_one"][1], res["none"][1],
+                 "dist train: a group of one == none")
+        for k in ("loss", "grad_norm"):
+            if res["group_of_one"][0][0][k] != res["none"][0][0][k]:
+                raise AssertionError(f"dist train: {k} differs")
+        return {"cut": f"layers 16 -> {TRAIN_LM_CUT_LAYERS}",
+                "steps": {k: v[0] for k, v in res.items()},
+                "seconds": time.perf_counter() - t0}
+
+    from repro_torch.config import get_config
+    cfg = get_config("llama3.2-1b")
+    model, state = fresh(cfg)
+    sums = []
+    with timed_sums(torch, sums):
+        steps = dist_train_steps(torch, dist, cfg, mesh, model, state,
+                                 range(DIST_TRAIN_STEPS), dev)
+    ck.n += DIST_TRAIN_STEPS
+    grad_sums = [(ms, nbytes) for ms, nbytes in sums if nbytes > 1 << 20]
+    report = {"arch": cfg.name, "world": world, "steps": steps,
+              "grad_sum": [{"ms": ms, "gb": nbytes / 1e9,
+                            "gb_per_s_received": (world - 1) * nbytes
+                            / ms / 1e6} for ms, nbytes in grad_sums]}
+    ck_dir = pathlib.Path(out_dir) / "train_ckpt"
+    if rank == 0:
+        t1 = time.perf_counter()
+        ckpt.save(str(ck_dir), DIST_TRAIN_STEPS,
+                  ltrain.train_tree(model, state))
+        report["save_s"] = time.perf_counter() - t1
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # step 0 of the same global batch on one card
+        model, state = fresh(cfg)
+        alone = dist_train_steps(torch, dist, cfg, None, model, state,
+                                 range(1), dev)[0]
+        del model, state
+        torch.cuda.empty_cache()
+        for k in ("loss", "grad_norm"):
+            want, got = alone[k], steps[0][k]
+            if abs(got - want) > DIST_TRAIN_TOL * max(1.0, abs(want)):
+                raise AssertionError(f"dist train step 0 {k}: {got} vs one "
+                                     f"card {want}")
+            ck.n += 1
+        report["one_card_step0"] = alone
+    dist.barrier()
+    try:
+        mesh2 = remesh(DIST_TRAIN_REMESH, 1, device=dev)
+    except RankRetired as e:
+        report["remesh"] = {"outcome": "retired", "p": e.p}
+    else:
+        t1 = time.perf_counter()
+        model, state = fresh(cfg)
+        ltrain.load_tree(model, state, ckpt.restore(
+            str(ck_dir), DIST_TRAIN_STEPS, ltrain.train_tree(model, state)))
+        restore_s = time.perf_counter() - t1
+        after = dist_train_steps(torch, dist, cfg, mesh2, model, state,
+                                 range(DIST_TRAIN_STEPS,
+                                       2 * DIST_TRAIN_STEPS), dev)
+        if int(state["step"]) != 2 * DIST_TRAIN_STEPS:
+            raise AssertionError(f"dist train remesh: step "
+                                 f"{int(state['step'])}")
+        ck.n += 1 + DIST_TRAIN_STEPS
+        report["remesh"] = {"outcome": "recovered", "p": DIST_TRAIN_REMESH,
+                            "restore_s": restore_s, "steps": after,
+                            "step": int(state["step"])}
+        del model, state
+    torch.cuda.empty_cache()
+    report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def dist_train_report(ranks, world):
+    """Rank 0's train record with each rank's outcome and step ms; the
+    remesh outcomes checked."""
+    rep = dict(ranks[0]["train"])
+    if world > 1:
+        outs = [rr["train"]["remesh"]["outcome"] for rr in ranks]
+        want = ["recovered"] * DIST_TRAIN_REMESH + ["retired"] * (
+            world - DIST_TRAIN_REMESH)
+        if outs != want:
+            raise AssertionError(f"dist train remesh: outcomes {outs}")
+        rep["ranks"] = [{"rank": rr["rank"], "outcome": o,
+                         "step_ms": [s["ms"] for s in rr["train"]["steps"]],
+                         "grad_sum": rr["train"]["grad_sum"]}
+                        for rr, o in zip(ranks, outs)]
+    return rep
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3914,10 +4178,12 @@ def _free_port() -> int:
 
 
 def phase_dist(torch, scale: int, reps: int, comm_scale: int,
-               apps_scale: int, serving_only: bool = False):
+               apps_scale: int, only: str | None = None):
     """One process per visible card over NCCL (``dist_rank``); fails if
     a rank fails or any outlives DIST_TIMEOUT_S (all are stopped).
-    ``serving_only``: the serving cells alone (a cheaper rehearsal)."""
+    ``only``: "serving" or "train" runs those cells alone (a cheaper
+    rehearsal).  Returns (a rank's d15 launches, each rank's serving
+    launches), None where the cells did not run."""
     import multiprocessing
     import signal
     import tempfile
@@ -3940,7 +4206,7 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
         procs = [ctx.Process(target=dist_rank, args=(rk, world, init, scale,
                                                      reps, comm_scale,
                                                      out_dir, apps_scale,
-                                                     serving_only))
+                                                     only))
                  for rk in range(world)]
         # a SIGTERM (a time limit around the script) unwinds through the
         # finally below, which stops every rank
@@ -3984,15 +4250,18 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
                               .get("cells", {}).items()},
                   "faults": rr.get("faults")}
                   for rr in ranks]}
-    serve = ranks[0]["serving"]
-    report["serving"] = dict(serve, ranks=[{
-        "rank": rr["rank"], "seconds": rr["serving"]["seconds"],
-        "launches": rr["serving"]["launches"],
-        "deploy_s": rr["serving"].get("als", {}).get("deploy"),
-        "gat_deploy_s": rr["serving"].get("gat", {}).get("deploy"),
-        "losses": rr["serving"].get("als", {}).get("losses")}
-        for rr in ranks])
-    if world > 1 and not serving_only:
+    if only in (None, "serving"):
+        serve = ranks[0]["serving"]
+        report["serving"] = dict(serve, ranks=[{
+            "rank": rr["rank"], "seconds": rr["serving"]["seconds"],
+            "launches": rr["serving"]["launches"],
+            "deploy_s": rr["serving"].get("als", {}).get("deploy"),
+            "gat_deploy_s": rr["serving"].get("gat", {}).get("deploy"),
+            "losses": rr["serving"].get("als", {}).get("losses")}
+            for rr in ranks])
+    if only in (None, "train"):
+        report["train"] = dist_train_report(ranks, world)
+    if world > 1 and only is None:
         # the survivors recovered onto the degraded group, every other
         # rank (the lost one among them) retired
         outs = [rr["faults"]["outcome"] for rr in ranks]
@@ -4000,7 +4269,7 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
         if outs != ["recovered"] * p_after + ["retired"] * (world - p_after) \
                 or outs[DIST_FAULT_LOST] != "retired":
             raise AssertionError(f"dist faults: outcomes {outs}")
-    if world > 1:
+    if world > 1 and only in (None, "serving"):
         # serving: the first loss retires the ranks past the degraded p,
         # the second every survivor but the front end; the rest followed
         first, second = ([rr["serving"]["als"]["losses"][i]["outcome"]
@@ -4013,8 +4282,9 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
             raise AssertionError(f"dist serving: outcomes {first}, "
                                  f"{second}")
     emit(report)
-    return (None if serving_only else ranks[0]["problems"]["d15"]
-            ["launches"], [rr["serving"]["launches"] for rr in ranks])
+    return (None if only else ranks[0]["problems"]["d15"]["launches"],
+            [rr["serving"]["launches"] for rr in ranks]
+            if only in (None, "serving") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -4644,7 +4914,7 @@ def lm_moe_packs(torch, ck, cfg, layer, x, reps):
     from repro_torch.models import moe as MOE
     E, d = cfg.moe_experts, cfg.d_model
     xf = x.reshape(-1, d)
-    _, _, gate_v, slot, keep, C = MOE.route(cfg, layer, xf)
+    _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf)
     g = torch.Generator(device="cuda").manual_seed(6)
     y = torch.randn((E * C, d), generator=g, device="cuda")
     packs = {"dispatch": (MOE.dispatch_pack(slot, keep, xf.shape[0], E * C,
@@ -4814,6 +5084,386 @@ def phase_lm(torch, reps: int):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the LM zoo's training path
+# ---------------------------------------------------------------------------
+
+#: (A) launch.train.main at its defaults (--seq 512 --batch 8), 4 steps
+TRAIN_LM_ARGS = ["--steps", "4", "--log-every", "1"]
+TRAIN_LM_LOSS0 = 0.10       # step 0's loss within 10% of ln(vocab)
+TRAIN_LM_RESUME_TOL = 1e-6  # tests/test_training.py's exact resume
+TRAIN_LM_CUT_LAYERS = 2     # (A2)'s depth
+TRAIN_LM_MOE_TOL = 1e-3     # (B) spmm vs einsum, of each leaf's largest
+TRAIN_LM_CPU_TOL = 1e-4     # (C) card vs CPU: loss, grads of each leaf's max
+TRAIN_LM_AUX = 0.01         # lm_loss's aux_weight
+
+
+def lm_train(torch, cfg, argv):
+    """``launch.train.main(argv)`` with ``cfg`` in place of the arch's:
+    returns {"model", "state": the last run's model and optimizer state,
+    "lines": its JSON lines, "text": every line, "step_s": each step's
+    seconds as its StepMonitor saw them (the card synchronised)}."""
+    import io
+    from repro_torch.distributed.elastic import StepMonitor
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    rec = {"model": None, "state": None, "step_s": []}
+
+    def keep(key):
+        def wrap(orig):
+            def made(*a, **k):
+                rec[key] = orig(*a, **k)
+                return rec[key]
+            return made
+        return wrap
+
+    def timing(orig):
+        def observe(self, step, seconds):
+            rec["step_s"].append(seconds)
+            return orig(self, step, seconds)
+        return observe
+
+    out = io.StringIO()
+    with contextlib.ExitStack() as st:
+        st.enter_context(patched(M, "init_params", keep("model")))
+        st.enter_context(patched(opt, "init_opt_state", keep("state")))
+        st.enter_context(patched(StepMonitor, "observe", timing))
+        st.enter_context(patched(train, "resolve_config",
+                                 lambda orig: lambda arch, smoke: cfg))
+        st.enter_context(contextlib.redirect_stdout(out))
+        rc = train.main(argv)
+    rec["text"] = out.getvalue().splitlines()
+    for ln in rec["text"]:
+        log(f"[train {cfg.name}] {ln}")
+    if rc != 0 or not rec["text"] or rec["text"][-1] != "TRAINING DONE":
+        raise AssertionError(f"train_lm: train exited {rc}: "
+                             f"{rec['text'][-3:]}")
+    rec["lines"] = [json.loads(ln) for ln in rec["text"]
+                    if ln.startswith("{")]
+    return rec
+
+
+def train_lm_full(torch, ck):
+    """(A) llama3.2-1b at full width and depth through launch.train.main
+    at its defaults, 4 steps."""
+    from repro_torch.config import get_config
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec = lm_train(torch, cfg, TRAIN_LM_ARGS)
+    wall = time.perf_counter() - t0
+    lines, state = rec["lines"], rec["state"]
+    if [ln["step"] for ln in lines] != [0, 1, 2, 3]:
+        raise AssertionError(f"train_lm (A): steps {lines}")
+    for ln in lines:
+        if not (np.isfinite(ln["loss"]) and np.isfinite(ln["grad_norm"])):
+            raise AssertionError(f"train_lm (A): not finite {ln}")
+    ln_v = float(np.log(cfg.vocab))
+    if abs(lines[0]["loss"] - ln_v) > TRAIN_LM_LOSS0 * ln_v:
+        raise AssertionError(f"train_lm (A): step 0's loss "
+                             f"{lines[0]['loss']} not within 10% of "
+                             f"ln(vocab) {ln_v}")
+    if int(state["step"]) != 4:
+        raise AssertionError(f"train_lm (A): opt step {int(state['step'])}")
+    ck.n += 3
+    n = sum(p.numel() for p in rec["model"].parameters())
+    step_ms = [t * 1e3 for t in rec["step_s"]]
+    med = statistics.median(step_ms[1:])
+    batch, seq = 8, 512
+    report = {"arch": cfg.name, "params": n, "layers": cfg.n_layers,
+              "seq": seq, "batch": batch, "lines": lines, "step_ms": step_ms,
+              "median_step_ms": med, "tokens_per_s": batch * seq / med * 1e3,
+              "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+              "state_gib": 4 * n * 4 / 2**30, "wall_s": wall}
+    del rec
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_lm_resume(torch, ck):
+    """(A2) llama3.2-1b at full width, depth cut: 6 steps straight
+    against 3 steps, a checkpoint, main resuming and 3 more."""
+    import shutil
+    import tempfile
+    from repro_torch.config import get_config
+    full = get_config("llama3.2-1b")
+    cut = _llama_cut(TRAIN_LM_CUT_LAYERS)
+    args = ["--log-every", "1"]
+    t0 = time.perf_counter()
+    straight = lm_train(torch, cut, ["--steps", "6"] + args)
+    d = tempfile.mkdtemp(prefix="train_lm_ckpt")
+    try:
+        first = lm_train(torch, cut, ["--steps", "3", "--ckpt-dir", d]
+                         + args)
+        del first
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        resumed = lm_train(torch, cut, ["--steps", "6", "--ckpt-dir", d]
+                           + args)
+        t_resume = time.perf_counter() - t1
+        ckpt_gib = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
+                       if f.is_file()) / 2**30
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if resumed["text"][0] != "resumed from step 3" or \
+            int(resumed["state"]["step"]) != 6:
+        raise AssertionError(f"train_lm (A2): {resumed['text'][:2]}, step "
+                             f"{int(resumed['state']['step'])}")
+    err = 0.0
+    want = dict(straight["model"].named_parameters())
+    for name, p in resumed["model"].named_parameters():
+        err = max(err, ck.close(p.detach(), want[name].detach(),
+                                TRAIN_LM_RESUME_TOL,
+                                f"train_lm (A2) {name}"))
+    report = {"cut": f"layers {full.n_layers} -> {cut.n_layers}, params "
+                     f"{full.param_count()} -> {cut.param_count()}",
+              "max_abs_err": err, "resume_s": t_resume,
+              "checkpoint_gib": ckpt_gib,
+              "losses": [ln["loss"] for ln in straight["lines"]],
+              "resumed_losses": [ln["loss"] for ln in resumed["lines"]],
+              "seconds": time.perf_counter() - t0}
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return report
+
+
+def _leaf_check(ck, got, want, tol, what):
+    """Each leaf of ``got`` within ``tol`` of the largest magnitude of
+    the same leaf of ``want``; returns {leaf: error / that magnitude}."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        if g is None or g.shape != w.shape or not bool(
+                g.isfinite().all()):
+            raise AssertionError(f"{what} {k}: missing, misshapen or not "
+                                 f"finite")
+        scale = max(float(w.abs().max()), 1e-12)
+        err = float((g.float() - w.float()).abs().max())
+        if err > tol * scale:
+            raise AssertionError(f"{what} {k}: error {err:.3g} beyond "
+                                 f"{tol} x {scale:.3g}")
+        ck.n += 1
+        out[k] = err / scale
+    return out
+
+
+def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps):
+    """The dispatch backward's three launches at the layer's shapes:
+    dx = D^T dbuf and dy = G^T dout (SpMM), d(gate) (SDDMM on G's
+    pattern): each kernel against its plain version, its ms, bound,
+    plain ms and the library call's ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    E, d = cfg.moe_experts, cfg.d_model
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    with torch.no_grad():
+        _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf)
+    m = E * C
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dbuf = torch.randn((m, d), generator=g, device="cuda")
+    y = torch.randn((m, d), generator=g, device="cuda")
+    gates = (gate_v * keep).float()
+    DT = MOE.combine_pack(slot, keep.float(), m)
+    GT = MOE.dispatch_pack(slot, keep, T, m, torch.float32, gates=gates)
+    A = torch.zeros((DT.shape[0], d), device="cuda")
+    A[:T] = dout.reshape(T, d)
+    out = {}
+
+    def csr_of(S, n):
+        coo = S.to_padded_coo()
+        with warnings.catch_warnings():   # sparse CSR is "beta" in torch
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_coo_tensor(
+                torch.stack([coo.rows.long(), coo.cols.long()]), coo.vals,
+                (S.shape[0], n)).coalesce().to_sparse_csr()
+
+    for name, S, Bd in (("dx", DT, dbuf), ("dy", GT, A[:T])):
+        mo = S.shape[0]
+        Bd = Bd.contiguous()
+        sp = csr_of(S, Bd.shape[0])
+
+        def kern(S=S, Bd=Bd, mo=mo):
+            return ops.spmm(S, Bd, m=mo, r_tile=d, blocks_per_step=1)
+
+        def plain(S=S, Bd=Bd, mo=mo):
+            return ops.spmm(S, Bd, m=mo, backend="ref")
+        bound = _bound(torch, S, d, mo, "spmm")
+        out[name] = {
+            "kernel": "spmm", "form": None, "m": mo, "n": Bd.shape[0],
+            "r": d, "nnz": bound[5],
+            "max_abs_err": ck.close(kern(), plain(), 2e-3,
+                                    f"train_lm moe {name} kernel vs plain"),
+            "ms": time_ms(torch, kern, reps),
+            "plain_ms": time_ms(torch, plain, reps),
+            "library_ms": time_ms(torch, lambda sp=sp, Bd=Bd:
+                                  torch.sparse.mm(sp, Bd), reps),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        from repro_torch.kernels.spmm import spmm_cuda
+        out[name]["form"] = spmm_cuda.last_form
+    from repro_torch.kernels.sddmm import sddmm_cuda
+
+    def kern_g():
+        return ops.sddmm(A, y, DT, r_tile=d, blocks_per_step=1).vals
+
+    def plain_g():
+        return ops.sddmm(A, y, DT, backend="ref").vals
+    pat = csr_of(DT, m)
+    pvals = pat.values()
+    yt = y.t()
+    bound = _bound(torch, DT, d, None, "sddmm")
+    out["dgate"] = {
+        "kernel": "sddmm", "m": DT.shape[0], "n": m, "r": d,
+        "nnz": bound[5],
+        "max_abs_err": ck.close(kern_g(), plain_g(), 2e-5,
+                                "train_lm moe dgate kernel vs plain"),
+        "form": sddmm_cuda.last_form,
+        "ms": time_ms(torch, kern_g, reps),
+        "plain_ms": time_ms(torch, plain_g, reps),
+        "library_ms": time_ms(torch, lambda: torch.sparse.sampled_addmm(
+            pat, A, yt, beta=0.0).values() * pvals, reps),
+        "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
+
+
+def train_lm_moe(torch, ck, reps):
+    """(B) one DeepSeek-V2-Lite MoE layer at full width, LM_MOE_TOKENS
+    tokens: forward and backward under dispatch="spmm" (the Hopper SpMM
+    and SDDMM under the dispatch's autograd Functions) against
+    "einsum", every gradient leaf; the launches and forms of one counted
+    backward; both passes' ms; the backward's kernels at their shapes.
+    Returns (report, launches)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cut, _ = deepseek_cut()
+    pcfg = ParallelConfig(compute_dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = MOE.MoE(L.Init(g, torch.float32, "cuda"), cut)
+    B, S = LM_MOE_TOKENS
+    x = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    proj = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    leaves = dict(layer.named_parameters())
+
+    def step(dispatch):
+        for p in leaves.values():
+            p.grad = None
+        xx = x.clone().requires_grad_(True)
+        out, aux = MOE.moe(cut, pcfg, layer, xx, dispatch=dispatch)
+        loss = (out * proj).sum() + TRAIN_LM_AUX * aux["lb_loss"]
+        loss.backward()
+        return xx
+
+    xg = step("einsum")
+    want = {"x": xg.grad, **{k: p.grad for k, p in leaves.items()}}
+    ops.reset_launch_counts()
+    xg = step("spmm")
+    torch.cuda.synchronize()
+    launches, forms = ops.launch_counts(), ops.form_counts()
+    got = {"x": xg.grad, **{k: p.grad for k, p in leaves.items()}}
+    if launches["spmm"] != 4 or forms["spmm"].get("bulk", 0) != 4 or \
+            launches["sddmm"] != 1 or launches["fusedmm"] != 0:
+        raise AssertionError(f"train_lm moe: expected 4 bulk SpMM and 1 "
+                             f"SDDMM launches, got {launches} {forms}")
+    errs = _leaf_check(ck, got, want, TRAIN_LM_MOE_TOL,
+                       "train_lm moe spmm vs einsum grad")
+    report = {"tokens": B * S, "experts": cut.moe_experts,
+              "top_k": cut.moe_top_k,
+              "capacity": int(cut.capacity_factor * B * S * cut.moe_top_k
+                              / cut.moe_experts),
+              "launches": launches, "forms": forms, "leaf_err": errs,
+              "spmm_ms": time_ms(torch, lambda: step("spmm"), reps),
+              "einsum_ms": time_ms(torch, lambda: step("einsum"), reps),
+              "backward": train_lm_moe_kernels(torch, ck, cut, layer, x,
+                                               proj, reps)}
+    for p in leaves.values():
+        p.grad = None
+    del layer, leaves, got, want, xg
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def train_lm_reduced(torch, ck):
+    """(C) every reduced config: one train step on the card against the
+    same weights and batch on the CPU: the loss, and every gradient the
+    optimizer is given."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.launch.train import SMOKE_MODULES, resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    pcfg = ParallelConfig(compute_dtype="float32")
+    tcfg = TrainConfig(seq_len=32, global_batch=2, lr=1e-3, steps=10)
+    out = {}
+    for arch in SMOKE_MODULES:
+        cfg = resolve_config(arch, True)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        model = M.init_params(cfg, g, device="cuda")
+        cpu = cpu_copy(torch, cfg, model)
+        b = D.SyntheticLM(cfg.vocab, 32, 2, seed=2).batch(0)
+        if not cfg.embed_inputs:
+            eb = D.embeds_batch(0, 2, 32, cfg.d_model,
+                                pos3=(cfg.pos_dims == 3))
+            b = dict(eb, labels=b["labels"])
+        b = {k: torch.as_tensor(v) for k, v in b.items()}
+        res = {}
+        for where, mdl in (("cuda", model), ("cpu", cpu)):
+            seen = []
+
+            def spy(orig, seen=seen):
+                def update(cfg_, params, grads, state):
+                    seen.append({k: v.detach().cpu().clone()
+                                 for k, v in grads.items()})
+                    return orig(cfg_, params, grads, state)
+                return update
+            step, _, _ = ts.make_train_step(cfg, pcfg, tcfg, None)
+            with patched(opt, "adamw_update", spy):
+                m = step(mdl, opt.init_opt_state(mdl),
+                         {k: v.to(where) for k, v in b.items()})
+            res[where] = ({k: float(v) for k, v in m.items()}, seen[0])
+        (mc, gc), (mp, gp) = res["cuda"], res["cpu"]
+        if abs(mc["loss"] - mp["loss"]) > TRAIN_LM_CPU_TOL * max(
+                1.0, abs(mp["loss"])):
+            raise AssertionError(f"train_lm (C) {arch}: loss {mc['loss']} "
+                                 f"vs CPU {mp['loss']}")
+        ck.n += 1
+        errs = _leaf_check(ck, gc, gp, TRAIN_LM_CPU_TOL,
+                           f"train_lm (C) {arch} grad")
+        out[arch] = {"loss": mc["loss"], "cpu_loss": mp["loss"],
+                     "grad_norm": mc["grad_norm"],
+                     "max_leaf_err": max(errs.values())}
+        del model, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_lm(torch, reps: int):
+    """The LM zoo's training path on the card: (C) every reduced config
+    against the CPU, (A) llama3.2-1b at full width and depth through
+    launch.train.main, (A2) exact resume at full width (depth cut), (B)
+    the MoE SpMM dispatch's backward at DeepSeek-V2-Lite's width.
+    Returns the launches of (B)'s counted forward and backward."""
+    ck = Checker(torch)
+    t0 = time.perf_counter()
+    report = {"phase": "train_lm", "device": torch.cuda.get_device_name(0),
+              "reduced": train_lm_reduced(torch, ck)}
+    report["seconds_reduced"] = time.perf_counter() - t0
+    report["llama"] = train_lm_full(torch, ck)
+    report["seconds_llama"] = time.perf_counter() - t0
+    report["resume"] = train_lm_resume(torch, ck)
+    report["seconds_resume"] = time.perf_counter() - t0
+    report["moe"], launches = train_lm_moe(torch, ck, reps)
+    report.update(launches=launches, checks=ck.n,
+                  seconds=time.perf_counter() - t0)
+    emit(report)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4825,6 +5475,8 @@ def main(argv=None) -> int:
     ap.add_argument("--comm-scale", type=int, default=22)
     ap.add_argument("--dist-serving-only", action="store_true",
                     help="the dist phase runs its serving cells alone")
+    ap.add_argument("--dist-train-only", action="store_true",
+                    help="the dist phase runs its train cells alone")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -4839,7 +5491,7 @@ def main(argv=None) -> int:
     kernels, family_launches, dist_launches = None, None, None
     train_launches, sparse_launches, fault_launches = None, None, None
     serving_launches, obs_launches, dist_serving_launches = None, None, None
-    lm_launches = None
+    lm_launches, train_lm_launches = None, None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -4871,7 +5523,9 @@ def main(argv=None) -> int:
         elif ph == "dist":
             dist_launches, dist_serving_launches = phase_dist(
                 torch, args.scale, args.reps, args.comm_scale,
-                args.apps_scale, args.dist_serving_only)
+                args.apps_scale,
+                "serving" if args.dist_serving_only
+                else "train" if args.dist_train_only else None)
         elif ph == "rmat_padding":
             phase_rmat_padding(torch, args.comm_scale - 2)
         elif ph == "train":
@@ -4879,6 +5533,8 @@ def main(argv=None) -> int:
                                          args.reps)
         elif ph == "lm":
             lm_launches = phase_lm(torch, args.reps)
+        elif ph == "train_lm":
+            train_lm_launches = phase_train_lm(torch, args.reps)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
@@ -4904,6 +5560,9 @@ def main(argv=None) -> int:
                                    else obs_launches[row["name"]])
             row["lm_launches"] = (None if lm_launches is None
                                   else lm_launches[row["name"]])
+            row["train_lm_launches"] = (
+                None if train_lm_launches is None
+                else train_lm_launches[row["name"]])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

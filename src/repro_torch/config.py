@@ -135,12 +135,13 @@ class ParallelConfig:
 
     The port's forward reads ``compute_dtype`` and ``flash_block``;
     ``init_params`` takes ``param_dtype`` as its own argument.  The
-    other fields are kept, with the reference's defaults, for the mesh
-    and partition specs that come with ``distributed/sharding.py``: on
-    one card ``data_axis``, ``model_axis``, ``pod_axis``, ``remat``,
-    ``scan_layers``, ``shard_embed_data``, ``dp_over_model``,
-    ``seq_parallel`` and ``seq_shard_decode`` place, shard or change
-    nothing, and nothing reads them.
+    partition specs (``models.model.param_specs``, ``cache_specs``,
+    ``batch_axes``) read ``data_axis``, ``model_axis``, ``pod_axis``,
+    ``dp_over_model`` and ``seq_shard_decode``, as the reference's do;
+    the port executes only a mesh's data axis, so they place nothing.
+    ``remat``, ``scan_layers``, ``shard_embed_data`` and
+    ``seq_parallel`` are kept with the reference's defaults, and nothing
+    reads them.
     """
     data_axis: str = "data"
     model_axis: str = "model"

@@ -164,22 +164,12 @@ def _lm_leaves(tree, prefix, out):
     return out
 
 
-def lm_params_from_numpy(cfg, params, *, device=None, dtype=None):
-    """The port's LM (``models.model.Model``) holding the weights of a
-    reference parameter pytree (``repro.models.model.init_params``'s
-    layout, leaves as arrays ``numpy.asarray`` can read), as ``dtype``
-    (default float32) on ``device`` (default: the card).
-
-    A segment that repeats (``cnt > 1``) holds its leaves stacked on a
-    leading repeat axis, which is unstacked into the segment's
-    ``ModuleList``; a segment with ``cnt == 1`` has none.  The names map
-    one to one (``blk{i}``, ``attn``/``mamba``/``mlp``/``moe``/
-    ``shared``, ``norm1``/``norm2``, ``embed``/``head``/``final_norm``);
-    a missing or extra leaf, or a leaf of another shape, is refused.
-    """
+def _lm_flat(cfg, params):
+    """``{port parameter name: float32 array}`` of a reference parameter
+    pytree (or anything of its layout: an AdamW moment), each repeating
+    segment's leading repeat axis unstacked; a missing or extra leaf, or
+    a leaf of another shape, is refused."""
     from repro_torch.models import model as M
-    dev = _device.resolve(device)
-    dtype = dtype or torch.float32
     segs = params.get("segments", ())
     if len(segs) != len(cfg.segments):
         raise ValueError(f"{len(segs)} segments for a config of "
@@ -198,19 +188,58 @@ def lm_params_from_numpy(cfg, params, *, device=None, dtype=None):
                                  f"{cnt} repeats")
             for ri in range(cnt):
                 flat[f"segments.{si}.{ri}.{name}"] = arr[ri]
-    model = M.empty_model(cfg)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    want = {k: tuple(v.shape)
+            for k, v in M.empty_model(cfg).state_dict().items()}
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise KeyError(f"parameter leaves missing {missing}, extra {extra}")
-    state = {}
+    out = {}
     for name, shape in want.items():
         arr = np.asarray(flat[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, the model's "
                              f"{shape}")
-        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
-                                                          dtype=dtype)
+        out[name] = arr
+    return out
+
+
+def lm_params_from_numpy(cfg, params, *, device=None, dtype=None):
+    """The port's LM (``models.model.Model``) holding the weights of a
+    reference parameter pytree (``repro.models.model.init_params``'s
+    layout, leaves as arrays ``numpy.asarray`` can read), as ``dtype``
+    (default float32) on ``device`` (default: the card).
+
+    A segment that repeats (``cnt > 1``) holds its leaves stacked on a
+    leading repeat axis, which is unstacked into the segment's
+    ``ModuleList``; a segment with ``cnt == 1`` has none.  The names map
+    one to one (``blk{i}``, ``attn``/``mamba``/``mlp``/``moe``/
+    ``shared``, ``norm1``/``norm2``, ``embed``/``head``/``final_norm``);
+    a missing or extra leaf, or a leaf of another shape, is refused.
+    """
+    from repro_torch.models import model as M
+    dev = _device.resolve(device)
+    dtype = dtype or torch.float32
+    state = {name: torch.from_numpy(np.array(arr)).to(device=dev,
+                                                       dtype=dtype)
+             for name, arr in _lm_flat(cfg, params).items()}
+    model = M.empty_model(cfg)
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def lm_opt_state_from_numpy(cfg, state, *, device=None):
+    """The port's AdamW state (``training.optimizer.init_opt_state``'s
+    layout: ``{"mu": {name: float32 tensor}, "nu": ..., "step": int32
+    tensor}``) holding a reference state (``repro.training.optimizer``'s
+    ``{"mu": params-like pytree, "nu": ..., "step": int}``), on
+    ``device`` (default: the card); the moments map as
+    :func:`lm_params_from_numpy` maps the weights."""
+    dev = _device.resolve(device)
+
+    def moments(tree):
+        return {name: torch.from_numpy(np.array(arr)).to(dev)
+                for name, arr in _lm_flat(cfg, tree).items()}
+    return {"mu": moments(state["mu"]), "nu": moments(state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

@@ -11,8 +11,8 @@ Port of ``repro.distributed.elastic``.
   caller bugs (TypeError, shape mismatch) and kernel failures into
   silent restores, so those propagate on the first attempt.
 * **Re-planning** of a distributed problem onto a degraded grid lives in
-  ``repro_torch.core.api.degrade``.  The reference's ``remesh`` (a JAX
-  ``(data, model)`` mesh for the LM zoo) comes with that zoo.
+  ``repro_torch.core.api.degrade``; :func:`remesh` makes the LM zoo's
+  ``(data, model)`` mesh (``launch/mesh.py``) over fewer ranks.
 * **Straggler mitigation** -- :class:`StepMonitor` tracks a rolling
   median of step times; a step exceeding ``straggler_factor`` x median
   is flagged: its id accumulates in ``monitor.flagged`` and the hook
@@ -101,6 +101,19 @@ class StepMonitor:
         _synchronize(out)
         self.observe(step, self.clock() - t0)
         return out
+
+
+def remesh(n_devices: int, model_parallel: int, device=None):
+    """Build a (data, model) mesh over the first ``n_devices`` ranks of
+    the world.  Every process calls it (the mesh's groups are made by
+    all); the ranks it leaves out raise ``api.RankRetired``, as
+    ``api.degrade`` does."""
+    from repro_torch.launch.mesh import mesh_over
+    if n_devices % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} must divide "
+                         f"{n_devices} ranks")
+    return mesh_over(n_devices, n_devices // model_parallel, model_parallel,
+                     device)
 
 
 def run_step_resilient(step_fn, save_fn, restore_fn, *args,

@@ -1,15 +1,39 @@
-"""Config resolution of the training driver.
+"""End-to-end training driver.
 
-Port of the part of ``repro.launch.train`` that the serve driver shares:
-``SMOKE_MODULES`` and :func:`resolve_config`.  ``--smoke`` swaps in the
-reduced config of the same family.  The training driver itself (its data
-pipeline, train step, checkpoints and mesh) is not ported yet.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --steps 200 --seq 512 --batch 8 --ckpt-dir /tmp/ckpt [--smoke] \\
+      [--device cpu]
+
+Port of ``repro.launch.train``: the config system, the synthetic data
+pipeline, the train step on a (data, model) mesh, checkpoint/restart
+(resume is automatic if the checkpoint dir has a committed step), step
+monitoring with straggler flagging, loss logging.  ``--smoke`` swaps in
+the reduced config of the same family.  It runs on the card unless
+``--device`` names another device.  Under ``torch.distributed`` (one
+process a card, each with its own card set) every rank builds
+``make_local_mesh(model=--model-parallel)`` and takes its rows of the
+global batch; the replicas stay equal, and the first rank writes the
+checkpoints.  One JSON line a logged step, then ``TRAINING DONE``.
 """
 from __future__ import annotations
 
+import argparse
 import importlib
+import json
+import sys
+import time
 
-from repro_torch.config import get_config
+import torch
+
+from repro_torch.config import ParallelConfig, TrainConfig, get_config
+from repro_torch.distributed import sharding
+from repro_torch.distributed.elastic import StepMonitor, run_step_resilient
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import model as M
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training import data as data_mod
+from repro_torch.training import optimizer as opt
+from repro_torch.training import train_step as ts
 
 SMOKE_MODULES = {
     "jamba-v0.1-52b": "jamba_v01_52b", "stablelm-1.6b": "stablelm_1_6b",
@@ -28,3 +52,139 @@ def resolve_config(arch: str, smoke: bool):
                                       + SMOKE_MODULES[arch])
         return mod.reduced()
     return get_config(arch)
+
+
+def train_tree(model, opt_state):
+    """The checkpointed tree: ``{"params": {name: tensor}, "opt":
+    opt_state}``."""
+    return {"params": dict(model.named_parameters()), "opt": opt_state}
+
+
+@torch.no_grad()
+def load_tree(model, opt_state, tree) -> None:
+    """Copy a restored :func:`train_tree` into ``model`` and
+    ``opt_state`` in place."""
+    for name, p in model.named_parameters():
+        p.copy_(tree["params"][name])
+    for key in ("mu", "nu"):
+        for name, v in opt_state[key].items():
+            v.copy_(tree["opt"][key][name])
+    opt_state["step"] = tree["opt"]["step"].clone()
+
+
+def _barrier(mesh) -> None:
+    if mesh.group is not None and mesh.size > 1:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--log-file", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = resolve_config(args.arch, args.smoke)
+    mesh = make_local_mesh(model=args.model_parallel, device=args.device)
+    dev = mesh.device
+    sharding.set_mesh(mesh)
+    pcfg = ParallelConfig(remat="none", compute_dtype="float32",
+                          param_dtype="float32")
+    tcfg = TrainConfig(seq_len=args.seq, global_batch=args.batch,
+                       lr=args.lr, steps=args.steps,
+                       microbatch=args.microbatch, seed=args.seed)
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = M.init_params(cfg, gen, device=dev)
+    opt_state = opt.init_opt_state(model)
+    step0 = 0
+    if args.ckpt_dir:
+        last = ckpt.latest_step(args.ckpt_dir)
+        if last is not None:
+            load_tree(model, opt_state, ckpt.restore(
+                args.ckpt_dir, last, train_tree(model, opt_state)))
+            step0 = last
+            print(f"resumed from step {step0}")
+
+    _, shardings_for, jit_step = ts.make_train_step(cfg, pcfg, tcfg, mesh)
+    psh, osh = shardings_for(model)
+    fn = jit_step(psh, osh, None)
+
+    pipe = data_mod.SyntheticLM(cfg.vocab, args.seq, args.batch,
+                                seed=args.seed)
+    lo, hi = ts.data_rows(mesh, args.batch)
+    mon = StepMonitor(on_straggler=lambda s, t, m: print(
+        f"[straggler] step {s}: {t:.2f}s vs median {m:.2f}s"))
+    logf = open(args.log_file, "a") if args.log_file else None
+
+    def make_batch(step):
+        b = pipe.batch(step, lo, hi)
+        if not cfg.embed_inputs:
+            eb = data_mod.embeds_batch(step, args.batch, args.seq,
+                                       cfg.d_model,
+                                       pos3=(cfg.pos_dims == 3))
+            b = dict({k: v[lo:hi] for k, v in eb.items()},
+                     labels=b["labels"])
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+    def restore_latest():
+        last = ckpt.latest_step(args.ckpt_dir)
+        load_tree(model, opt_state, ckpt.restore(
+            args.ckpt_dir, last, train_tree(model, opt_state)))
+        return model, opt_state, batch
+
+    def save(step):
+        if mesh.coords == (0,) * len(mesh.coords):
+            ckpt.save(args.ckpt_dir, step, train_tree(model, opt_state))
+        _barrier(mesh)
+
+    t_start = time.time()
+    try:
+        for step in range(step0, args.steps):
+            batch = make_batch(step)
+
+            def do(m, o, b, step=step):
+                return mon.timed(step, fn, m, o, b)
+
+            if args.ckpt_dir:
+                metrics = run_step_resilient(do, None, restore_latest,
+                                             model, opt_state, batch)
+            else:
+                metrics = do(model, opt_state, batch)
+
+            if step % args.log_every == 0 or step == args.steps - 1:
+                rec = dict(step=step, loss=float(metrics["loss"]),
+                           grad_norm=float(metrics["grad_norm"]),
+                           lr=float(metrics["lr"]),
+                           elapsed=round(time.time() - t_start, 1))
+                print(json.dumps(rec), flush=True)
+                if logf:
+                    logf.write(json.dumps(rec) + "\n")
+                    logf.flush()
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                save(step + 1)
+        if args.ckpt_dir:
+            save(args.steps)
+    finally:
+        if logf:
+            logf.close()
+        sharding.set_mesh(None)
+    print("TRAINING DONE")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

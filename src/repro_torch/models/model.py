@@ -9,19 +9,26 @@ reference scans over stacked parameters.  A cache mirrors that layout:
 ``{"segments": [[{"blk0": entry, ...} for each repeat] for each
 segment]}``, one entry a layer.
 
-The reference's partition specs (``param_specs``, ``cache_specs``) and
-activation constraints (``constrain``, ``batch_axes``) place nothing on
-one card; they come with ``distributed/sharding.py``.
+The partition specs (``param_specs``, ``cache_specs``) are the
+reference's rules keyed by the port's parameter and cache names, without
+the reference's leading scan axis (a segment's repeats are a
+``ModuleList``).  The port executes the ``data`` axis of a mesh (the
+train step's ``group``: each rank holds rows of the global batch, see
+``models/moe.py``); the ``model`` axis (tensor parallelism) is not
+executed yet, so :func:`constrain` raises under a mesh with ``model >
+1`` rather than run it replicated.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import device as _device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -32,6 +39,32 @@ from repro_torch.models.layers import (Init, init_mlp, init_rms, rms_norm,
 def _dtype(name):
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def batch_axes(pcfg):
+    axes = ((pcfg.pod_axis, pcfg.data_axis) if pcfg.pod_axis
+            else (pcfg.data_axis,))
+    if pcfg.dp_over_model:
+        axes = axes + (pcfg.model_axis,)
+    return axes
+
+
+#: the ROADMAP item that executes the "model" axis
+TP_ITEM = ("tensor parallelism over the 'model' axis is not ported yet "
+           "(ROADMAP.md, queue 1: executed param_specs, check_elastic.py "
+           "at model_parallel=2, fsdp_extend)")
+
+
+def constrain(x, *spec):
+    """The activation sharding constraint: ``x`` itself.  Under the
+    installed mesh (``sharding.set_mesh``) the ``data`` axis is each
+    rank's own rows already; a mesh with ``model > 1`` raises (not run
+    replicated in silence)."""
+    del spec
+    mesh = sharding.current_mesh()
+    if mesh is not None and mesh.axis_sizes.get("model", 1) > 1:
+        raise NotImplementedError(TP_ITEM)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +160,7 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg, pcfg, spec, p, x, batch, cache, aux,
-                 want_cache=True):
+                 want_cache=True, group=None):
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if spec.mixer == "attn":
         fn = attn_mod.mla if cfg.mla_kv_lora else attn_mod.gqa
@@ -142,26 +175,26 @@ def _apply_block(cfg, pcfg, spec, p, x, batch, cache, aux,
         if spec.ffn == "dense":
             x = x + swiglu(h, p.mlp.w1, p.mlp.w3, p.mlp.w2)
         else:
-            out, moe_aux = moe_mod.moe(cfg, pcfg, p.moe, h)
+            out, moe_aux = moe_mod.moe(cfg, pcfg, p.moe, h, group=group)
             x = x + out
             aux = aux + moe_aux["lb_loss"]
     return x, new_cache, aux
 
 
 def _apply_superblock(cfg, pcfg, sb, blocks, x, batch, caches, aux,
-                      want_cache=True):
+                      want_cache=True, group=None):
     new_caches = {}
     for i, spec in enumerate(sb):
         cache_i = None if caches is None else caches[f"blk{i}"]
         x, nc, aux = _apply_block(cfg, pcfg, spec, getattr(blocks, f"blk{i}"),
-                                  x, batch, cache_i, aux, want_cache)
+                                  x, batch, cache_i, aux, want_cache, group)
         new_caches[f"blk{i}"] = nc
     return x, (new_caches if want_cache else None), aux
 
 
 def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
             cache: Optional[dict] = None, want_cache: bool = True,
-            return_hidden: bool = False):
+            return_hidden: bool = False, group=None):
     """Returns (logits f32, new_cache, aux_loss).
 
     batch: {"tokens": (B,S) int} or {"embeds": (B,S,d)}; optional
@@ -169,12 +202,19 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
     (training) keeps no cache.  ``aux`` sums the MoE layers' load-balancing
     losses.  return_hidden=True returns the final-normed hidden states in
     place of the logits (the caller projects: last-token-only prefill).
+    ``group``: the data-parallel group whose ranks hold consecutive rows
+    of one global batch (MoE routing and ``aux`` are the global batch's,
+    ``aux`` this rank's share; ``models/moe.py``).
     """
     cdt = _dtype(pcfg.compute_dtype)
     if cfg.embed_inputs:
-        x = model.embed[batch["tokens"]].to(cdt)
+        # F.embedding: its backward sums each row's gradients in a fixed
+        # order (indexing's backward accumulates in thread order on the
+        # CPU)
+        x = F.embedding(batch["tokens"], model.embed).to(cdt)
     else:
         x = batch["embeds"].to(cdt)
+    x = constrain(x, batch_axes(pcfg), None, None)
 
     new_segs = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -184,7 +224,8 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
         for ri, blocks in enumerate(model.segments[si]):
             x, nc, aux = _apply_superblock(
                 cfg, pcfg, sb, blocks, x, batch,
-                None if seg_c is None else seg_c[ri], aux, want_cache)
+                None if seg_c is None else seg_c[ri], aux, want_cache,
+                group)
             reps.append(nc)
         new_segs.append(reps)
 
@@ -194,3 +235,85 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
         return x, new_cache, aux
     head = (model.embed.T if cfg.tie_embeddings else model.head).to(cdt)
     return (x @ head).float(), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# partition specs
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig, pcfg: ParallelConfig, model: Model):
+    """``{parameter name: P}``: Megatron-style TP over the "model" axis
+    (or fully replicated when dp_over_model re-purposes the axis as data
+    parallelism), the reference's rules on the port's names.  A repeating
+    segment's leaf gets the reference's spec of its stacked leaf (one
+    dimension more, the scan axis, in front) with that first entry
+    dropped, its quirks kept (a stacked shared expert's ``w1`` has
+    "model" on the scan axis, so none on its own)."""
+    P = sharding.P
+    mdl = None if pcfg.dp_over_model else pcfg.model_axis
+
+    def stacked(names):
+        return names[0] == "segments" and cfg.segments[int(names[1])][1] > 1
+
+    def spec(name, x):
+        names = name.split(".")
+        if not stacked(names):
+            return rule(names, x.ndim)
+        return P(*rule(names, x.ndim + 1)[1:])
+
+    def rule(names, rank):
+
+        def lead(spec2):
+            return P(*((None,) * (rank - len(spec2)) + spec2))
+
+        if "embed" in names:
+            return P(mdl, None)
+        if "head" in names:
+            return P(None, mdl)
+        if "moe" in names:
+            if names[-1] in ("w1", "w3", "w2"):          # (E, d, ff)
+                return lead((mdl, None, None))
+            return lead((None,))                         # router, shared
+        if names[-1] in ("wq", "wk", "wv", "w1", "w3", "in_proj",
+                         "wuk", "wuv"):
+            return lead((None, mdl))
+        if names[-1] in ("wo", "w2", "out_proj"):
+            return lead((mdl, None))
+        if names[-1] in ("wdkv", "wkpe"):
+            return lead((None, None))
+        return lead(())                                  # norms, scalars
+
+    return {name: spec(name, x) for name, x in model.named_parameters()}
+
+
+def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, cache):
+    """Shard caches: batch over data(+pod); seq-shard long caches if
+    asked.  ``cache``'s structure (``init_cache``) with a P a leaf."""
+    del cfg
+    P = sharding.P
+    baxes = ((pcfg.pod_axis, pcfg.data_axis) if pcfg.pod_axis
+             else (pcfg.data_axis,))
+
+    def rule(leaf, x):
+        rank = x.ndim
+        if leaf == "pos":
+            return P(*((None,) * (rank - 1) + (baxes,)))
+        lead = (None,) * (rank - 4)
+        seq = pcfg.model_axis if pcfg.seq_shard_decode else None
+        if leaf in ("k", "v"):           # (B, S, Kv, hd)
+            return P(*lead, baxes, seq, None, None)
+        if leaf in ("c_kv", "k_pe"):     # (B, S, l)
+            lead3 = (None,) * (rank - 3)
+            return P(*lead3, baxes, seq, None)
+        if leaf == "ssm":                # (B, H, P, N)
+            return P(*lead, baxes, pcfg.model_axis, None, None)
+        if leaf == "conv":               # (B, K-1, C)
+            lead3 = (None,) * (rank - 3)
+            return P(*lead3, baxes, None, pcfg.model_axis)
+        return P(*((None,) * rank))
+
+    return {"segments": [[{blk: {leaf: rule(leaf, x)
+                                 for leaf, x in entry.items()}
+                           for blk, entry in rep.items()}
+                          for rep in seg]
+                         for seg in cache["segments"]]}

@@ -29,6 +29,25 @@ to the host, in windows of ``MOE_ROW_TILE`` rows:
   tile and each window is one block of ``MOE_ROW_TILE * k`` entries.
 
 The padded rows are sliced off the products.
+
+Under autograd the two products are :class:`_DispatchSpMM` and
+:class:`_CombineSpMM`, whose backward passes run on the same kernels
+(the wrappers launch through ``ctypes`` into fresh tensors, which carry
+no graph): dx = D^T dbuf is an SpMM on ``combine_pack``'s layout with
+``keep`` as values; dy = G^T dout one on ``dispatch_pack``'s layout with
+the gates as values; and d(gate)[t, j] = keep * <dout[t], y[slot]> one
+SDDMM on the combine pattern with ``keep`` as values.  A forward and
+backward launch 4 SpMM and 1 SDDMM, with a fixed sum order.
+
+**Data parallelism** (``group=``, a ``torch.distributed`` group whose
+ranks hold consecutive rows of one global batch, in rank order): the
+routing is the global batch's.  The capacity is C = capacity_factor *
+T_global * k / E, a token's place in its expert's queue counts the
+tokens of the lower ranks (their per-expert counts are all-gathered
+before routing), and the load-balancing loss each rank returns is its
+share of the global one (its probability sums over T_global against the
+global counts), so the ranks' shares sum to it.  Each rank's expert
+buffers hold all E * C slots, its own filled.
 """
 from __future__ import annotations
 
@@ -76,14 +95,44 @@ def _shared(p, xf):
     return swiglu(xf[None], p.shared.w1, p.shared.w3, p.shared.w2)[0]
 
 
-def route(cfg, p, xf):
+def _world(group) -> int:
+    """Ranks of the data-parallel ``group`` (None: this process alone)."""
+    if group is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def _global_counts(counts, group):
+    """(assignments of the lower ranks per expert, of all ranks) from
+    each rank's per-expert ``counts`` (E,), all-gathered over
+    ``group``."""
+    if group is None:
+        return torch.zeros_like(counts), counts
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    parts = [torch.empty_like(counts) for _ in range(world)]
+    dist.all_gather(parts, counts, group=group)
+    rank = dist.get_rank(group)
+    lower = torch.zeros_like(counts)
+    for part in parts[:rank]:
+        lower = lower + part
+    total = torch.zeros_like(counts)
+    for part in parts:
+        total = total + part
+    return lower, total
+
+
+def route(cfg, p, xf, group=None):
     """Top-k routing of tokens ``xf`` (T, d) with static capacity.
 
     The router runs in float32; the gates are renormalised over the top
-    k.  Returns ``(probs, gate_i, gate_v, slot, keep, C)``: each (token,
-    k)-assignment's expert, gate and slot ``expert * C + rank`` (the rank
-    in its expert's queue by an exclusive cumulative sum, clipped to C-1),
-    and whether it is kept (rank < C).
+    k.  Returns ``(probs, gate_i, gate_v, slot, keep, C, counts)``: each
+    (token, k)-assignment's expert, gate and slot ``expert * C + rank``
+    (the rank in its expert's queue by an exclusive cumulative sum,
+    clipped to C-1), whether it is kept (rank < C), and the global
+    batch's assignments per expert.  Under ``group`` the tokens are this
+    rank's share of the global batch (see the module docstring).
     """
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = xf.shape[0]
@@ -91,29 +140,31 @@ def route(cfg, p, xf):
     probs = torch.softmax(logits, dim=-1)
     gate_v, gate_i = torch.topk(probs, k, dim=-1)       # (T, k)
     gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
-    C = int(cfg.capacity_factor * T * k / E) or 1
     flat = F.one_hot(gate_i, E).reshape(T * k, E)
+    lower, counts = _global_counts(flat.sum(0), group)
+    C = int(cfg.capacity_factor * T * _world(group) * k / E) or 1
     ranks = torch.cumsum(flat, dim=0) - flat                  # exclusive
-    rank = (ranks * flat).sum(-1).reshape(T, k)               # (T, k)
+    rank = (ranks * flat).sum(-1).reshape(T, k) + lower[gate_i]
     keep = rank < C
     slot = gate_i * C + torch.clamp_max(rank, C - 1)          # (T, k)
-    return probs, gate_i, gate_v, slot, keep, C
+    return probs, gate_i, gate_v, slot, keep, C, counts
 
 
-def moe(cfg, pcfg, p, x, dispatch: str = "einsum"):
-    """x (B, S, d) -> (B, S, d).  Also returns aux losses dict."""
+def moe(cfg, pcfg, p, x, dispatch: str = "einsum", group=None):
+    """x (B, S, d) -> (B, S, d).  Also returns aux losses dict.  Under
+    ``group`` x is this rank's rows of the global batch and ``lb_loss``
+    its share of the global loss (module docstring)."""
     del pcfg
     B, S, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
     xf = x.reshape(T, d)
-    probs, gate_i, gate_v, slot, keep, C = route(cfg, p, xf)
+    probs, gate_i, gate_v, slot, keep, C, counts = route(cfg, p, xf, group)
+    T_all = T * _world(group)
 
     # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, gate_i.reshape(-1),
-        torch.ones((T * k,), dtype=torch.float32, device=x.device)) / (T * k)
+    me = probs.sum(0) / T_all
+    ce = counts.float() / (T_all * k)
     aux = {"lb_loss": E * torch.sum(me * ce)}
 
     if dispatch == "spmm":
@@ -142,9 +193,10 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def dispatch_pack(slot, keep, T: int, m: int, dtype):
+def dispatch_pack(slot, keep, T: int, m: int, dtype, gates=None):
     """The dispatch matrix D (m = E*C, T), ``D[slot, t] = 1`` for each
-    kept assignment, as a RowTiledCOO of ``m`` rounded up to a multiple
+    kept assignment (``gates``, shaped as ``slot``: those values in place
+    of ones -- G^T), as a RowTiledCOO of ``m`` rounded up to a multiple
     of MOE_ROW_TILE rows: window w is one block of MOE_ROW_TILE entries,
     entry i at row i (its token, or token 0 with value 0 where no
     assignment landed)."""
@@ -158,7 +210,8 @@ def dispatch_pack(slot, keep, T: int, m: int, dtype):
     cols = torch.zeros((mp + 1,), dtype=torch.int32, device=dev)
     cols.index_put_((pos,), tok)
     vals = torch.zeros((mp + 1,), dtype=dtype, device=dev)
-    vals.index_put_((pos,), torch.ones((), dtype=dtype, device=dev))
+    vals.index_put_((pos,), torch.ones((), dtype=dtype, device=dev)
+                    if gates is None else gates.reshape(-1).to(dtype))
     rows_local = torch.arange(row_tile, dtype=torch.int32,
                               device=dev).repeat(nw).reshape(nw, row_tile)
     tile_base = torch.arange(0, mp, row_tile, dtype=torch.int32, device=dev)
@@ -171,7 +224,8 @@ def combine_pack(slot, gates, m: int):
     """The combine matrix G (T, m = E*C), ``G[t, slot] = gate``, as a
     RowTiledCOO of ``T`` rounded up to a multiple of MOE_ROW_TILE rows:
     window w is one block of ``MOE_ROW_TILE * k`` entries in (token, k)
-    order (the padded tokens' entries are slot 0 with value 0)."""
+    order (the padded tokens' entries are slot 0 with value 0).  With
+    ``keep`` as the gates it is D^T."""
     row_tile = MOE_ROW_TILE
     dev = slot.device
     T, k = slot.shape
@@ -189,25 +243,77 @@ def combine_pack(slot, gates, m: int):
                        vals.reshape(nw, bk), tile_base, (Tp, m), row_tile)
 
 
+def _spmm(S: RowTiledCOO, B, rows: int):
+    """The first ``rows`` rows of S @ B on the port's SpMM (``r_tile``
+    and ``blocks_per_step`` given, so ``ops`` reads nothing back)."""
+    B = B.contiguous()
+    return ops.spmm(S, B, m=S.shape[0], r_tile=B.shape[-1],
+                    blocks_per_step=1)[:rows]
+
+
+class _DispatchSpMM(torch.autograd.Function):
+    """buf = D @ xf (E*C rows); dxf = D^T @ dbuf."""
+
+    @staticmethod
+    def forward(ctx, xf, slot, keep, m):
+        T = xf.shape[0]
+        ctx.save_for_backward(slot, keep)
+        ctx.m = m
+        return _spmm(dispatch_pack(slot, keep, T, m, xf.dtype), xf, m)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        slot, keep = ctx.saved_tensors
+        DT = combine_pack(slot, keep.to(dbuf.dtype), ctx.m)
+        return _spmm(DT, dbuf, slot.shape[0]), None, None, None
+
+
+class _CombineSpMM(torch.autograd.Function):
+    """out = G @ y (T rows), G[t, slot] = gates; dy = G^T @ dout and
+    dgates[t, j] = keep * <dout[t], y[slot]> (an SDDMM on G's pattern;
+    a dropped assignment's gate is 0 and gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, gates, slot, keep):
+        T, m = slot.shape[0], y.shape[0]
+        ctx.save_for_backward(y, gates, slot, keep)
+        return _spmm(combine_pack(slot, gates, m), y, T)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, gates, slot, keep = ctx.saved_tensors
+        T, k = slot.shape
+        m = y.shape[0]
+        dout = dout.contiguous()
+        dy = dgates = None
+        if ctx.needs_input_grad[0]:
+            GT = dispatch_pack(slot, keep, T, m, dout.dtype, gates=gates)
+            dy = _spmm(GT, dout, m)
+        if ctx.needs_input_grad[1]:
+            pattern = combine_pack(slot, keep.to(dout.dtype), m)
+            A = dout.new_zeros((pattern.shape[0], dout.shape[1]))
+            A[:T] = dout
+            dots = ops.sddmm(A, y.contiguous(), pattern, r_tile=y.shape[1],
+                             blocks_per_step=1)
+            dgates = dots.vals.reshape(-1)[:T * k].reshape(T, k).to(
+                gates.dtype)
+        return dy, dgates, None, None
+
+
 def _moe_spmm(cfg, p, xf, gate_v, slot, keep, C, B, S):
     """Dispatch/combine as SpMM through the port's sparse kernels.
 
     dispatch matrix D: (E*C, T) with D[slot, t] = 1      -> buf = D @ x
     combine  matrix G: (T, E*C) with G[t, slot] = gate   -> out = G @ y
-    (packed as the module docstring says; ``r_tile`` and
-    ``blocks_per_step`` are given, so ``ops`` reads nothing back).
+    (packed as the module docstring says, each product an autograd
+    Function whose backward runs on the same kernels).
     """
     T, d = xf.shape
     E = cfg.moe_experts
     m = E * C
-    xf = xf.contiguous()
-    disp = dispatch_pack(slot, keep, T, m, xf.dtype)
-    buf = ops.spmm(disp, xf, m=disp.shape[0], r_tile=d,
-                   blocks_per_step=1)[:m]
+    buf = _DispatchSpMM.apply(xf, slot, keep, m)
     y = _experts(p, buf.reshape(E, C, d)).reshape(m, d)
-    comb = combine_pack(slot, (gate_v * keep).to(xf.dtype), m)
-    out = ops.spmm(comb, y, m=comb.shape[0], r_tile=d,
-                   blocks_per_step=1)[:T]
+    out = _CombineSpMM.apply(y, (gate_v * keep).to(xf.dtype), slot, keep)
     if cfg.moe_shared:
         out = out + _shared(p, xf)
     return out.reshape(B, S, d)

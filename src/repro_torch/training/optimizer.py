@@ -1,0 +1,90 @@
+"""AdamW with decoupled weight decay, cosine schedule, global grad clip.
+
+Port of ``repro.training.optimizer``, the same formula: the global-norm
+clip, bias corrections in float32 and weight decay on every leaf, norms
+included.  Parameters and gradients are ``{name: tensor}`` (a model's
+``named_parameters()``); the state is ``{"mu": {name: float32 tensor},
+"nu": ..., "step": int32 tensor}`` on the parameters' device.  The
+update runs in place under ``torch.no_grad()``, its scalars (clip
+scale, learning rate, bias corrections) on the device, so a step reads
+nothing back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup: int = 100
+    total_steps: int = 1000
+
+
+def _named(params) -> dict:
+    """``{name: tensor}`` of a model (its parameters) or a dict."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def init_opt_state(params):
+    """Zero moments in float32 beside each parameter, step 0."""
+    named = _named(params)
+    dev = next(iter(named.values())).device
+    return {"mu": {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in named.items()},
+            "nu": {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in named.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _schedule(cfg: AdamWConfig, step):
+    """Learning rate at ``step`` (an int tensor): linear warmup, then a
+    cosine from lr to 0.1 lr, in float32."""
+    s = step.to(torch.float32)
+    warm = torch.clamp(s / max(cfg.warmup, 1), max=1.0)
+    t = torch.clamp((s - cfg.warmup) / max(cfg.total_steps - cfg.warmup, 1),
+                    0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in float32."""
+    leaves = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    return torch.sqrt(sum(leaves))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params, grads, state):
+    """One AdamW step on ``params`` and ``state`` in place; returns the
+    metrics ``{"grad_norm", "lr"}`` (device scalars)."""
+    params = _named(params)
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = _schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    sf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, device=sf.device), sf)
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        mu, nu = state["mu"][name], state["nu"][name]
+        mu.mul_(b1).add_(g * (1 - b1))
+        nu.mul_(b2).add_(torch.square(g) * (1 - b2))
+        del g
+        delta = (mu / bc1).div_((nu / bc2).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,191 @@
+"""Loss and train step builders.
+
+Port of ``repro.training.train_step``.  ``make_train_step`` returns a
+step that takes the model (an ``nn.Module``), the optimizer state and a
+batch, runs forward and backward with microbatch gradient accumulation,
+and updates the parameters in place (the reference returns new ones).
+
+**Data parallelism** over the mesh's ``data`` axis (``launch/mesh.py``):
+each rank holds rows [lo, hi) of the global batch (:func:`data_rows`)
+and computes its share of the global loss: the cross-entropy's token sum
+over the *global* mask count, and the MoE load-balancing loss over the
+global token set (``models/moe.py``, which also routes over the global
+token order).  The shares' gradients are summed over the ``data`` group
+in one fixed order (every rank sums the all-gathered gradients in rank
+order, :func:`ordered_sum`), so every rank applies the same update and
+the replicas stay equal bit for bit.  The ``model`` axis (tensor
+parallelism) is not executed yet: a mesh with ``model > 1`` raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.distributed import sharding
+from repro_torch.models import model as M
+from repro_torch.training import optimizer as opt
+
+#: gradients are summed in buckets of this many float32 elements
+SUM_BUCKET = 1 << 26
+
+
+def ordered_sum(tensors, group) -> None:
+    """Replace each tensor by its sum over ``group``, in place: the
+    ranks' copies all-gathered (in buckets of SUM_BUCKET elements) and
+    added in rank order on every rank, so every rank holds the same bits
+    whatever the backend's reduction order.  ``group`` None: nothing."""
+    if group is None or not tensors:
+        return
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    dtype, dev = tensors[0].dtype, tensors[0].device
+    bucket, size = [], 0
+    for t in tensors + [None]:
+        if t is not None and (not bucket or size + t.numel() <= SUM_BUCKET):
+            bucket.append(t)
+            size += t.numel()
+            continue
+        flat = torch.cat([b.reshape(-1) for b in bucket])
+        parts = torch.empty((world, flat.numel()), dtype=dtype, device=dev)
+        dist.all_gather(list(parts.unbind(0)), flat, group=group)
+        total = parts[0].clone()
+        for r in range(1, world):
+            total += parts[r]
+        off = 0
+        for b in bucket:
+            b.copy_(total[off:off + b.numel()].view(b.shape))
+            off += b.numel()
+        del flat, parts, total
+        bucket, size = ([t], t.numel()) if t is not None else ([], 0)
+
+
+def _chunk_nll(h, head, t, mk):
+    logits = (h @ head).float()
+    logits = M.constrain(logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mk)
+
+
+def chunked_ce(hidden, head, targets, mask, chunk: int = 512, group=None):
+    """Cross-entropy over sequence chunks.
+
+    The (B, S, vocab) logits are never held beyond one chunk: each
+    chunk's body runs under ``checkpoint`` so the backward recomputes
+    its logits instead of saving them.  The token sum is divided by the
+    mask count summed over ``group`` (the global batch's)."""
+    B, S, d = hidden.shape
+    if S % chunk or S <= chunk:
+        chunk = S
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    for s in range(0, S, chunk):
+        tot = tot + checkpoint(_chunk_nll, hidden[:, s:s + chunk], head,
+                               targets[:, s:s + chunk], mask[:, s:s + chunk],
+                               use_reentrant=False)
+    count = mask.sum()
+    ordered_sum([count], group)
+    return tot / torch.clamp_min(count, 1.0)
+
+
+def lm_loss(cfg: ModelConfig, pcfg: ParallelConfig, model, batch,
+            aux_weight: float = 0.01, group=None):
+    """Next-token CE in f32 (+ MoE load-balance aux).  Under ``group``
+    the batch is this rank's rows and the loss its share of the global
+    batch's (the shares sum to it)."""
+    hidden, _, aux = M.forward(cfg, pcfg, model, batch, want_cache=False,
+                               return_hidden=True, group=group)
+    cdt = hidden.dtype
+    head = (model.embed.T if cfg.tie_embeddings else model.head).to(cdt)
+    targets = batch["labels"]
+    mask = torch.ones(targets.shape, dtype=torch.float32,
+                      device=targets.device)
+    if cfg.causal:   # predict token t+1 at position t; mask the last slot
+        tgt = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
+        mask[:, -1] = 0.0
+    else:            # encoder: per-frame classification
+        tgt = targets
+    nll = chunked_ce(hidden, head, tgt, mask, group=group)
+    loss = nll + aux_weight * aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
+
+
+def data_rows(mesh, global_batch: int):
+    """The rows [lo, hi) of the global batch this rank's ``data`` index
+    holds (all of them without a mesh)."""
+    if mesh is None:
+        return 0, global_batch
+    batch_shape = mesh.ranks.shape[:-1]      # every axis but "model"
+    n = int(np.prod(batch_shape))
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{n} data ranks")
+    per = global_batch // n
+    i = int(np.ravel_multi_index(mesh.coords[:-1], batch_shape))
+    return i * per, (i + 1) * per
+
+
+def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                    tcfg: TrainConfig, mesh, opt_cfg: Optional[
+                        opt.AdamWConfig] = None):
+    """Returns (step_fn, shardings_for, jit_step).
+
+    step_fn(model, opt_state, batch) -> metrics updates the model's
+    parameters and ``opt_state`` in place; ``batch`` is this rank's rows
+    (:func:`data_rows`).  ``shardings_for(model)`` returns the placements
+    (param specs sanitized for the mesh; the optimizer's moments share
+    them), and ``jit_step(param_sh, opt_sh, batch_sh)`` the step bound to
+    the mesh (eager: nothing is compiled).
+    """
+    if mesh is not None and mesh.axis_sizes.get("model", 1) > 1:
+        raise NotImplementedError(M.TP_ITEM)
+    group = mesh.data_group if mesh is not None else None
+    opt_cfg = opt_cfg or opt.AdamWConfig(
+        lr=tcfg.lr, beta1=tcfg.beta1, beta2=tcfg.beta2,
+        weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+        warmup=tcfg.warmup, total_steps=tcfg.steps)
+
+    def step(model, opt_state, batch):
+        nmicro = tcfg.microbatch or 1
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        rows = next(iter(batch.values())).shape[0]
+        if rows % nmicro:
+            raise ValueError(f"{rows} rows do not split into {nmicro} "
+                             f"microbatches")
+        per = rows // nmicro
+        for i in range(nmicro):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            loss, metrics = lm_loss(cfg, pcfg, model, mb, group=group)
+            loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        if nmicro > 1:
+            for g in grads.values():
+                g.div_(nmicro)
+        metrics = {k: v.detach().reshape(1) for k, v in metrics.items()}
+        ordered_sum(list(grads.values()), group)
+        ordered_sum(list(metrics.values()), group)
+        metrics = {k: v[0] for k, v in metrics.items()}
+        om = opt.adamw_update(opt_cfg, params, grads, opt_state)
+        for p in params.values():
+            p.grad = None
+        return dict(metrics, **om)
+
+    def shardings_for(model):
+        axis_sizes = mesh.axis_sizes if mesh is not None else {}
+        specs = M.param_specs(cfg, pcfg, model)
+        param_sh = sharding.sanitize_tree(
+            specs, dict(model.named_parameters()), axis_sizes)
+        opt_sh = {"mu": param_sh, "nu": param_sh, "step": sharding.P()}
+        return param_sh, opt_sh
+
+    def jit_step(param_sh, opt_sh, batch_sh):
+        del param_sh, opt_sh, batch_sh
+        return step
+
+    return step, shardings_for, jit_step

@@ -66,8 +66,8 @@ def routing_margins(monkeypatch):
     between a token's k-th and (k+1)-th router probabilities."""
     seen = []
 
-    def spy(cfg, p, xf):
-        out = route(cfg, p, xf)
+    def spy(cfg, p, xf, group=None):
+        out = route(cfg, p, xf, group)
         srt = out[0].detach().sort(-1, descending=True).values
         k = cfg.moe_top_k
         if k < srt.shape[-1]:

@@ -313,8 +313,8 @@ def routings(monkeypatch):
     """Every routing the port's ``moe`` makes: (cfg, probs, keep)."""
     seen = []
 
-    def spy(cfg, p, xf):
-        out = route(cfg, p, xf)
+    def spy(cfg, p, xf, group=None):
+        out = route(cfg, p, xf, group)
         seen.append((cfg, out[0].detach(), out[4]))
         return out
     route = moe.route
