@@ -113,7 +113,7 @@ Phases, each printing one JSON line:
            seconds, the first recovered call's ms and the memory peak;
            (d) meta_dict -> problem_from_meta on 4 stacked ranks: the
            same family and c, SDDMM == (a), a wrong COO refused; (e)
-           check_faults.py's guarantee 3 at 2^--apps-scale: a 6-step
+           check_faults.py's guarantee 3 at 2^(--apps-scale - 2): a 6-step
            train_embedding_distributed on 8 ranks losing rank 7 at the
            step-3 SDDMM == a fault-free run checkpointed at step 3 and
            resumed on the degraded grid (X, Y, losses of steps 3-5, bit
@@ -201,6 +201,23 @@ Phases, each printing one JSON line:
            bit for bit after each, the gradient sum's ms and GB/s), step
            0 against one card within 1e-4, then remesh(2, 1) from a
            checkpoint and 3 more steps (step 6), the other ranks retired;
+           then, on four cards, tensor parallelism over the mesh's model
+           axis: qwen3-4b at full width and depth (4.41e9 parameters,
+           70.6 GB of float32 state: no one card holds it) at (data 1,
+           model 4) through launch.train.main, seq 512 x batch 8, 4
+           steps and a checkpoint of whole leaves, every loss and grad
+           norm finite, the replicated leaves equal on every card, step
+           ms, tokens a second, each card's peak in the steps and while
+           the checkpoint is gathered, the model group's sums' ms and
+           GB/s (the card synchronised around each), step 0's loss
+           against a forward of the whole model on card 0 within 1e-5
+           absolute; llama3.2-1b at (2, 2), 3
+           steps, a whole-leaf checkpoint, remesh(2, model_parallel=2)
+           and 3 more at (1, 2) (step 6, the others retired); the
+           DeepSeek-V2-Lite MoE layer expert-parallel (16 experts a
+           card) under dispatch="spmm" against "einsum", every leaf
+           within 1e-3, each card's 4 SpMM and 1 SDDMM launches and its
+           backward launches' ms, bound, plain and library ms;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -255,7 +272,13 @@ Phases, each printing one JSON line:
            largest magnitude, both passes' ms, and the backward's three
            launches (D^T and G^T SpMM, the gate SDDMM) against their plain
            versions with their bounds, plain ms and torch.sparse.mm /
-           sampled_addmm ms.
+           sampled_addmm ms; (D) that layer as TRAIN_LM_TP_SHARES = 4
+           expert-parallel shares run in turn (moe.moe_share, 16
+           experts each, what each card of a model axis of 4 runs): the
+           shares' sum forward and backward against the whole layer,
+           every leaf within 1e-3, 16 bulk SpMM and 4 SDDMM launches
+           counted, each share's three backward launches against their
+           plain versions with bound, plain and library ms.
 
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
@@ -268,7 +291,9 @@ cell A), ``--rmat-scale`` the
 power-law timing and ``--comm-scale`` the comm_sparse phase and the
 dist phase's R-MAT cells for rehearsals; ``--dist-serving-only`` runs
 the dist phase's serving cells alone, ``--dist-train-only`` its train
-cells alone;
+cells alone, ``--dist-tp-only`` its tensor-parallel cells alone (four
+cards), ``--dist-tp-sums-only`` the model group's sum in its two forms
+alone (four cards);
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -2969,6 +2994,18 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
         log(f"dist rank {rank}: the train cells start at "
             f"+{time.perf_counter() - t_rank:.1f} s")
         report["train"] = dist_train(torch, dist, ck, rank, world, out_dir)
+    if only == "tp_sums" and world == DIST_TP_WORLD:
+        report["tp_sums"] = dist_tp_sum_forms(torch, dist, ck, rank, world,
+                                              DIST_TP_SUM_REPS)
+    elif only in (None, "tp") and world == DIST_TP_WORLD:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dist rank {rank}: the tensor-parallel cells start at "
+            f"+{time.perf_counter() - t_rank:.1f} s")
+        report["tp"] = dist_tp(torch, dist, ck, rank, world, out_dir)
+    elif only in ("tp", "tp_sums"):
+        raise AssertionError(f"dist tp: the cells need {DIST_TP_WORLD} "
+                             f"cards, {world} visible")
     report["checks"] = ck.n
     return report
 
@@ -4153,6 +4190,435 @@ def dist_train(torch, dist, ck, rank, world, out_dir):
     return report
 
 
+#: the tensor-parallel cells: the cards, qwen3-4b's run through
+#: launch.train.main, the llama remesh flow's meshes and steps a phase
+DIST_TP_WORLD = 4
+DIST_TP_SEQ, DIST_TP_BATCH, DIST_TP_STEPS = 512, 8, 4
+DIST_TP_ELASTIC = ((2, 2), (2, 2), 3)   # (data, model), remesh(n, m), steps
+DIST_TP_LOSS_TOL = 1e-5   # qwen3-4b's step 0 loss against one card, absolute
+#: qwen3-4b's model-group sum operands: the residual stream's partial sums
+#: (batch x seq x d, the largest) and a small one (d; both split on dim 0)
+DIST_TP_SUM_SHAPES = {"residual": (8, 512, 2560), "norm_grad": (2560,)}
+DIST_TP_SUM_REPS = 20
+
+
+@contextlib.contextmanager
+def timed_model_sums(torch, rec):
+    """The model group's collectives (``tensor_parallel.TP``'s ordered
+    sum, gather and reduce-scatter) timed, the card synchronised around
+    each outermost call: (kind, ms, bytes of this rank's part, bytes it
+    received) into ``rec``.  A call made inside another (a sum's
+    reduce-scatter and gather) adds what it received to the outer one's
+    record."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    inner = []
+
+    def wrap(kind):
+        def outer(orig):
+            def call(self, x, *a):
+                top = not inner
+                if top:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                inner.append(0.0)
+                try:
+                    out = orig(self, x, *a)
+                finally:
+                    got = inner.pop()
+                part = x.numel() * x.element_size()
+                if not got:     # this call's own collective
+                    got = part * (self.size - 1) / (
+                        self.size if kind == "sum_chunk" else 1)
+                if top:
+                    torch.cuda.synchronize()
+                    rec.append((kind, (time.perf_counter() - t0) * 1e3,
+                                part, got))
+                else:
+                    inner[-1] += got
+                return out
+            return call
+        return outer
+    with contextlib.ExitStack() as st:
+        for kind in ("sum", "cat", "sum_chunk"):
+            st.enter_context(patched(tpm.TP, kind, wrap(kind)))
+        yield rec
+
+
+def model_sum_report(rec):
+    """Per kind: calls, ms, and the GB a rank received and its rate (a
+    gather's (m - 1) parts of its own size, a reduce-scatter's (m - 1) /
+    m of it, a sum both of a chunk's)."""
+    out = {}
+    for kind in sorted({r[0] for r in rec}):
+        rows = [r[1:] for r in rec if r[0] == kind]
+        ms = sum(r[0] for r in rows)
+        got = sum(r[2] for r in rows)
+        out[kind] = {"calls": len(rows), "ms": ms,
+                     "gb_received": got / 1e9,
+                     "gb_per_s_received": got / ms / 1e6 if ms else None,
+                     "largest_mb": max(r[1] for r in rows) / 1e6}
+    return out
+
+
+def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
+    """qwen3-4b at full width and depth on the model axis (data 1, model
+    4) through launch.train.main, seq 512 x batch 8, 4 steps and a
+    checkpoint: every loss and grad norm finite, the replicated leaves
+    equal on every card, step ms, tokens a second, each card's peak after
+    sharding and while the checkpoint's whole leaves are gathered, the
+    save's seconds, the model group's sums; on card 0, step 0's loss
+    against a forward of the same weights and batch whole on that card
+    (17.6 GB of float32 weights) within DIST_TP_LOSS_TOL."""
+    import gc
+    import shutil
+    import types
+    from repro_torch.config import ParallelConfig, get_config
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import data as D
+    from repro_torch.training import train_step as ts
+    cfg = get_config("qwen3-4b")
+    dev = torch.device("cuda", rank)
+    sums, held = [], {}
+    ck_dir = pathlib.Path(out_dir) / "qwen_ckpt"
+
+    def gathered(orig):
+        def whole(*a, **k):
+            torch.cuda.synchronize()
+            held["train_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            held["save_gather_s"] = time.perf_counter() - t0
+            held["save_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            held["save_held_gib"] = torch.cuda.memory_allocated() / 2**30
+            return out
+        return whole
+
+    def written(orig):
+        def save(path, step, tree, *a, **k):
+            t0 = time.perf_counter()
+            out = orig(path, step, tree, *a, **k)
+            held["save_write_s"] = time.perf_counter() - t0
+            held["save_gb"] = sum(
+                v.numel() * v.element_size() for part in (
+                    tree["params"], tree["opt"]["mu"], tree["opt"]["nu"])
+                for v in part.values()) / 1e9
+            return out
+        return save
+
+    def settle(orig):
+        def shard(*a, **k):
+            out = orig(*a, **k)
+            torch.cuda.empty_cache()
+            held["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            held["after_shard_gib"] = torch.cuda.memory_allocated() / 2**30
+            return out
+        return shard
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    argv = ["--steps", str(DIST_TP_STEPS), "--seq", str(DIST_TP_SEQ),
+            "--batch", str(DIST_TP_BATCH), "--model-parallel", str(world),
+            "--log-every", "1", "--ckpt-dir", str(ck_dir)]
+    with patched(tpm, "shard_model", settle), \
+            patched(tpm, "full_tree", gathered), \
+            patched(ckpt, "save", written), timed_model_sums(torch, sums):
+        rec = lm_train(torch, cfg, argv)
+    wall = time.perf_counter() - t0
+    peak = held["train_peak_gib"]
+    if rank == 0:
+        if ckpt.latest_step(str(ck_dir)) != DIST_TP_STEPS:
+            raise AssertionError(f"dist tp qwen3-4b: no checkpoint at "
+                                 f"step {DIST_TP_STEPS} in {ck_dir}")
+        ck.n += 1
+        shutil.rmtree(ck_dir)
+    lines, model = rec["lines"], rec["model"]
+    if [ln["step"] for ln in lines] != list(range(DIST_TP_STEPS)) or not all(
+            np.isfinite(ln["loss"]) and np.isfinite(ln["grad_norm"])
+            for ln in lines) or int(rec["state"]["step"]) != DIST_TP_STEPS:
+        raise AssertionError(f"dist tp qwen3-4b: {lines}")
+    whole = [p for p in model.parameters() if tpm.shard_dim(p) is None]
+    prints = param_prints(torch, types.SimpleNamespace(
+        parameters=lambda: iter(whole)))
+    _same_on_ranks(torch, dist, prints, None,
+                   "dist tp qwen3-4b replicated leaves")
+    n_local = sum(p.numel() for p in model.parameters())
+    ck.n += 2
+    step_ms = [t * 1e3 for t in rec["step_s"]]
+    med = statistics.median(step_ms[1:])
+    report = {"arch": cfg.name, "mesh": [1, world], "seq": DIST_TP_SEQ,
+              "batch": DIST_TP_BATCH,
+              "params": cfg.param_count(), "params_this_card": n_local,
+              "replicated_leaves": len(whole), "lines": lines,
+              "step_ms": step_ms, "median_step_ms": med,
+              "tokens_per_s": DIST_TP_BATCH * DIST_TP_SEQ / med * 1e3,
+              "peak_gib": peak,
+              **held, "model_sums": model_sum_report(sums),
+              "sums_per_step": len(sums) / len(lines), "wall_s": wall}
+    if len(sums) % len(lines) == 0:     # each step makes the same calls
+        per = len(sums) // len(lines)
+        report["model_sums_by_step"] = [
+            model_sum_report(sums[i * per:(i + 1) * per])
+            for i in range(len(lines))]
+    del rec, model, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        pcfg = ParallelConfig(compute_dtype="float32")
+        g = torch.Generator(device=dev).manual_seed(0)
+        full = M.init_params(cfg, g, device=dev)
+        b = D.SyntheticLM(cfg.vocab, DIST_TP_SEQ, DIST_TP_BATCH,
+                          seed=0).batch(0)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            loss, _ = ts.lm_loss(cfg, pcfg, full, b)
+        loss = float(loss)
+        got = lines[0]["loss"]
+        if abs(got - loss) > DIST_TP_LOSS_TOL:
+            raise AssertionError(f"dist tp qwen3-4b step 0 loss {got} vs "
+                                 f"one card's forward {loss}")
+        ck.n += 1
+        report["one_card_loss"] = {"loss": loss, "tp_loss": got,
+                                   "abs_err": abs(got - loss),
+                                   "forward_s": time.perf_counter() - t1}
+        del full
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return report
+
+
+def dist_tp_elastic(torch, dist, ck, rank, world, out_dir):
+    """check_elastic.py's flow at full width and depth: llama3.2-1b on
+    (data 2, model 2), DIST_TRAIN_BATCH x DIST_TRAIN_SEQ, 3 steps (the
+    data replicas' shards equal bit for bit after each), a checkpoint of
+    whole leaves, remesh(2, model_parallel=2) and 3 more steps on (1, 2)
+    (step == 6), the other ranks retired."""
+    from repro_torch.config import ParallelConfig, get_config
+    from repro_torch.core.api import RankRetired
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    (dd, mm), (n2, m2), steps = DIST_TP_ELASTIC
+    cfg = get_config("llama3.2-1b")
+    pcfg = ParallelConfig(compute_dtype="float32")
+    dev = torch.device("cuda", rank)
+    t0 = time.perf_counter()
+
+    def fresh(mesh):
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = tpm.shard_model(cfg, pcfg, M.init_params(cfg, g, device=dev),
+                                mesh)
+        torch.cuda.empty_cache()
+        return model, opt.init_opt_state(model)
+    mesh = lmesh.make_local_mesh(dd, mm, device=dev)
+    model, state = fresh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    before = dist_train_steps(torch, dist, cfg, mesh, model, state,
+                              range(steps), dev)
+    report = {"arch": cfg.name, "mesh": [dd, mm], "steps": before,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    t1 = time.perf_counter()
+    tree = tpm.full_tree(model, state, mesh, keep=rank == 0)
+    ck_dir = pathlib.Path(out_dir) / "tp_ckpt"
+    if rank == 0:
+        ckpt.save(str(ck_dir), steps, tree)
+    del tree, model, state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    report["save_s"] = time.perf_counter() - t1
+    try:
+        mesh2 = remesh(n2, model_parallel=m2, device=dev)
+    except RankRetired as e:
+        report["remesh"] = {"outcome": "retired", "p": e.p}
+    else:
+        t1 = time.perf_counter()
+        model, state = fresh(mesh2)
+        ltrain.load_tree(model, state, ckpt.restore(
+            str(ck_dir), steps, tpm.full_shapes(model, state)))
+        restore_s = time.perf_counter() - t1
+        after = dist_train_steps(torch, dist, cfg, mesh2, model, state,
+                                 range(steps, 2 * steps), dev)
+        if int(state["step"]) != 2 * steps:
+            raise AssertionError(f"dist tp remesh: step "
+                                 f"{int(state['step'])}")
+        ck.n += 1
+        report["remesh"] = {"outcome": "recovered", "mesh": [n2 // m2, m2],
+                            "restore_s": restore_s, "steps": after,
+                            "step": int(state["step"])}
+        del model, state
+    for ln in report["steps"] + report["remesh"].get("steps", []):
+        if not (np.isfinite(ln["loss"]) and np.isfinite(ln["grad_norm"])):
+            raise AssertionError(f"dist tp remesh: not finite {ln}")
+    ck.n += 1
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def dist_tp_moe(torch, dist, ck, rank, world, reps):
+    """One DeepSeek-V2-Lite MoE layer at full width, LM_MOE_TOKENS
+    tokens, expert-parallel over the four cards (E / 4 = 16 experts a
+    card; ``moe.moe_tp`` on a (1, 4) mesh): forward and backward under
+    dispatch="spmm" against "einsum", every leaf (this card's expert
+    shards, the replicated router and shared experts, the input) within
+    1e-3 of its largest magnitude; this card's launches of one counted
+    pass (4 bulk SpMM and 1 SDDMM), and its three backward launches
+    against their plain versions with ms, bound, plain and library ms.
+    Returns (report, launches)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cut, _ = deepseek_cut()
+    pcfg = ParallelConfig(compute_dtype="float32")
+    mesh = lmesh.make_local_mesh(1, world, device=torch.device("cuda", rank))
+    tp = tpm.of_mesh(mesh, pcfg)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = MOE.MoE(L.Init(g, torch.float32, "cuda"), cut)
+    B, S = LM_MOE_TOKENS
+    x = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    proj = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    for k in ("w1", "w3", "w2"):      # this card's experts
+        part = torch.nn.Parameter(tpm.local_part(
+            getattr(layer, k).data, 0, rank, world).clone())
+        part.tp_dim = 0
+        layer._parameters[k] = part
+    torch.cuda.empty_cache()
+    leaves = dict(layer.named_parameters())
+
+    def step(dispatch):
+        for p in leaves.values():
+            p.grad = None
+        xx = x.clone().requires_grad_(True)
+        (part, rep), aux = MOE.moe_tp(cut, pcfg, layer, tp.enter(xx), tp,
+                                      dispatch=dispatch)
+        out = tp.exit(part, rep)
+        ((out * proj).sum() + TRAIN_LM_AUX * aux["lb_loss"]).backward()
+        return {"x": xx.grad, **{k: p.grad for k, p in leaves.items()}}
+
+    want = {k: v.clone() for k, v in step("einsum").items()}
+    ops.reset_launch_counts()
+    got = step("spmm")
+    torch.cuda.synchronize()
+    launches, forms = ops.launch_counts(), ops.form_counts()
+    if launches["spmm"] != 4 or forms["spmm"].get("bulk", 0) != 4 or \
+            launches["sddmm"] != 1 or launches["fusedmm"] != 0:
+        raise AssertionError(f"dist tp moe: expected 4 bulk SpMM and 1 "
+                             f"SDDMM launches, got {launches} {forms}")
+    errs = _leaf_check(ck, got, want, TRAIN_LM_MOE_TOL,
+                       f"dist tp moe card {rank} spmm vs einsum")
+    sums = []
+    with timed_model_sums(torch, sums):
+        step("spmm")
+    report = {"experts_this_card": cut.moe_experts // world,
+              "tokens": B * S, "launches": launches, "forms": forms,
+              "leaf_err": errs,
+              "spmm_ms": time_ms(torch, lambda: step("spmm"), reps),
+              "einsum_ms": time_ms(torch, lambda: step("einsum"), reps),
+              "model_sums": model_sum_report(sums),
+              "kernels": train_lm_moe_kernels(torch, ck, cut, layer, x,
+                                              proj, reps, rank, world)}
+    for p in leaves.values():
+        p.grad = None
+    del layer, leaves, got, want
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def dist_tp_sum_forms(torch, dist, ck, rank, world, reps):
+    """The model group's sum of qwen3-4b's operands (DIST_TP_SUM_SHAPES)
+    in two forms, in turns, the card synchronised around each: "whole"
+    (``TP.sum``: the parts all-gathered, every rank adding all m) and
+    "chunked" (each rank adds one chunk of the parts, exchanged all to
+    all by ``TP.sum_chunk``, and the sums are all-gathered: 2 (m - 1) / m
+    of the bytes received in place of m - 1, two collectives in place of
+    one); equal bit for bit; the median ms of each and the GB/s a rank
+    received."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_local_mesh(1, world, device=torch.device("cuda", rank))
+    tp = tpm.of_mesh(mesh, ParallelConfig())
+
+    def chunked(x):
+        return tp.cat(tp.sum_chunk(x, 0), 0)
+    g = torch.Generator(device="cuda").manual_seed(11 + rank)
+    out = {}
+    for name, shape in DIST_TP_SUM_SHAPES.items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if not torch.equal(tp.sum(x), chunked(x)):
+            raise AssertionError(f"dist tp sums: {name}'s two forms differ")
+        ck.n += 1
+        forms = {"whole": tp.sum, "chunked": chunked}
+        ms = {form: [] for form in forms}
+        for i in range(reps + 2):       # the first two rounds warm up
+            for form, fn in forms.items():
+                _, t = timed_call(torch, lambda: fn(x))
+                if i >= 2:
+                    ms[form].append(t)
+        n = x.numel() * x.element_size()
+        got = {"whole": (world - 1) * n,
+               "chunked": 2 * (world - 1) / world * n}
+        out[name] = {"mb": n / 1e6, **{form: {
+            "ms": statistics.median(t),
+            "gb_per_s_received": got[form] / statistics.median(t) / 1e6}
+            for form, t in ms.items()}}
+    return out
+
+
+def dist_tp(torch, dist, ck, rank, world, out_dir):
+    """The tensor-parallel cells on DIST_TP_WORLD cards: the model group's
+    sum in its two forms, qwen3-4b through launch.train.main on the model
+    axis, llama3.2-1b's remesh flow, the expert-parallel MoE layer."""
+    t0 = time.perf_counter()
+    out = {"sum_forms": dist_tp_sum_forms(torch, dist, ck, rank, world,
+                                          DIST_TP_SUM_REPS)}
+    out["qwen"] = dist_tp_qwen(torch, dist, ck, rank, world, out_dir)
+    out["seconds_qwen"] = time.perf_counter() - t0
+    out["elastic"] = dist_tp_elastic(torch, dist, ck, rank, world, out_dir)
+    out["seconds_elastic"] = time.perf_counter() - t0
+    out["moe"], out["launches"] = dist_tp_moe(torch, dist, ck, rank, world,
+                                              3)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dist_tp_report(ranks, world):
+    """Rank 0's tensor-parallel record with each card's peak, step ms,
+    sums and kernel times; the remesh outcomes checked."""
+    rep = dict(ranks[0]["tp"])
+    outs = [rr["tp"]["elastic"]["remesh"]["outcome"] for rr in ranks]
+    n2 = DIST_TP_ELASTIC[1][0]
+    if outs != ["recovered"] * n2 + ["retired"] * (world - n2):
+        raise AssertionError(f"dist tp remesh: outcomes {outs}")
+    rep["cards"] = [{
+        "rank": rr["rank"],
+        "qwen_peak_gib": rr["tp"]["qwen"]["peak_gib"],
+        "qwen_save_peak_gib": rr["tp"]["qwen"]["save_peak_gib"],
+        "qwen_save_gather_s": rr["tp"]["qwen"]["save_gather_s"],
+        "qwen_step_ms": rr["tp"]["qwen"]["step_ms"],
+        "qwen_model_sums": rr["tp"]["qwen"]["model_sums"],
+        "elastic_peak_gib": rr["tp"]["elastic"]["peak_gib"],
+        "elastic_outcome": o,
+        "moe_launches": rr["tp"]["moe"]["launches"],
+        "moe_leaf_err": max(rr["tp"]["moe"]["leaf_err"].values()),
+        "moe_kernels": rr["tp"]["moe"]["kernels"]}
+        for rr, o in zip(ranks, outs)]
+    return rep
+
+
 def dist_train_report(ranks, world):
     """Rank 0's train record with each rank's outcome and step ms; the
     remesh outcomes checked."""
@@ -4261,6 +4727,12 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
             for rr in ranks])
     if only in (None, "train"):
         report["train"] = dist_train_report(ranks, world)
+    tp_launches = None
+    if only in (None, "tp") and world == DIST_TP_WORLD:
+        report["tp"] = dist_tp_report(ranks, world)
+        tp_launches = [rr["tp"]["launches"] for rr in ranks]
+    if only == "tp_sums":
+        report["tp_sums"] = [rr["tp_sums"] for rr in ranks]
     if world > 1 and only is None:
         # the survivors recovered onto the degraded group, every other
         # rank (the lost one among them) retired
@@ -4284,7 +4756,7 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
     emit(report)
     return (None if only else ranks[0]["problems"]["d15"]["launches"],
             [rr["serving"]["launches"] for rr in ranks]
-            if only in (None, "serving") else None)
+            if only in (None, "serving") else None, tp_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -5250,11 +5722,13 @@ def _leaf_check(ck, got, want, tol, what):
     return out
 
 
-def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps):
-    """The dispatch backward's three launches at the layer's shapes:
-    dx = D^T dbuf and dy = G^T dout (SpMM), d(gate) (SDDMM on G's
-    pattern): each kernel against its plain version, its ms, bound,
-    plain ms and the library call's ms."""
+def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps, rank=0,
+                         shares=1):
+    """The dispatch backward's three launches at the layer's shapes (of
+    expert-parallel share ``rank`` of ``shares``: its experts' slots,
+    ``moe.moe_share``): dx = D^T dbuf and dy = G^T dout (SpMM), d(gate)
+    (SDDMM on G's pattern): each kernel against its plain version, its
+    ms, bound, plain ms and the library call's ms."""
     from repro_torch.kernels import ops
     from repro_torch.models import moe as MOE
     E, d = cfg.moe_experts, cfg.d_model
@@ -5262,7 +5736,10 @@ def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps):
     T = xf.shape[0]
     with torch.no_grad():
         _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf)
-    m = E * C
+    m = E // shares * C
+    lo = rank * m
+    keep = keep & (slot >= lo) & (slot < lo + m)
+    slot = torch.where(keep, slot - lo, 0)
     g = torch.Generator(device="cuda").manual_seed(8)
     dbuf = torch.randn((m, d), generator=g, device="cuda")
     y = torch.randn((m, d), generator=g, device="cuda")
@@ -5387,6 +5864,90 @@ def train_lm_moe(torch, ck, reps):
     return report, launches
 
 
+TRAIN_LM_TP_SHARES = 4      # (D) the expert-parallel shares on one card
+
+
+def train_lm_tp_shares(torch, ck, reps):
+    """(D) one DeepSeek-V2-Lite MoE layer at full width, LM_MOE_TOKENS
+    tokens, as TRAIN_LM_TP_SHARES expert-parallel shares run in turn on
+    one card (``moe.moe_share``, each E / shares experts on its slots,
+    dispatch="spmm"; what each card of a model axis of that size runs):
+    forward and backward of the shares' sum against the whole layer,
+    every gradient leaf within 1e-3; the launches of one counted pass
+    (4 bulk SpMM and 1 SDDMM a share); each share's three backward
+    launches against their plain versions.  Returns (report,
+    launches)."""
+    import types
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed.tensor_parallel import ONE
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cut, _ = deepseek_cut()
+    pcfg = ParallelConfig(compute_dtype="float32")
+    n = TRAIN_LM_TP_SHARES
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = MOE.MoE(L.Init(g, torch.float32, "cuda"), cut)
+    B, S = LM_MOE_TOKENS
+    x = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    proj = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    leaves = dict(layer.named_parameters())
+    per = cut.moe_experts // n
+
+    def grads(loss, xx):
+        loss.backward()
+        return {"x": xx.grad, **{k: p.grad for k, p in leaves.items()}}
+
+    def whole():
+        for p in leaves.values():
+            p.grad = None
+        xx = x.clone().requires_grad_(True)
+        out, aux = MOE.moe(cut, pcfg, layer, xx, dispatch="spmm")
+        return grads((out * proj).sum() + TRAIN_LM_AUX * aux["lb_loss"], xx)
+
+    def shares():
+        for p in leaves.values():
+            p.grad = None
+        xx = x.clone().requires_grad_(True)
+        xf = xx.reshape(B * S, cut.d_model)
+        probs, _, gate_v, slot, keep, C, counts = MOE.route(cut, layer, xf)
+        out = MOE._shared(layer, xf, ONE)
+        for r in range(n):
+            share = types.SimpleNamespace(**{
+                k: getattr(layer, k)[r * per:(r + 1) * per]
+                for k in ("w1", "w3", "w2")})
+            out = out + MOE.moe_share(cut, share, xf, gate_v, slot, keep, C,
+                                      r, n, "spmm")
+        aux = MOE._aux(cut, probs, counts, None)["lb_loss"]
+        return grads((out.reshape(B, S, -1) * proj).sum()
+                     + TRAIN_LM_AUX * aux, xx)
+
+    want = whole()
+    want = {k: v.clone() for k, v in want.items()}
+    ops.reset_launch_counts()
+    got = shares()
+    torch.cuda.synchronize()
+    launches, forms = ops.launch_counts(), ops.form_counts()
+    if launches["spmm"] != 4 * n or forms["spmm"].get("bulk", 0) != 4 * n \
+            or launches["sddmm"] != n or launches["fusedmm"] != 0:
+        raise AssertionError(f"train_lm (D): expected {4 * n} bulk SpMM and "
+                             f"{n} SDDMM launches, got {launches} {forms}")
+    errs = _leaf_check(ck, got, want, TRAIN_LM_MOE_TOL,
+                       "train_lm (D) shares vs whole layer grad")
+    report = {"shares": n, "experts_a_share": per, "tokens": B * S,
+              "launches": launches, "forms": forms, "leaf_err": errs,
+              "shares_ms": time_ms(torch, shares, reps),
+              "whole_ms": time_ms(torch, whole, reps),
+              "kernels": [train_lm_moe_kernels(torch, ck, cut, layer, x,
+                                               proj, reps, r, n)
+                          for r in range(n)]}
+    for p in leaves.values():
+        p.grad = None
+    del layer, leaves, got, want
+    torch.cuda.empty_cache()
+    return report, launches
+
+
 def train_lm_reduced(torch, ck):
     """(C) every reduced config: one train step on the card against the
     same weights and batch on the CPU: the loss, and every gradient the
@@ -5446,8 +6007,9 @@ def phase_train_lm(torch, reps: int):
     """The LM zoo's training path on the card: (C) every reduced config
     against the CPU, (A) llama3.2-1b at full width and depth through
     launch.train.main, (A2) exact resume at full width (depth cut), (B)
-    the MoE SpMM dispatch's backward at DeepSeek-V2-Lite's width.
-    Returns the launches of (B)'s counted forward and backward."""
+    the MoE SpMM dispatch's backward at DeepSeek-V2-Lite's width, (D)
+    that layer's expert-parallel shares in turn.  Returns the launches
+    of (B)'s and of (D)'s counted forward and backward."""
     ck = Checker(torch)
     t0 = time.perf_counter()
     report = {"phase": "train_lm", "device": torch.cuda.get_device_name(0),
@@ -5458,10 +6020,12 @@ def phase_train_lm(torch, reps: int):
     report["resume"] = train_lm_resume(torch, ck)
     report["seconds_resume"] = time.perf_counter() - t0
     report["moe"], launches = train_lm_moe(torch, ck, reps)
-    report.update(launches=launches, checks=ck.n,
+    report["seconds_moe"] = time.perf_counter() - t0
+    report["tp_shares"], tp_launches = train_lm_tp_shares(torch, ck, reps)
+    report.update(launches=launches, tp_launches=tp_launches, checks=ck.n,
                   seconds=time.perf_counter() - t0)
     emit(report)
-    return launches
+    return launches, tp_launches
 
 
 def main(argv=None) -> int:
@@ -5477,6 +6041,12 @@ def main(argv=None) -> int:
                     help="the dist phase runs its serving cells alone")
     ap.add_argument("--dist-train-only", action="store_true",
                     help="the dist phase runs its train cells alone")
+    ap.add_argument("--dist-tp-only", action="store_true",
+                    help="the dist phase runs its tensor-parallel cells "
+                         "alone (four cards)")
+    ap.add_argument("--dist-tp-sums-only", action="store_true",
+                    help="the dist phase times the model group's sum in "
+                         "its two forms alone (four cards)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -5492,6 +6062,7 @@ def main(argv=None) -> int:
     train_launches, sparse_launches, fault_launches = None, None, None
     serving_launches, obs_launches, dist_serving_launches = None, None, None
     lm_launches, train_lm_launches = None, None
+    train_lm_tp_launches, dist_tp_launches = None, None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -5521,11 +6092,14 @@ def main(argv=None) -> int:
             serving_launches = phase_serving(torch, args.scale,
                                              args.apps_scale)
         elif ph == "dist":
-            dist_launches, dist_serving_launches = phase_dist(
-                torch, args.scale, args.reps, args.comm_scale,
-                args.apps_scale,
-                "serving" if args.dist_serving_only
-                else "train" if args.dist_train_only else None)
+            dist_launches, dist_serving_launches, dist_tp_launches = \
+                phase_dist(torch, args.scale, args.reps, args.comm_scale,
+                           args.apps_scale,
+                           "serving" if args.dist_serving_only
+                           else "train" if args.dist_train_only
+                           else "tp" if args.dist_tp_only
+                           else "tp_sums" if args.dist_tp_sums_only
+                           else None)
         elif ph == "rmat_padding":
             phase_rmat_padding(torch, args.comm_scale - 2)
         elif ph == "train":
@@ -5534,7 +6108,8 @@ def main(argv=None) -> int:
         elif ph == "lm":
             lm_launches = phase_lm(torch, args.reps)
         elif ph == "train_lm":
-            train_lm_launches = phase_train_lm(torch, args.reps)
+            train_lm_launches, train_lm_tp_launches = phase_train_lm(
+                torch, args.reps)
         else:
             raise SystemExit(f"unknown phase {ph!r}")
         log(f"phase {ph}: {time.perf_counter() - t0:.1f} s")
@@ -5563,6 +6138,12 @@ def main(argv=None) -> int:
             row["train_lm_launches"] = (
                 None if train_lm_launches is None
                 else train_lm_launches[row["name"]])
+            row["train_lm_tp_launches"] = (
+                None if train_lm_tp_launches is None
+                else train_lm_tp_launches[row["name"]])
+            row["dist_tp_launches"] = (
+                None if dist_tp_launches is None
+                else [rk[row["name"]] for rk in dist_tp_launches])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -137,11 +137,12 @@ class ParallelConfig:
     ``init_params`` takes ``param_dtype`` as its own argument.  The
     partition specs (``models.model.param_specs``, ``cache_specs``,
     ``batch_axes``) read ``data_axis``, ``model_axis``, ``pod_axis``,
-    ``dp_over_model`` and ``seq_shard_decode``, as the reference's do;
-    the port executes only a mesh's data axis, so they place nothing.
-    ``remat``, ``scan_layers``, ``shard_embed_data`` and
-    ``seq_parallel`` are kept with the reference's defaults, and nothing
-    reads them.
+    ``dp_over_model`` and ``seq_shard_decode``, as the reference's do.
+    The port executes a mesh's data axis and, for training, its model
+    axis (``distributed/tensor_parallel.py``, which also reads
+    ``seq_parallel``; ``dp_over_model`` turns that axis into data
+    parallelism).  ``remat``, ``scan_layers`` and ``shard_embed_data``
+    are kept with the reference's defaults, and nothing reads them.
     """
     data_axis: str = "data"
     model_axis: str = "model"

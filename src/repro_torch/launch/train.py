@@ -12,8 +12,12 @@ the reduced config of the same family.  It runs on the card unless
 ``--device`` names another device.  Under ``torch.distributed`` (one
 process a card, each with its own card set) every rank builds
 ``make_local_mesh(model=--model-parallel)`` and takes its rows of the
-global batch; the replicas stay equal, and the first rank writes the
-checkpoints.  One JSON line a logged step, then ``TRAINING DONE``.
+global batch; the replicas stay equal.  Under ``--model-parallel m > 1``
+each rank initialises the whole model from the seed and keeps its
+shards (``distributed/tensor_parallel.py``).  A checkpoint holds whole
+leaves, whatever the mesh: every rank takes part in gathering them, the
+first rank writes, and a restore slices them to this rank's shards.  One
+JSON line a logged step, then ``TRAINING DONE``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.config import ParallelConfig, TrainConfig, get_config
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.elastic import StepMonitor, run_step_resilient
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
@@ -62,14 +67,25 @@ def train_tree(model, opt_state):
 
 @torch.no_grad()
 def load_tree(model, opt_state, tree) -> None:
-    """Copy a restored :func:`train_tree` into ``model`` and
-    ``opt_state`` in place."""
+    """Copy a restored :func:`train_tree` (tensors or arrays) into
+    ``model`` and ``opt_state`` in place; whole leaves are sliced to the
+    shards a tensor-parallel model holds."""
+    size, rank = getattr(model, "tp_shards", None) or (1, 0)
+    dims = {n: tpm.shard_dim(p) for n, p in model.named_parameters()}
+
+    def part(name, v, like):
+        v = torch.as_tensor(v)
+        if tuple(v.shape) != tuple(like.shape):
+            v = tpm.local_part(v, dims[name], rank, size)
+        return v
     for name, p in model.named_parameters():
-        p.copy_(tree["params"][name])
+        p.copy_(part(name, tree["params"][name], p))
     for key in ("mu", "nu"):
         for name, v in opt_state[key].items():
-            v.copy_(tree["opt"][key][name])
-    opt_state["step"] = tree["opt"]["step"].clone()
+            v.copy_(part(name, tree["opt"][key][name], v))
+    step = torch.as_tensor(tree["opt"]["step"])
+    opt_state["step"] = step.to(opt_state["step"].device,
+                                opt_state["step"].dtype).clone()
 
 
 def _barrier(mesh) -> None:
@@ -108,14 +124,19 @@ def main(argv=None):
                        microbatch=args.microbatch, seed=args.seed)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = M.init_params(cfg, gen, device=dev)
+    model = tpm.shard_model(cfg, pcfg, M.init_params(cfg, gen, device=dev),
+                            mesh)
     opt_state = opt.init_opt_state(model)
+
+    def restore(step):
+        load_tree(model, opt_state, ckpt.restore(
+            args.ckpt_dir, step, tpm.full_shapes(model, opt_state)))
+
     step0 = 0
     if args.ckpt_dir:
         last = ckpt.latest_step(args.ckpt_dir)
         if last is not None:
-            load_tree(model, opt_state, ckpt.restore(
-                args.ckpt_dir, last, train_tree(model, opt_state)))
+            restore(last)
             step0 = last
             print(f"resumed from step {step0}")
 
@@ -141,14 +162,15 @@ def main(argv=None):
         return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
 
     def restore_latest():
-        last = ckpt.latest_step(args.ckpt_dir)
-        load_tree(model, opt_state, ckpt.restore(
-            args.ckpt_dir, last, train_tree(model, opt_state)))
+        restore(ckpt.latest_step(args.ckpt_dir))
         return model, opt_state, batch
 
     def save(step):
-        if mesh.coords == (0,) * len(mesh.coords):
-            ckpt.save(args.ckpt_dir, step, train_tree(model, opt_state))
+        first = mesh.coords == (0,) * len(mesh.coords)
+        tree = tpm.full_tree(model, opt_state, mesh, keep=first)
+        if first:
+            ckpt.save(args.ckpt_dir, step, tree)
+        del tree
         _barrier(mesh)
 
     t_start = time.time()

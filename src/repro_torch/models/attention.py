@@ -258,3 +258,118 @@ def init_mla_cache(cfg, B, S, dtype=torch.bfloat16, device=None):
             "k_pe": torch.zeros((B, S, cfg.mla_rope_dim), dtype=dtype,
                                 device=device),
             "pos": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (training: no cache)
+# ---------------------------------------------------------------------------
+
+def _tp_heads(tp, h, w, nh, width):
+    """A head projection of ``Entry`` ``h`` under ``tp``: ``(y (B, S, n,
+    width), first)``, this rank's ``nh / m`` heads from ``first`` where
+    ``w``'s column split falls on head boundaries, else all ``nh`` heads
+    computed the same on every rank (``first`` None; a split inside a
+    head is gathered whole, as GSPMD's resharding does)."""
+    from repro_torch.distributed.tensor_parallel import shard_dim
+    B, S = h.rep.shape[:2]
+    if shard_dim(w) != 1:
+        return (h.rep @ w.to(h.rep.dtype)).reshape(B, S, nh, width), None
+    y = h.par @ w.to(h.par.dtype)
+    if nh % tp.size == 0:
+        n = nh // tp.size
+        return y.reshape(B, S, n, width), tp.rank * n
+    return tp.gather(y, -1).reshape(B, S, nh, width), None
+
+
+def _all_heads(tp, y, first):
+    """Every head of ``y`` on every rank (gathered if it holds this
+    rank's)."""
+    return y if first is None else tp.gather(y, 2)
+
+
+def _heads_for(tp, y, first, q0, nq, rep):
+    """The KV heads that this rank's query heads ``[q0, q0 + nq)`` read
+    (query head ``h`` reads KV head ``h // rep``): ``y`` itself where it
+    is split on the same head boundaries, else one KV head a query head
+    taken from the replicated ``y``."""
+    if first is not None:
+        return y
+    idx = (q0 + torch.arange(nq, device=y.device)) // rep
+    return tp.copy(y).index_select(2, idx)
+
+
+def _norm_param(tp, w, first):
+    """A replicated norm scale, *f* applied where it meets this rank's
+    heads only."""
+    return w if first is None else tp.copy(w)
+
+
+def _tp_out(tp, p, out, q0):
+    """``(partial, replicated)``: this rank's heads through its rows of
+    the row-parallel ``wo``, or all heads (this rank's part where ``wo``
+    is split)."""
+    from repro_torch.distributed.tensor_parallel import shard_dim
+    wo = p.wo
+    if q0 is not None:
+        return out @ wo.to(out.dtype), None
+    if shard_dim(wo) == 0:
+        return tp.split(out, -1) @ wo.to(out.dtype), None
+    return None, out @ wo.to(out.dtype)
+
+
+def gqa_tp(cfg, pcfg, p, h, batch, tp):
+    """GQA on the leaves' shards under ``tp`` (``h`` an ``Entry``):
+    column-parallel ``wq``/``wk``/``wv``, each rank its own heads, and
+    row-parallel ``wo``.  Returns ``(partial, replicated)``."""
+    B, S, _ = h.rep.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, q0 = _tp_heads(tp, h, p.wq, H, hd)
+    k, k0 = _tp_heads(tp, h, p.wk, Kv, hd)
+    v, v0 = _tp_heads(tp, h, p.wv, Kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, _norm_param(tp, p.q_norm, q0), cfg.norm_eps)
+        k = rms_norm(k, _norm_param(tp, p.k_norm, k0), cfg.norm_eps)
+    pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    q = _rope(cfg, q, pos)
+    k = _rope(cfg, k, pos)
+    if q0 is None:
+        k, v = _all_heads(tp, k, k0), _all_heads(tp, v, v0)
+    else:
+        nq, rep = q.shape[2], H // Kv
+        k = _heads_for(tp, k, k0, q0, nq, rep)
+        v = _heads_for(tp, v, v0, q0, nq, rep)
+    out = flash_attention(q, k, v, causal=cfg.causal, block=pcfg.flash_block)
+    return _tp_out(tp, p, out.reshape(B, S, -1), q0)
+
+
+def mla_tp(cfg, pcfg, p, h, batch, tp):
+    """MLA on the leaves' shards under ``tp``: column-parallel ``wq``,
+    ``wuk`` and ``wuv`` (each rank its own heads), the latent projections
+    ``wdkv``/``wkpe`` replicated, row-parallel ``wo``.  Returns
+    ``(partial, replicated)``."""
+    from repro_torch.distributed.tensor_parallel import Entry
+    B, S, _ = h.rep.shape
+    H, hd, rd = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
+    q, q0 = _tp_heads(tp, h, p.wq, H, hd + rd)
+    q_nope, q_pe = q[..., :hd], q[..., hd:]
+    c_kv = h.rep @ p.wdkv.to(h.rep.dtype)
+    k_pe = h.rep @ p.wkpe.to(h.rep.dtype)
+    pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    q_pe = _rope(cfg, q_pe, pos)
+    k_pe = _rope(cfg, k_pe[:, :, None, :], pos)[:, :, 0]
+    ckv = Entry(c_kv, tp.copy(c_kv))
+    k_nope, k0 = _tp_heads(tp, ckv, p.wuk, H, hd)
+    v, v0 = _tp_heads(tp, ckv, p.wuv, H, hd)
+    if q0 is None:
+        k_nope, v = _all_heads(tp, k_nope, k0), _all_heads(tp, v, v0)
+    else:
+        nq = q.shape[2]
+        k_nope = _heads_for(tp, k_nope, k0, q0, nq, 1)
+        v = _heads_for(tp, v, v0, q0, nq, 1)
+        k_pe = tp.copy(k_pe)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        *k_nope.shape[:3], rd)], -1)
+    qf = torch.cat([q_nope, q_pe], -1)
+    out = flash_attention(qf, k, v, causal=cfg.causal,
+                          block=pcfg.flash_block)
+    return _tp_out(tp, p, out.reshape(B, S, -1), q0)

@@ -36,11 +36,16 @@ class Init:
                                        device=self.device))
 
 
-def rms_norm(x, scale, eps=1e-5):
+def rms_normalize(x, eps=1e-5):
+    """``x`` over its root mean square, in float32 (RMSNorm before its
+    scale)."""
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * scale.float()).to(x.dtype)
+    return xf * torch.rsqrt(var + eps)
+
+
+def rms_norm(x, scale, eps=1e-5):
+    return (rms_normalize(x, eps) * scale.float()).to(x.dtype)
 
 
 def init_rms(init: Init, d):
@@ -112,3 +117,14 @@ class MLP(nn.Module):
 
 def init_mlp(init: Init, d, ff) -> MLP:
     return MLP(init, d, ff)
+
+
+def swiglu_tp(h, w1, w3, w2):
+    """The SwiGLU MLP under tensor parallelism on an ``Entry`` ``h``:
+    column-parallel ``w1``/``w3`` and row-parallel ``w2`` give ``(partial,
+    None)``, this rank's share of the output; whole leaves (``d_ff`` does
+    not split) give ``(None, replicated)``."""
+    from repro_torch.distributed.tensor_parallel import shard_dim
+    if shard_dim(w1) == 1:
+        return swiglu(h.par, w1, w3, w2), None
+    return None, swiglu(h.rep, w1, w3, w2)

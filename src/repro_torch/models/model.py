@@ -12,11 +12,16 @@ segment]}``, one entry a layer.
 The partition specs (``param_specs``, ``cache_specs``) are the
 reference's rules keyed by the port's parameter and cache names, without
 the reference's leading scan axis (a segment's repeats are a
-``ModuleList``).  The port executes the ``data`` axis of a mesh (the
+``ModuleList``).  The port executes both axes of a mesh: ``data`` (the
 train step's ``group``: each rank holds rows of the global batch, see
-``models/moe.py``); the ``model`` axis (tensor parallelism) is not
-executed yet, so :func:`constrain` raises under a mesh with ``model >
-1`` rather than run it replicated.
+``models/moe.py``) and ``model``: under an installed mesh with ``model
+> 1`` (``sharding.set_mesh``) the forward runs on the leaves' shards
+that ``distributed.tensor_parallel.shard_model`` keeps, Megatron-style
+(:func:`_forward_tp`; ``seq_parallel`` and ``dp_over_model`` as the
+reference reads them).  Every forward without a cache (training) runs
+that code, on one process's whole leaves as a group of one.  Serving
+under a model axis is not ported yet: a forward that keeps a cache there
+raises (:data:`SERVE_TP_ITEM`).
 """
 from __future__ import annotations
 
@@ -29,11 +34,12 @@ from torch import nn
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import device as _device
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Init, init_mlp, init_rms, rms_norm,
-                                       swiglu)
+                                       swiglu, swiglu_tp)
 
 
 def _dtype(name):
@@ -49,21 +55,17 @@ def batch_axes(pcfg):
     return axes
 
 
-#: the ROADMAP item that executes the "model" axis
-TP_ITEM = ("tensor parallelism over the 'model' axis is not ported yet "
-           "(ROADMAP.md, queue 1: executed param_specs, check_elastic.py "
-           "at model_parallel=2, fsdp_extend)")
+#: the ROADMAP item that serves under the "model" axis
+SERVE_TP_ITEM = ("serving under a 'model' axis is not ported yet "
+                 "(ROADMAP.md, queue 1: cache_specs' model-sharded caches "
+                 "and seq_shard_decode)")
 
 
 def constrain(x, *spec):
     """The activation sharding constraint: ``x`` itself.  Under the
-    installed mesh (``sharding.set_mesh``) the ``data`` axis is each
-    rank's own rows already; a mesh with ``model > 1`` raises (not run
-    replicated in silence)."""
+    installed mesh the ``data`` axis is each rank's own rows already, and
+    the layers place the ``model`` axis themselves (``_forward_tp``)."""
     del spec
-    mesh = sharding.current_mesh()
-    if mesh is not None and mesh.axis_sizes.get("model", 1) > 1:
-        raise NotImplementedError(TP_ITEM)
     return x
 
 
@@ -204,16 +206,20 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
     place of the logits (the caller projects: last-token-only prefill).
     ``group``: the data-parallel group whose ranks hold consecutive rows
     of one global batch (MoE routing and ``aux`` are the global batch's,
-    ``aux`` this rank's share; ``models/moe.py``).
+    ``aux`` this rank's share; ``models/moe.py``).  Without a cache
+    (training) it runs :func:`_forward_tp`: on the installed mesh's model
+    group, or on this process's whole leaves as a group of one.
     """
+    tp = tpm.active(pcfg)
+    serving = cache is not None or want_cache
+    if serving and tp is not None:
+        raise NotImplementedError(SERVE_TP_ITEM)
+    tpm.check_sharded(model, tp)
+    if not serving:
+        return _forward_tp(cfg, pcfg, model, batch, return_hidden, group,
+                           tp or tpm.ONE)
     cdt = _dtype(pcfg.compute_dtype)
-    if cfg.embed_inputs:
-        # F.embedding: its backward sums each row's gradients in a fixed
-        # order (indexing's backward accumulates in thread order on the
-        # CPU)
-        x = F.embedding(batch["tokens"], model.embed).to(cdt)
-    else:
-        x = batch["embeds"].to(cdt)
+    x = embed_tp(cfg, model, batch, cdt, tpm.ONE)
     x = constrain(x, batch_axes(pcfg), None, None)
 
     new_segs = []
@@ -233,8 +239,91 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
     new_cache = {"segments": new_segs} if want_cache else None
     if return_hidden:
         return x, new_cache, aux
-    head = (model.embed.T if cfg.tie_embeddings else model.head).to(cdt)
-    return (x @ head).float(), new_cache, aux
+    return (x @ vocab_head(cfg, model)[0].to(cdt)).float(), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# forward under tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _apply_block_tp(cfg, pcfg, spec, p, x, batch, aux, group, tp):
+    """One layer on the leaves' shards: each sublayer enters from the
+    residual stream and exits onto it (``tensor_parallel.TP``)."""
+    h = tp.enter(tpm.rms_norm(x, p.norm1, cfg.norm_eps, tp))
+    if spec.mixer == "attn":
+        fn = attn_mod.mla_tp if cfg.mla_kv_lora else attn_mod.gqa_tp
+        part, rep = fn(cfg, pcfg, p.attn, h, batch, tp)
+    else:
+        part, rep = ssm_mod.mamba2_tp(cfg, pcfg, p.mamba, h, tp)
+    x = x + tp.exit(part, rep)
+    if spec.ffn != "none":
+        h = tp.enter(tpm.rms_norm(x, p.norm2, cfg.norm_eps, tp))
+        if spec.ffn == "dense":
+            part, rep = swiglu_tp(h, p.mlp.w1, p.mlp.w3, p.mlp.w2)
+        else:
+            (part, rep), moe_aux = moe_mod.moe_tp(cfg, pcfg, p.moe, h, tp,
+                                                 group=group)
+            aux = aux + moe_aux["lb_loss"]
+        x = x + tp.exit(part, rep)
+    return x, aux
+
+
+def embed_tp(cfg, model, batch, cdt, tp):
+    """The residual stream's start: a vocab-parallel lookup (this rank's
+    rows of ``embed``, zero elsewhere, summed over the group) where the
+    table is split, else the replicated input."""
+    if not cfg.embed_inputs:
+        return tp.exit(replicated=batch["embeds"].to(cdt))
+    tok = batch["tokens"]
+    if tpm.shard_dim(model.embed) != 0:
+        # F.embedding: its backward sums each row's gradients in a fixed
+        # order (indexing's backward accumulates in thread order on the
+        # CPU)
+        return tp.exit(replicated=F.embedding(tok, model.embed).to(cdt))
+    rows = model.embed.shape[0]
+    local = tok - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    e = F.embedding(torch.where(inside, local, 0), model.embed)
+    return tp.exit(partial=torch.where(inside[..., None], e, 0.0).to(cdt))
+
+
+def vocab_head(cfg, model):
+    """(head (d, vocab or this rank's vocab columns), its first vocab
+    id, or None where the head is whole)."""
+    w = model.embed if cfg.tie_embeddings else model.head
+    split = tpm.shard_dim(w) == (0 if cfg.tie_embeddings else 1)
+    head = w.T if cfg.tie_embeddings else w
+    if not split:
+        return head, None
+    return head, model.tp_shards[1] * head.shape[1]
+
+
+def _forward_tp(cfg, pcfg, model, batch, return_hidden, group, tp):
+    """:func:`forward` without a cache (training) on the leaves' shards,
+    or on one process's whole leaves under ``tensor_parallel.ONE``.  The
+    returned hidden states are this rank's positions under
+    ``seq_parallel``; logits are gathered whole."""
+    cdt = _dtype(pcfg.compute_dtype)
+    S = next(iter(batch.values())).shape[1]
+    if tp.seq and S % tp.size:
+        raise ValueError(f"seq_parallel: {S} positions do not split over "
+                         f"{tp.size} model ranks")
+    x = embed_tp(cfg, model, batch, cdt, tp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, (sb, _) in enumerate(cfg.segments):
+        for blocks in model.segments[si]:
+            for i, spec in enumerate(sb):
+                x, aux = _apply_block_tp(cfg, pcfg, spec,
+                                         getattr(blocks, f"blk{i}"), x,
+                                         batch, aux, group, tp)
+    x = tpm.rms_norm(x, model.final_norm, cfg.norm_eps, tp)
+    if return_hidden:
+        return x, None, aux
+    h = tp.enter(x)
+    head, lo = vocab_head(cfg, model)
+    if lo is None:
+        return (h.rep @ head.to(cdt)).float(), None, aux
+    return tp.gather(h.par @ head.to(cdt), -1).float(), None, aux
 
 
 # ---------------------------------------------------------------------------

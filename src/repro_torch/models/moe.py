@@ -48,6 +48,13 @@ before routing), and the load-balancing loss each rank returns is its
 share of the global one (its probability sums over T_global against the
 global counts), so the ranks' shares sum to it.  Each rank's expert
 buffers hold all E * C slots, its own filled.
+
+**Expert parallelism** over the mesh's ``model`` axis (:func:`moe_tp`):
+the expert weights are split on E, and rank r of m runs
+:func:`moe_share`, its E/m experts on slots ``[r E/m C, (r+1) E/m C)``
+(those rows of D, those columns of G, the same windows of MOE_ROW_TILE
+rows); the shares are summed over the model group.  The whole layer is
+the share of rank 0 of 1.
 """
 from __future__ import annotations
 
@@ -91,8 +98,12 @@ def _experts(p, buf):
     return torch.bmm(h, p.w2.to(buf.dtype))
 
 
-def _shared(p, xf):
-    return swiglu(xf[None], p.shared.w1, p.shared.w3, p.shared.w2)[0]
+def _shared(p, xf, tp):
+    """The shared experts on tokens ``xf`` (T, d), computed the same on
+    every rank of ``tp`` (their leaves gathered whole where split)."""
+    s = p.shared
+    return swiglu(xf[None], tp.weight(s.w1), tp.weight(s.w3),
+                  tp.weight(s.w2))[0]
 
 
 def _world(group) -> int:
@@ -153,40 +164,84 @@ def route(cfg, p, xf, group=None):
 def moe(cfg, pcfg, p, x, dispatch: str = "einsum", group=None):
     """x (B, S, d) -> (B, S, d).  Also returns aux losses dict.  Under
     ``group`` x is this rank's rows of the global batch and ``lb_loss``
-    its share of the global loss (module docstring)."""
-    del pcfg
-    B, S, d = x.shape
-    E, k = cfg.moe_experts, cfg.moe_top_k
-    T = B * S
-    xf = x.reshape(T, d)
-    probs, gate_i, gate_v, slot, keep, C, counts = route(cfg, p, xf, group)
-    T_all = T * _world(group)
+    its share of the global loss (module docstring).  The whole layer:
+    :func:`moe_tp` on a group of one."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    (_, out), aux = moe_tp(cfg, pcfg, p, tpm.ONE.enter(x), tpm.ONE,
+                           dispatch, group)
+    return out, aux
 
-    # load-balancing auxiliary loss (Switch-style)
+
+def _aux(cfg, probs, counts, group):
+    """The load-balancing auxiliary loss (Switch-style)."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T_all = probs.shape[0] * _world(group)
     me = probs.sum(0) / T_all
     ce = counts.float() / (T_all * k)
-    aux = {"lb_loss": E * torch.sum(me * ce)}
+    return {"lb_loss": E * torch.sum(me * ce)}
 
+
+def moe_share(cfg, p, xf, gate_v, slot, keep, C, rank: int, m: int,
+              dispatch: str = "einsum"):
+    """Expert parallelism's share of rank ``rank`` of ``m``: the routed
+    output (T, d) of its ``E / m`` experts, whose weights ``p.w1``,
+    ``p.w3``, ``p.w2`` are (rows ``[rank E/m, (rank+1) E/m)`` of the
+    whole).  The rank keeps only its experts' slots ``[lo, lo + E/m *
+    C)``: those rows of the dispatch matrix D and those columns of the
+    combine matrix G (an assignment elsewhere is dropped here, its gate
+    0).  The ``m`` shares sum to the whole layer's routed output; ``m =
+    1`` is the whole layer."""
+    T, d = xf.shape
+    k = slot.shape[1]
+    Em = cfg.moe_experts // m
+    rows = Em * C
+    lo = rank * rows
+    mine = keep & (slot >= lo) & (slot < lo + rows)
+    local = torch.where(mine, slot - lo, 0)
+    gates = (gate_v * mine).to(xf.dtype)
     if dispatch == "spmm":
-        return _moe_spmm(cfg, p, xf, gate_v, slot, keep, C, B, S), aux
+        buf = _DispatchSpMM.apply(xf, local, mine, rows)
+        y = _experts(p, buf.reshape(Em, C, d)).reshape(rows, d)
+        return _CombineSpMM.apply(y, gates, local, mine)
     if dispatch != "einsum":
         raise ValueError(f"dispatch must be 'einsum' or 'spmm', got "
                          f"{dispatch!r}")
-
-    # scatter tokens into expert buffers (E*C, d); a dropped assignment
-    # adds zeros at slot E*C-1
-    tok_idx = torch.arange(T, device=x.device)[:, None].expand(T, k)
-    src = torch.where(keep.reshape(-1, 1), xf[tok_idx.reshape(-1)], 0.0)
-    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device).index_add_(
-        0, torch.where(keep, slot, E * C - 1).reshape(-1), src)
-    y = _experts(p, buf.reshape(E, C, d)).reshape(E * C, d)
-
+    # scatter tokens into expert buffers (rows, d); a dropped assignment
+    # adds zeros at the last row
+    tok_idx = torch.arange(T, device=xf.device)[:, None].expand(T, k)
+    src = torch.where(mine.reshape(-1, 1), xf[tok_idx.reshape(-1)], 0.0)
+    buf = torch.zeros((rows, d), dtype=xf.dtype, device=xf.device)
+    buf = buf.index_add_(0, torch.where(mine, local, rows - 1).reshape(-1),
+                         src)
+    y = _experts(p, buf.reshape(Em, C, d)).reshape(rows, d)
     # combine in compute dtype
-    gates = (gate_v * keep).to(x.dtype)
-    out = (y[slot.reshape(-1)].reshape(T, k, d) * gates[..., None]).sum(1)
+    return (y[local.reshape(-1)].reshape(T, k, d) * gates[..., None]).sum(1)
+
+
+def moe_tp(cfg, pcfg, p, h, tp, dispatch: str = "einsum", group=None):
+    """The MoE layer on the leaves' shards under ``tp`` (``h`` an
+    ``Entry``): every model rank routes the same tokens with the
+    replicated router (``group``: the data group, as in :func:`moe`),
+    runs its own experts' share (:func:`moe_share`; its tokens and
+    gates enter by *f*) and leaves it to the caller's *g*; the shared
+    experts and ``lb_loss`` are computed the same on every rank (they
+    count once).  Returns ``((partial, replicated), aux)``."""
+    from repro_torch.distributed.tensor_parallel import shard_dim
+    del pcfg
+    B, S, d = h.rep.shape
+    xr = h.rep.reshape(B * S, d)
+    probs, gate_i, gate_v, slot, keep, C, counts = route(cfg, p, xr, group)
+    aux = _aux(cfg, probs, counts, group)
+    shared = None
     if cfg.moe_shared:
-        out = out + _shared(p, xf)
-    return out.reshape(B, S, d), aux
+        shared = _shared(p, xr, tp).reshape(B, S, d)
+    if shard_dim(p.w1) == 0:
+        part = moe_share(cfg, p, h.par.reshape(B * S, d), tp.copy(gate_v),
+                         slot, keep, C, tp.rank, tp.size, dispatch)
+        return (part.reshape(B, S, d), shared), aux
+    out = moe_share(cfg, p, xr, gate_v, slot, keep, C, 0, 1, dispatch)
+    out = out.reshape(B, S, d)
+    return (None, out if shared is None else out + shared), aux
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -298,22 +353,3 @@ class _CombineSpMM(torch.autograd.Function):
             dgates = dots.vals.reshape(-1)[:T * k].reshape(T, k).to(
                 gates.dtype)
         return dy, dgates, None, None
-
-
-def _moe_spmm(cfg, p, xf, gate_v, slot, keep, C, B, S):
-    """Dispatch/combine as SpMM through the port's sparse kernels.
-
-    dispatch matrix D: (E*C, T) with D[slot, t] = 1      -> buf = D @ x
-    combine  matrix G: (T, E*C) with G[t, slot] = gate   -> out = G @ y
-    (packed as the module docstring says, each product an autograd
-    Function whose backward runs on the same kernels).
-    """
-    T, d = xf.shape
-    E = cfg.moe_experts
-    m = E * C
-    buf = _DispatchSpMM.apply(xf, slot, keep, m)
-    y = _experts(p, buf.reshape(E, C, d)).reshape(m, d)
-    out = _CombineSpMM.apply(y, (gate_v * keep).to(xf.dtype), slot, keep)
-    if cfg.moe_shared:
-        out = out + _shared(p, xf)
-    return out.reshape(B, S, d)

@@ -114,17 +114,43 @@ def mamba2(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
 
     cache: dict(conv (B,K-1,C), ssm (B,H,P,N), pos (B,))."""
     del pcfg, batch, layer_id
-    B, S, d = x.shape
+    y, new_cache = _mix(cfg, p, x @ p.in_proj.to(x.dtype), cache)
+    return y @ p.out_proj.to(x.dtype), new_cache
+
+
+def mamba2_tp(cfg, pcfg, p, h, tp):
+    """Mamba2 on the leaves' shards under ``tp`` (``h`` an ``Entry``;
+    training, no cache).  ``in_proj``'s column split cuts across the
+    sections of ``[z, x, B, C, dt]``, so its product is gathered whole and
+    the convolution and the chunked SSD run the same on every rank; the
+    row-parallel ``out_proj`` takes this rank's part of the gated, normed
+    ``y``.  Returns ``(partial, replicated)``."""
+    from repro_torch.distributed.tensor_parallel import shard_dim
+    del pcfg
+    w = p.in_proj
+    if shard_dim(w) == 1:
+        proj = tp.gather(h.par @ w.to(h.par.dtype), -1)
+    else:
+        proj = h.rep @ w.to(h.rep.dtype)
+    y, _ = _mix(cfg, p, proj, None)
+    if shard_dim(p.out_proj) == 0:
+        return tp.split(y, -1) @ p.out_proj.to(y.dtype), None
+    return None, y @ p.out_proj.to(y.dtype)
+
+
+def _mix(cfg, p, proj, cache):
+    """From the input projection to the gated, normed ``y`` (B, S, din)
+    and the new cache."""
+    B, S, _ = proj.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ p.in_proj.to(x.dtype)
     z, xr, Bm, Cm, dt = torch.split(proj, [din, din, N, N, H], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :].float())
     A = -torch.exp(p.A_log.float())
 
     xBC = torch.cat([xr, Bm, Cm], dim=-1)
     conv_state = None if cache is None else cache["conv"]
-    xBC, new_conv = _causal_conv(xBC, p.conv_w.to(x.dtype),
-                                 p.conv_b.to(x.dtype), conv_state)
+    xBC, new_conv = _causal_conv(xBC, p.conv_w.to(proj.dtype),
+                                 p.conv_b.to(proj.dtype), conv_state)
     xr, Bm, Cm = torch.split(xBC, [din, N, N], dim=-1)
     xh = xr.reshape(B, S, H, P)
 
@@ -134,7 +160,7 @@ def mamba2(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
                                 chunk)
         new_cache = {"conv": new_conv, "ssm": final,
                      "pos": torch.full((B,), S, dtype=torch.int32,
-                                       device=x.device)}
+                                       device=proj.device)}
     else:
         # O(1) recurrent update: s = s*exp(dt*A) + dt * B (x) x ; y = C.s
         s = cache["ssm"].float()                            # (B,H,P,N)
@@ -147,10 +173,11 @@ def mamba2(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
                      "pos": cache["pos"] + 1}
 
     y = y + xh.float() * p.D.float()[None, None, :, None]
-    y = y.reshape(B, S, din).to(x.dtype)
+    y = y.reshape(B, S, din).to(proj.dtype)
     # gated RMSNorm (Mamba2's norm-then-gate)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm, cfg.norm_eps)
-    return y @ p.out_proj.to(x.dtype), new_cache
+    y = rms_norm(y * F.silu(z.float()).to(proj.dtype), p.norm,
+                 cfg.norm_eps)
+    return y, new_cache
 
 
 def init_mamba2_cache(cfg, B, dtype=torch.bfloat16, device=None):

@@ -2,7 +2,9 @@
 
 Port of ``repro.serving.decode``, on the port's model
 (``repro_torch.models.model``).  Each step runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``.  Under an installed mesh with a ``model``
+axis the forward raises (``models.model.SERVE_TP_ITEM``): serving there
+is not ported yet, and is never run replicated in silence.
 """
 from __future__ import annotations
 

@@ -13,8 +13,19 @@ global token set (``models/moe.py``, which also routes over the global
 token order).  The shares' gradients are summed over the ``data`` group
 in one fixed order (every rank sums the all-gathered gradients in rank
 order, :func:`ordered_sum`), so every rank applies the same update and
-the replicas stay equal bit for bit.  The ``model`` axis (tensor
-parallelism) is not executed yet: a mesh with ``model > 1`` raises.
+the replicas stay equal bit for bit.
+
+**Tensor parallelism** over the ``model`` axis
+(``distributed/tensor_parallel.py``): the model holds this rank's
+shards (``tensor_parallel.shard_model``), every model rank takes the
+same rows, the cross-entropy is vocab-parallel (:func:`chunked_ce`: the
+row max and the sum of exponentials over the model group, the target's
+logit from the rank that holds it), a sharded leaf's gradient stays
+this rank's shard and a replicated one comes out whole (it is not
+summed over the model group again), and the clip's norm counts each
+shard once (``optimizer.global_norm``).  Under ``dp_over_model`` the
+model axis is more data parallelism: the leaves stay whole and the rows
+split over data x model.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import model as M
 from repro_torch.training import optimizer as opt
 
@@ -71,21 +83,65 @@ def _chunk_nll(h, head, t, mk):
     return torch.sum((lse - gold) * mk)
 
 
-def chunked_ce(hidden, head, targets, mask, chunk: int = 512, group=None):
+class _VocabNLL(torch.autograd.Function):
+    """The token NLL sum of logits split over the vocab: (B, c, V/m)
+    this rank's columns from vocab id ``lo``.  The row max, the sum of
+    exponentials and the target's logit are combined over the model
+    group in rank order; the backward is softmax - onehot on this rank's
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, t, mk, lo, tp):
+        cols = logits.shape[-1]
+        gmax = tp.max(logits.amax(-1))
+        e = torch.exp(logits - gmax[..., None])
+        se = tp.sum(e.sum(-1))
+        local = t.long() - lo
+        inside = (local >= 0) & (local < cols)
+        idx = torch.where(inside, local, 0)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+        gold = tp.sum(torch.where(inside, gold, 0.0))
+        ctx.save_for_backward(e, se, idx, inside, mk)
+        return torch.sum((torch.log(se) + gmax - gold) * mk)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, inside, mk = ctx.saved_tensors
+        d = e / se[..., None]
+        d.scatter_add_(-1, idx[..., None], -inside.to(d.dtype)[..., None])
+        return d * (g * mk)[..., None], None, None, None, None
+
+
+def _chunk_nll_tp(h, head, t, mk, lo, tp):
+    return _VocabNLL.apply((h @ head).float(), t, mk, lo, tp)
+
+
+def chunked_ce(hidden, head, targets, mask, chunk: int = 512, group=None,
+               tp=None, vocab_lo=None):
     """Cross-entropy over sequence chunks.
 
     The (B, S, vocab) logits are never held beyond one chunk: each
     chunk's body runs under ``checkpoint`` so the backward recomputes
     its logits instead of saving them.  The token sum is divided by the
-    mask count summed over ``group`` (the global batch's)."""
+    mask count summed over ``group`` (the global batch's).  Under ``tp``
+    ``hidden`` comes from the residual stream (this rank's positions
+    under ``seq_parallel``) and, where ``vocab_lo`` is given, ``head``
+    holds this rank's vocab columns from that id (vocab-parallel)."""
+    if tp is not None:
+        h = tp.enter(hidden)
+        hidden = h.rep if vocab_lo is None else h.par
     B, S, d = hidden.shape
     if S % chunk or S <= chunk:
         chunk = S
     tot = hidden.new_zeros((), dtype=torch.float32)
     for s in range(0, S, chunk):
-        tot = tot + checkpoint(_chunk_nll, hidden[:, s:s + chunk], head,
-                               targets[:, s:s + chunk], mask[:, s:s + chunk],
-                               use_reentrant=False)
+        part = (hidden[:, s:s + chunk], head, targets[:, s:s + chunk],
+                mask[:, s:s + chunk])
+        if vocab_lo is None:
+            tot = tot + checkpoint(_chunk_nll, *part, use_reentrant=False)
+        else:
+            tot = tot + checkpoint(_chunk_nll_tp, *part, vocab_lo, tp,
+                                   use_reentrant=False)
     count = mask.sum()
     ordered_sum([count], group)
     return tot / torch.clamp_min(count, 1.0)
@@ -99,7 +155,10 @@ def lm_loss(cfg: ModelConfig, pcfg: ParallelConfig, model, batch,
     hidden, _, aux = M.forward(cfg, pcfg, model, batch, want_cache=False,
                                return_hidden=True, group=group)
     cdt = hidden.dtype
-    head = (model.embed.T if cfg.tie_embeddings else model.head).to(cdt)
+    tp = tpm.active(pcfg)
+    head, lo = (M.vocab_head(cfg, model) if tp is not None else
+                (model.embed.T if cfg.tie_embeddings else model.head, None))
+    head = head.to(cdt)
     targets = batch["labels"]
     mask = torch.ones(targets.shape, dtype=torch.float32,
                       device=targets.device)
@@ -108,24 +167,42 @@ def lm_loss(cfg: ModelConfig, pcfg: ParallelConfig, model, batch,
         mask[:, -1] = 0.0
     else:            # encoder: per-frame classification
         tgt = targets
-    nll = chunked_ce(hidden, head, tgt, mask, group=group)
+    nll = chunked_ce(hidden, head, tgt, mask, group=group, tp=tp,
+                     vocab_lo=lo)
     loss = nll + aux_weight * aux
     return loss, {"loss": loss, "nll": nll, "aux": aux}
 
 
-def data_rows(mesh, global_batch: int):
+def data_rows(mesh, global_batch: int, dp_over_model: bool = False):
     """The rows [lo, hi) of the global batch this rank's ``data`` index
-    holds (all of them without a mesh)."""
+    holds (all of them without a mesh; every model rank the same ones,
+    unless ``dp_over_model`` splits them over the model axis too)."""
     if mesh is None:
         return 0, global_batch
-    batch_shape = mesh.ranks.shape[:-1]      # every axis but "model"
+    axes = len(mesh.ranks.shape) - (0 if dp_over_model else 1)
+    batch_shape = mesh.ranks.shape[:axes]
     n = int(np.prod(batch_shape))
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} does not split over "
                          f"{n} data ranks")
     per = global_batch // n
-    i = int(np.ravel_multi_index(mesh.coords[:-1], batch_shape))
+    i = int(np.ravel_multi_index(mesh.coords[:axes], batch_shape))
     return i * per, (i + 1) * per
+
+
+def batch_group(mesh, pcfg):
+    """The group whose ranks hold the global batch's rows: the data
+    group, or under ``dp_over_model`` the whole mesh (which must then be
+    the world: its group is the world's)."""
+    if mesh is None:
+        return None
+    if not pcfg.dp_over_model or mesh.axis_sizes.get(pcfg.model_axis,
+                                                     1) == 1:
+        return mesh.data_group
+    import torch.distributed as dist
+    if mesh.group is None or dist.get_world_size(mesh.group) != mesh.size:
+        raise ValueError("dp_over_model: the mesh must span the world")
+    return mesh.group
 
 
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
@@ -135,20 +212,32 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     step_fn(model, opt_state, batch) -> metrics updates the model's
     parameters and ``opt_state`` in place; ``batch`` is this rank's rows
-    (:func:`data_rows`).  ``shardings_for(model)`` returns the placements
+    (:func:`data_rows`), and under a model axis the model holds this
+    rank's shards (``tensor_parallel.shard_model``; the step installs
+    ``mesh`` while it runs).  ``shardings_for(model)`` returns the placements
     (param specs sanitized for the mesh; the optimizer's moments share
     them), and ``jit_step(param_sh, opt_sh, batch_sh)`` the step bound to
     the mesh (eager: nothing is compiled).
     """
-    if mesh is not None and mesh.axis_sizes.get("model", 1) > 1:
-        raise NotImplementedError(M.TP_ITEM)
-    group = mesh.data_group if mesh is not None else None
+    group = batch_group(mesh, pcfg)
     opt_cfg = opt_cfg or opt.AdamWConfig(
         lr=tcfg.lr, beta1=tcfg.beta1, beta2=tcfg.beta2,
         weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
         warmup=tcfg.warmup, total_steps=tcfg.steps)
 
     def step(model, opt_state, batch):
+        if mesh is None:
+            return run(model, opt_state, batch)
+        prev = sharding.current_mesh()
+        sharding.set_mesh(mesh)
+        try:
+            return run(model, opt_state, batch)
+        finally:
+            sharding.set_mesh(prev)
+
+    def run(model, opt_state, batch):
+        tp = tpm.active(pcfg)
+        tpm.check_sharded(model, tp)
         nmicro = tcfg.microbatch or 1
         params = dict(model.named_parameters())
         for p in params.values():
@@ -171,7 +260,8 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
         ordered_sum(list(grads.values()), group)
         ordered_sum(list(metrics.values()), group)
         metrics = {k: v[0] for k, v in metrics.items()}
-        om = opt.adamw_update(opt_cfg, params, grads, opt_state)
+        kw = {} if tp is None else {"model_group": tp}
+        om = opt.adamw_update(opt_cfg, params, grads, opt_state, **kw)
         for p in params.values():
             p.grad = None
         return dict(metrics, **om)

@@ -70,3 +70,34 @@ def save(out_dir, rank, arrays, record):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
+
+
+def session_file(tmp_path_factory, name, make):
+    """The path of a file made once a test session, whichever xdist
+    worker asks first: ``make(path)`` writes it under a lock in the
+    session's shared base temp dir, and later callers (other workers
+    too) read the same file."""
+    import fcntl
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent          # every worker's basetemp's parent
+    path = os.path.join(str(base), name)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = os.path.join(str(base), "tmp-" + name)
+            make(tmp)
+            os.replace(tmp, path)
+    return path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One torch intra-op thread for a module that imports this fixture:
+    the port's test ops are small, and beside the suite's other workers
+    (a pool of one thread a core each) they crawl."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -27,6 +27,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_spawn import join, save, spawn  # noqa: E402
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 WORLD = 4
 SHAPE = dict(m=64, n=64, r=16, c=2, nnz_row=4)

@@ -19,6 +19,7 @@ import torch
 
 from repro.core import api as japi
 from repro_torch.core import api, costmodel, d15, sparse
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

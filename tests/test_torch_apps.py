@@ -21,6 +21,7 @@ from repro_torch import convert
 from repro_torch.apps import als, gat
 from repro_torch.core import api
 from repro_torch.kernels import ops
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 J1 = jax.devices()[:1]

@@ -20,6 +20,7 @@ import types
 
 import numpy as np
 import pytest
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 M, N, R, NNZ_ROW, SEED = 256, 320, 64, 5, 0
 TILE = dict(row_tile=32, nz_block=32)
@@ -82,9 +83,8 @@ def _reference(out_path):
     np.savez(out_path, **res)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("d15") / "reference.npz")
+def run_reference(path):
+    """This file run as a script: the reference's npz at ``path``."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -94,8 +94,22 @@ def reference(tmp_path_factory):
                           capture_output=True, text=True, timeout=900,
                           env=env)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def shared_reference(tmp_path_factory):
+    """The reference's arrays, its subprocess run once a test session
+    (tests/test_torch_dist.py reads the same file)."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_spawn
+    path = _torch_spawn.session_file(tmp_path_factory, "d15_reference.npz",
+                                     run_reference)
     data = np.load(path)
     return {k: data[k] for k in data.files}
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return shared_reference(tmp_path_factory)
 
 
 def _port(p, c):

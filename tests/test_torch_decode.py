@@ -26,6 +26,7 @@ from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.serving import decode
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 FAMILIES = ["llama32_1b", "qwen3_1_7b", "mamba2_1_3b",
             "deepseek_v2_lite_16b", "jamba_v01_52b", "phi35_moe_42b"]

@@ -21,7 +21,6 @@ the tests that need it.
 """
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -29,6 +28,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_spawn import spawn  # noqa: E402
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 # tests/test_torch_d15.py's problem, so its reference output applies
 M, N, R, NNZ_ROW, SEED = 256, 320, 64, 5, 0
@@ -398,21 +398,11 @@ def test_no_fallback_to_another_backend(ranks, world):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """tests/test_torch_d15.py's reference subprocess (8 forced host
-    devices), run as a script."""
-    path = str(tmp_path_factory.mktemp("d15ref") / "reference.npz")
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    env["JAX_PLATFORMS"] = "cpu"
-    script = os.path.join(os.path.dirname(__file__), "test_torch_d15.py")
-    proc = subprocess.run([sys.executable, script, path],
-                          capture_output=True, text=True, timeout=900,
-                          env=env)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    data = np.load(path)
-    return {k: data[k] for k in data.files}
+    """tests/test_torch_d15.py's reference (8 forced host devices), its
+    subprocess run once a test session."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import test_torch_d15
+    return test_torch_d15.shared_reference(tmp_path_factory)
 
 
 @pytest.mark.parametrize("world,c", [(w, c) for w, f, c in CASES

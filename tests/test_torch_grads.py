@@ -29,6 +29,7 @@ from repro_torch.core import api, costmodel, grads, sparse
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_spawn import spawn  # noqa: E402
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 ELISION_CELLS = sorted((name, el) for name in costmodel.FAMILIES

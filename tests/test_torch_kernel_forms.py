@@ -22,6 +22,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
 from repro_torch.kernels.sddmm import sddmm_cuda, sddmm_plain
 from repro_torch.kernels.spmm import spmm_cuda, spmm_plain
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 F32, BF16 = torch.float32, torch.bfloat16

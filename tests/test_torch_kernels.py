@@ -21,6 +21,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fusedmm import fusedmm_cuda, fusedmm_plain
 from repro_torch.kernels.sddmm import sddmm_cuda, sddmm_plain
 from repro_torch.kernels.spmm import spmm_cuda, spmm_plain
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]

@@ -29,6 +29,7 @@ from repro_torch import config, convert
 from repro_torch.kernels import _build
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models import model as M
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 ARCH_MODULES = [
     "jamba_v01_52b", "stablelm_1_6b", "llama32_1b", "qwen3_1_7b",

@@ -11,6 +11,7 @@ import torch
 from repro.core import mtx as jmtx
 from repro.core import sparse as jsparse
 from repro_torch.core import api, mtx, sparse
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tiny.mtx")
 CPU = torch.device("cpu")

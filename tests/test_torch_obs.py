@@ -23,6 +23,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_spawn import join, save, spawn  # noqa: E402
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 FAMILIES = ("d15", "s15", "d25", "s25")
 M = N = 64

@@ -21,6 +21,7 @@ import types
 
 import numpy as np
 import pytest
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 M, N, R, NNZ_ROW, SEED = 256, 320, 64, 5, 0
 TILE = dict(row_tile=32, nz_block=32)

@@ -35,6 +35,7 @@ from repro_torch.apps import als, gat
 from repro_torch.core import api
 from repro_torch.distributed import faults
 from repro_torch.serving import batcher, server
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -35,6 +35,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 import _torch_spawn  # noqa: E402
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLD = 4

@@ -25,6 +25,7 @@ import types
 
 import numpy as np
 import pytest
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 M, N, R = 128, 96, 16

@@ -16,6 +16,7 @@ from repro.core import costmodel as jcost
 from repro.core import sparse as jsparse
 from repro_torch.core import costmodel as tcost
 from repro_torch.core import sparse as tsparse
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 

@@ -11,6 +11,7 @@ from repro.core import sparse_attention as jsa
 from repro.kernels import ops as jops
 from repro_torch.core import sparse_attention as sa
 from repro_torch.kernels import ops
+from _torch_spawn import one_intra_op_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 FIELDS = ("rows_local", "cols", "vals", "tile_base")

@@ -17,7 +17,7 @@ first steps move a parameter by about lr * sign(g), so a gradient within
 float noise of 0 may move it by up to 2 lr either way.)  World 4 also
 resumes on ``remesh(2, 1)`` from the checkpoint (``step == 6``, the
 losses those of 6 steps in one process, the two retired ranks raising
-``api.RankRetired``), refuses a ``model = 2`` mesh in the train step,
+``api.RankRetired``), runs the train step on a ``model = 2`` mesh,
 and world 2 runs the driver (``launch.train.main``) over both ranks.
 The single-process DeepSeek run with ``capacity_factor=1.0`` drops
 assignments, and its ``lm_loss`` is the reference's with the same
@@ -86,9 +86,9 @@ def _grads_seen(out):
     from repro_torch.training import optimizer as opt
     orig = opt.adamw_update
 
-    def spy(cfg, params, grads, state):
+    def spy(cfg, params, grads, state, **kw):
         out.append({k: v.detach().clone() for k, v in grads.items()})
-        return orig(cfg, params, grads, state)
+        return orig(cfg, params, grads, state, **kw)
     opt.adamw_update = spy
     try:
         yield out
@@ -127,10 +127,12 @@ def worker(rank, world, init, out_dir):
     import torch
     from repro_torch import config
     from repro_torch.core.api import RankRetired
+    from repro_torch.distributed import tensor_parallel
     from repro_torch.distributed.elastic import remesh
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train as ltrain
     from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
     _torch_spawn.join(rank, world, init)
     mesh = lmesh.make_local_mesh(device="cpu")
@@ -167,18 +169,19 @@ def worker(rank, world, init, out_dir):
             arrays.update({f"remesh/param/{n}": p.detach().numpy()
                            for n, p in model2.named_parameters()})
         torch.distributed.barrier()
-        # a model axis of 2: the mesh and its groups, then the refusal
+        # a model axis of 2: the mesh and its groups, then the llama
+        # steps on each rank's shards
         tp = lmesh.make_local_mesh(model=2, device="cpu")
         record["tp_mesh"] = [tp.axis_sizes["data"], tp.axis_sizes["model"],
                              torch.distributed.get_world_size(tp.data_group),
                              torch.distributed.get_world_size(
                                  tp.model_group)]
-        cfg = _cfg("repro_torch", "llama")
-        try:
-            ts.make_train_step(cfg, config.ParallelConfig(**PCFG_KW),
-                               config.TrainConfig(), tp)
-        except NotImplementedError as e:
-            record["tp_refused"] = str(e)
+        cfg, model, state, tcfg, pipe = _setup("llama")
+        tensor_parallel.shard_model(cfg, config.ParallelConfig(**PCFG_KW),
+                                    model, tp)
+        _, _, mets, _ = run_steps("llama", tp, state=(
+            cfg, model, opt.init_opt_state(model), tcfg, pipe))
+        record["tp_steps"] = mets
         grid = lmesh.sparse_grid_from_production(mesh, 2)
         record["sparse_grid"] = list(grid.shape)
     else:
@@ -276,11 +279,14 @@ def test_remesh_4_to_2_through_checkpoint(worlds, single):
             np.testing.assert_array_equal(a0[k], a1[k], err_msg=k)
 
 
-def test_model_axis_refused_and_meshes(worlds):
+def test_model_axis_refused_and_meshes(worlds, single):
+    """A (2, 2) mesh's groups; the train step runs on it (tensor
+    parallel over the model axis) and its first step's metrics match the
+    one-process run (tests/test_torch_tp.py holds the rest)."""
     for _, record in worlds(4):
         assert record["tp_mesh"] == [2, 2, 2, 2]
-        assert "model" in record["tp_refused"]
-        assert "ROADMAP" in record["tp_refused"]
+        _close_metrics(record["tp_steps"][:1], single["llama"][1][:1],
+                       DP_TOL)
         assert record["sparse_grid"] == [2, 2]
 
 

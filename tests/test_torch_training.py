@@ -486,22 +486,37 @@ def test_sanitize_and_fsdp_match_reference_rule_for_rule():
 
 
 def test_constrain_and_model_axis_refused():
-    """No mesh or a (data, 1) mesh: constrain is the identity; a mesh
-    with model > 1 raises, and so does make_train_step."""
+    """constrain is the identity, with or without a model axis; the
+    train step builds under a mesh with model > 1 (tests/test_torch_tp.py
+    runs it); serving under that mesh raises (decode and the serve
+    driver), naming the ROADMAP item, rather than run replicated."""
     import types
+    from repro_torch.launch import serve as lserve
+    from repro_torch.serving import decode
     x = torch.ones(2, 3)
     assert M.constrain(x, ("data",), None) is x
     cfg = reduced("repro_torch", "llama32_1b")
     tp = types.SimpleNamespace(axis_sizes={"data": 1, "model": 2},
-                               data_group=None)
+                               axis_names=("data", "model"), coords=(0, 0),
+                               data_group=None, model_group=None)
+    step, _, _ = ts.make_train_step(cfg, PCFG, config.TrainConfig(), tp)
+    assert callable(step)
+    model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
     sharding.set_mesh(tp)
     try:
+        assert M.constrain(x) is x
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.constrain(x)
+            decode.prefill(cfg, PCFG, model, {"tokens": tok})
+        cache = M.init_cache(cfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="serving"):
+            decode.decode_step(cfg, PCFG, model, {"tokens": tok[:, :1]},
+                               cache)
+        with pytest.raises(NotImplementedError, match="cache_specs"):
+            lserve.main(["--smoke", "--device", "cpu", "--batches", "1"])
     finally:
         sharding.set_mesh(None)
-    with pytest.raises(NotImplementedError, match="model"):
-        ts.make_train_step(cfg, PCFG, config.TrainConfig(), tp)
     assert M.batch_axes(jconfig.ParallelConfig(pod_axis="pod")) == \
         JM.batch_axes(jconfig.ParallelConfig(pod_axis="pod"))
 
