@@ -217,7 +217,22 @@ Phases, each printing one JSON line:
            DeepSeek-V2-Lite MoE layer expert-parallel (16 experts a
            card) under dispatch="spmm" against "einsum", every leaf
            within 1e-3, each card's 4 SpMM and 1 SDDMM launches and its
-           backward launches' ms, bound, plain and library ms;
+           backward launches' ms, bound, plain and library ms; then, on
+           four cards, FSDP over the data axis: (F1) qwen3-4b at (data 4,
+           model 1) through launch.train.main --fsdp --remat full (the
+           sharded init, its peak held to the shards plus one whole
+           leaf), seq 512 x batch 8, 4 steps and a checkpoint, each
+           card's init and step peaks, step ms, tokens a second, the
+           data group's gathers and reduce-scatters in the last step
+           (ms, GB/s), step 0's loss against the whole model's forward on
+           card 0 within 1e-5, then 2 steps without remat (their losses
+           equal, the peak); (F2) llama3.2-1b's (2, 2) -> (1, 2) remesh
+           flow with FSDP and remat against the flow without them, each
+           loss within 1e-5, step 0 equal; (F3) the DeepSeek-V2-Lite MoE
+           layer with its leaves split over the four cards, one row each,
+           dispatch="spmm" against "einsum" within 1e-3, each card's 4
+           bulk SpMM and 1 load SDDMM (6 and 1 under remat, its grads
+           equal), the backward launches' ms, bound, plain and library;
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -278,7 +293,11 @@ Phases, each printing one JSON line:
            shares' sum forward and backward against the whole layer,
            every leaf within 1e-3, 16 bulk SpMM and 4 SDDMM launches
            counted, each share's three backward launches against their
-           plain versions with bound, plain and library ms.
+           plain versions with bound, plain and library ms; (E)
+           llama3.2-1b at full width, depth cut to 2 layers, through
+           launch.train.main: 2 steps with --remat full against 2
+           without, the losses and every gradient leaf equal bit for
+           bit, each run's memory peak.
 
 Then a ``{"kernels": [...]}`` line, each card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
@@ -293,7 +312,8 @@ dist phase's R-MAT cells for rehearsals; ``--dist-serving-only`` runs
 the dist phase's serving cells alone, ``--dist-train-only`` its train
 cells alone, ``--dist-tp-only`` its tensor-parallel cells alone (four
 cards), ``--dist-tp-sums-only`` the model group's sum in its two forms
-alone (four cards);
+alone (four cards), ``--dist-fsdp-only`` its FSDP cells alone (four
+cards);
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -3006,6 +3026,15 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
     elif only in ("tp", "tp_sums"):
         raise AssertionError(f"dist tp: the cells need {DIST_TP_WORLD} "
                              f"cards, {world} visible")
+    if only in (None, "fsdp") and world == DIST_TP_WORLD:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dist rank {rank}: the FSDP cells start at "
+            f"+{time.perf_counter() - t_rank:.1f} s")
+        report["fsdp"] = dist_fsdp(torch, dist, ck, rank, world, out_dir)
+    elif only == "fsdp":
+        raise AssertionError(f"dist fsdp: the cells need {DIST_TP_WORLD} "
+                             f"cards, {world} visible")
     report["checks"] = ck.n
     return report
 
@@ -4031,14 +4060,20 @@ def _llama_cut(layers):
                                segments=((sb, layers),))
 
 
-def dist_train_steps(torch, dist, cfg, mesh, model, state, steps, dev):
+def dist_train_steps(torch, dist, cfg, mesh, model, state, steps, dev,
+                     pcfg=None):
     """``steps`` train steps of ``cfg`` on this rank's rows of the global
-    batch, every rank's parameters compared after each; returns each
-    step's metrics and ms (host clock, the card synchronised)."""
+    batch, every rank's parameters compared after each (those FSDP does
+    not split); returns each step's metrics and ms (host clock, the card
+    synchronised)."""
+    import types
     from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.distributed import tensor_parallel as tpm
     from repro_torch.training import data as D
     from repro_torch.training import train_step as ts
-    pcfg = ParallelConfig(compute_dtype="float32")
+    pcfg = pcfg or ParallelConfig(compute_dtype="float32")
+    same = types.SimpleNamespace(parameters=lambda: iter(
+        [p for p in model.parameters() if tpm.fsdp_dim(p) is None]))
     tcfg = TrainConfig(seq_len=DIST_TRAIN_SEQ, global_batch=DIST_TRAIN_BATCH,
                        steps=100)
     step, _, _ = ts.make_train_step(cfg, pcfg, tcfg, mesh)
@@ -4054,7 +4089,7 @@ def dist_train_steps(torch, dist, cfg, mesh, model, state, steps, dev):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if mesh is not None and mesh.data_group is not None:
-            _same_on_ranks(torch, dist, param_prints(torch, model),
+            _same_on_ranks(torch, dist, param_prints(torch, same),
                            mesh.data_group, f"dist train step {i} params")
         out.append(dict({k: float(v) for k, v in m.items()}, step=i, ms=ms,
                         rows=[lo, hi]))
@@ -4200,22 +4235,26 @@ DIST_TP_LOSS_TOL = 1e-5   # qwen3-4b's step 0 loss against one card, absolute
 #: (batch x seq x d, the largest) and a small one (d; both split on dim 0)
 DIST_TP_SUM_SHAPES = {"residual": (8, 512, 2560), "norm_grad": (2560,)}
 DIST_TP_SUM_REPS = 20
+DIST_FSDP_FLOW_TOL = 1e-5   # (F2): each loss against the flow without FSDP
 
 
 @contextlib.contextmanager
-def timed_model_sums(torch, rec):
+def timed_model_sums(torch, rec, when=None):
     """The model group's collectives (``tensor_parallel.TP``'s ordered
-    sum, gather and reduce-scatter) timed, the card synchronised around
-    each outermost call: (kind, ms, bytes of this rank's part, bytes it
-    received) into ``rec``.  A call made inside another (a sum's
-    reduce-scatter and gather) adds what it received to the outer one's
-    record."""
+    sum, gather and reduce-scatter; FSDP's on the data group) timed, the
+    card synchronised around each outermost call: (kind, ms, bytes of
+    this rank's part, bytes it received) into ``rec``.  A call made
+    inside another (a sum's reduce-scatter and gather) adds what it
+    received to the outer one's record.  ``when``: time only while it
+    returns True (the other calls run untouched)."""
     from repro_torch.distributed import tensor_parallel as tpm
     inner = []
 
     def wrap(kind):
         def outer(orig):
             def call(self, x, *a):
+                if when is not None and not when():
+                    return orig(self, x, *a)
                 top = not inner
                 if top:
                     torch.cuda.synchronize()
@@ -4260,7 +4299,7 @@ def model_sum_report(rec):
     return out
 
 
-def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
+def dist_tp_qwen(torch, dist, ck, rank, world, out_dir, fsdp=False):
     """qwen3-4b at full width and depth on the model axis (data 1, model
     4) through launch.train.main, seq 512 x batch 8, 4 steps and a
     checkpoint: every loss and grad norm finite, the replicated leaves
@@ -4268,7 +4307,12 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
     sharding and while the checkpoint's whole leaves are gathered, the
     save's seconds, the model group's sums; on card 0, step 0's loss
     against a forward of the same weights and batch whole on that card
-    (17.6 GB of float32 weights) within DIST_TP_LOSS_TOL."""
+    (17.6 GB of float32 weights) within DIST_TP_LOSS_TOL.  ``fsdp``: the
+    same on the data axis (data 4, model 1) with ``--fsdp --remat
+    full`` (the sharded init, its peak held to the shards and one whole
+    leaf; the data group's gathers and reduce-scatters in place of the
+    model group's sums, timed in the last step alone, which the median
+    step leaves out)."""
     import gc
     import shutil
     import types
@@ -4319,14 +4363,29 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
             held["after_shard_gib"] = torch.cuda.memory_allocated() / 2**30
             return out
         return shard
+    from repro_torch.distributed.elastic import StepMonitor
+    done = [0]
+
+    def counted(orig):
+        def observe(self, step, seconds):
+            done[0] += 1
+            return orig(self, step, seconds)
+        return observe
+    # under FSDP a step makes about a thousand collectives: time them in
+    # the last step alone, so that the others' ms are the step's own
+    when = (lambda: done[0] == DIST_TP_STEPS - 1) if fsdp else None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     argv = ["--steps", str(DIST_TP_STEPS), "--seq", str(DIST_TP_SEQ),
-            "--batch", str(DIST_TP_BATCH), "--model-parallel", str(world),
-            "--log-every", "1", "--ckpt-dir", str(ck_dir)]
-    with patched(tpm, "shard_model", settle), \
+            "--batch", str(DIST_TP_BATCH), "--log-every", "1",
+            "--ckpt-dir", str(ck_dir)]
+    argv += (["--fsdp", "--remat", "full"] if fsdp
+             else ["--model-parallel", str(world)])
+    with patched(M, "init_sharded", settle), \
             patched(tpm, "full_tree", gathered), \
-            patched(ckpt, "save", written), timed_model_sums(torch, sums):
+            patched(ckpt, "save", written), \
+            patched(StepMonitor, "observe", counted), \
+            timed_model_sums(torch, sums, when):
         rec = lm_train(torch, cfg, argv)
     wall = time.perf_counter() - t0
     peak = held["train_peak_gib"]
@@ -4337,11 +4396,24 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
         ck.n += 1
         shutil.rmtree(ck_dir)
     lines, model = rec["lines"], rec["model"]
+    # a card held its shards and one whole leaf at most (the mesh splits
+    # over one axis, so a split leaf is whole at ``world`` shards)
+    largest = max(p.numel() * world if tpm.fsdp_dim(p) is not None
+                  or tpm.shard_dim(p) is not None else p.numel()
+                  for p in model.parameters()) * 4
+    held["largest_leaf_gib"] = largest / 2**30
+    if held["init_peak_gib"] > (held["after_shard_gib"]
+                                + largest / 2**30) * 1.01:
+        raise AssertionError(f"dist tp qwen3-4b: the init's peak "
+                             f"{held['init_peak_gib']:.3f} GiB beyond "
+                             f"shards plus one whole leaf")
+    ck.n += 1
     if [ln["step"] for ln in lines] != list(range(DIST_TP_STEPS)) or not all(
             np.isfinite(ln["loss"]) and np.isfinite(ln["grad_norm"])
             for ln in lines) or int(rec["state"]["step"]) != DIST_TP_STEPS:
         raise AssertionError(f"dist tp qwen3-4b: {lines}")
-    whole = [p for p in model.parameters() if tpm.shard_dim(p) is None]
+    whole = [p for p in model.parameters() if tpm.shard_dim(p) is None
+             and tpm.fsdp_dim(p) is None]
     prints = param_prints(torch, types.SimpleNamespace(
         parameters=lambda: iter(whole)))
     _same_on_ranks(torch, dist, prints, None,
@@ -4349,8 +4421,10 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
     n_local = sum(p.numel() for p in model.parameters())
     ck.n += 2
     step_ms = [t * 1e3 for t in rec["step_s"]]
-    med = statistics.median(step_ms[1:])
-    report = {"arch": cfg.name, "mesh": [1, world], "seq": DIST_TP_SEQ,
+    med = statistics.median(step_ms[1:-1] if fsdp else step_ms[1:])
+    timed = 1 if fsdp else len(lines)
+    report = {"arch": cfg.name, "mesh": [world, 1] if fsdp else [1, world],
+              "seq": DIST_TP_SEQ,
               "batch": DIST_TP_BATCH,
               "params": cfg.param_count(), "params_this_card": n_local,
               "replicated_leaves": len(whole), "lines": lines,
@@ -4358,8 +4432,8 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
               "tokens_per_s": DIST_TP_BATCH * DIST_TP_SEQ / med * 1e3,
               "peak_gib": peak,
               **held, "model_sums": model_sum_report(sums),
-              "sums_per_step": len(sums) / len(lines), "wall_s": wall}
-    if len(sums) % len(lines) == 0:     # each step makes the same calls
+              "sums_per_step": len(sums) / timed, "wall_s": wall}
+    if not fsdp and len(sums) % len(lines) == 0:   # the same calls a step
         per = len(sums) // len(lines)
         report["model_sums_by_step"] = [
             model_sum_report(sums[i * per:(i + 1) * per])
@@ -4393,12 +4467,13 @@ def dist_tp_qwen(torch, dist, ck, rank, world, out_dir):
     return report
 
 
-def dist_tp_elastic(torch, dist, ck, rank, world, out_dir):
+def dist_tp_elastic(torch, dist, ck, rank, world, out_dir, fsdp=False):
     """check_elastic.py's flow at full width and depth: llama3.2-1b on
     (data 2, model 2), DIST_TRAIN_BATCH x DIST_TRAIN_SEQ, 3 steps (the
     data replicas' shards equal bit for bit after each), a checkpoint of
     whole leaves, remesh(2, model_parallel=2) and 3 more steps on (1, 2)
-    (step == 6), the other ranks retired."""
+    (step == 6), the other ranks retired.  ``fsdp``: the leaves split
+    over the data axis too and remat "full"."""
     from repro_torch.config import ParallelConfig, get_config
     from repro_torch.core.api import RankRetired
     from repro_torch.distributed import tensor_parallel as tpm
@@ -4410,26 +4485,26 @@ def dist_tp_elastic(torch, dist, ck, rank, world, out_dir):
     from repro_torch.training import optimizer as opt
     (dd, mm), (n2, m2), steps = DIST_TP_ELASTIC
     cfg = get_config("llama3.2-1b")
-    pcfg = ParallelConfig(compute_dtype="float32")
+    pcfg = ParallelConfig(compute_dtype="float32",
+                          remat="full" if fsdp else "none")
     dev = torch.device("cuda", rank)
     t0 = time.perf_counter()
 
     def fresh(mesh):
         g = torch.Generator(device=dev).manual_seed(0)
-        model = tpm.shard_model(cfg, pcfg, M.init_params(cfg, g, device=dev),
-                                mesh)
+        model = M.init_sharded(cfg, pcfg, g, mesh, fsdp=fsdp, device=dev)
         torch.cuda.empty_cache()
         return model, opt.init_opt_state(model)
     mesh = lmesh.make_local_mesh(dd, mm, device=dev)
     model, state = fresh(mesh)
     torch.cuda.reset_peak_memory_stats()
     before = dist_train_steps(torch, dist, cfg, mesh, model, state,
-                              range(steps), dev)
+                              range(steps), dev, pcfg)
     report = {"arch": cfg.name, "mesh": [dd, mm], "steps": before,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     t1 = time.perf_counter()
     tree = tpm.full_tree(model, state, mesh, keep=rank == 0)
-    ck_dir = pathlib.Path(out_dir) / "tp_ckpt"
+    ck_dir = pathlib.Path(out_dir) / ("fsdp_ckpt" if fsdp else "tp_ckpt")
     if rank == 0:
         ckpt.save(str(ck_dir), steps, tree)
     del tree, model, state
@@ -4447,7 +4522,7 @@ def dist_tp_elastic(torch, dist, ck, rank, world, out_dir):
             str(ck_dir), steps, tpm.full_shapes(model, state)))
         restore_s = time.perf_counter() - t1
         after = dist_train_steps(torch, dist, cfg, mesh2, model, state,
-                                 range(steps, 2 * steps), dev)
+                                 range(steps, 2 * steps), dev, pcfg)
         if int(state["step"]) != 2 * steps:
             raise AssertionError(f"dist tp remesh: step "
                                  f"{int(state['step'])}")
@@ -4578,6 +4653,221 @@ def dist_tp_sum_forms(torch, dist, ck, rank, world, reps):
     return out
 
 
+#: (F3)'s launches a card: a counted forward and backward, and the same
+#: under remat (the recompute launches the dispatch and combine again)
+DIST_FSDP_MOE_LAUNCHES = {
+    "none": {"spmm": {"bulk": 4}, "sddmm": {"load": 1}},
+    "full": {"spmm": {"bulk": 6}, "sddmm": {"load": 1}}}
+
+
+def dist_fsdp_moe(torch, dist, ck, rank, world, reps):
+    """(F3) one DeepSeek-V2-Lite MoE layer at full width under FSDP over
+    the four cards (data 4, model 1): every leaf the config's placement
+    splits (``sharding.fsdp_dims`` of the stacked MoE layer: the experts,
+    the router, the shared experts) holds this card's shard and is
+    gathered before use; each card takes one row of LM_MOE_TOKENS,
+    routed over the data group.  Forward and backward under
+    dispatch="spmm" against "einsum", every gradient shard and the
+    input's gradient within TRAIN_LM_MOE_TOL of its largest magnitude;
+    the same under remat (``torch.utils.checkpoint``) equal to the pass
+    without it bit for bit; each card's launches and forms of a counted
+    pass held to DIST_FSDP_MOE_LAUNCHES; the backward's launches at the
+    layer's shapes against bound, plain and library.  Returns (report,
+    launches)."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.training import train_step as ts
+    cut, full = deepseek_cut()
+    pcfg = ParallelConfig(compute_dtype="float32")
+    mesh = lmesh.make_local_mesh(world, 1, device=torch.device("cuda", rank))
+    fs = fsdp.of_mesh(mesh, pcfg)
+    dims = sharding.fsdp_dims(full, pcfg, M.empty_model(full), mesh)
+    prefix = "segments.1.0.blk0.moe."
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = MOE.MoE(L.Init(g, torch.float32, "cuda"), cut)
+    B, S = LM_MOE_TOKENS
+    x = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    proj = torch.randn((B, S, cut.d_model), generator=g, device="cuda")
+    split = {}
+    for n, p in list(layer.named_parameters()):
+        d = dims[prefix + n]
+        if d is None:
+            continue
+        owner, leaf = tpm._owner(layer, n)
+        part = torch.nn.Parameter(tpm.local_part(p.data, d, rank,
+                                                 world).clone())
+        part.fsdp_dim = d
+        owner._parameters[leaf] = part
+        split[n] = d
+    if not {"w1", "w3", "w2"} <= set(split):
+        raise AssertionError(f"dist fsdp moe: the experts are not split: "
+                             f"{split}")
+    torch.cuda.empty_cache()
+    leaves = dict(layer.named_parameters())
+    xr, pr = x[rank:rank + 1].contiguous(), proj[rank:rank + 1].contiguous()
+
+    def step(dispatch, remat="none"):
+        for p in leaves.values():
+            p.grad = None
+        xx = xr.clone().requires_grad_(True)
+
+        def run(xx):
+            out, aux = MOE.moe(cut, pcfg, fsdp.gathered(layer, fs), xx,
+                               dispatch=dispatch, group=mesh.data_group)
+            return out, aux["lb_loss"]
+        out, aux = (run(xx) if remat == "none"
+                    else checkpoint(run, xx, use_reentrant=False))
+        ((out * pr).sum() + TRAIN_LM_AUX * aux).backward()
+        ts.ordered_sum([p.grad for p in leaves.values()
+                        if tpm.fsdp_dim(p) is None], mesh.data_group)
+        return {"x": xx.grad, **{k: p.grad for k, p in leaves.items()}}
+
+    want = {k: v.clone() for k, v in step("einsum").items()}
+    launches, forms, got = {}, {}, {}
+    for remat in ("none", "full"):
+        ops.reset_launch_counts()
+        got[remat] = {k: v.clone() for k, v in step("spmm", remat).items()}
+        torch.cuda.synchronize()
+        launches[remat], forms[remat] = (ops.launch_counts(),
+                                         ops.form_counts())
+        pred = DIST_FSDP_MOE_LAUNCHES[remat]
+        seen = {k: dict(forms[remat][k]) for k in pred}
+        if seen != pred or launches[remat]["fusedmm"] != 0:
+            raise AssertionError(f"dist fsdp moe ({remat}): expected "
+                                 f"{pred}, got {launches[remat]} "
+                                 f"{forms[remat]}")
+        ck.n += 1
+    errs = _leaf_check(ck, got["none"], want, TRAIN_LM_MOE_TOL,
+                       f"dist fsdp moe card {rank} spmm vs einsum")
+    for k, v in got["none"].items():
+        if not torch.equal(v, got["full"][k]):
+            raise AssertionError(f"dist fsdp moe: {k} differs under remat")
+    ck.n += 1
+    gathers = []
+    with timed_model_sums(torch, gathers):
+        step("spmm")
+    with torch.no_grad():
+        view = fsdp.gathered(layer, fs)
+        kernels = train_lm_moe_kernels(torch, ck, cut, view, xr, pr, reps,
+                                       group=mesh.data_group)
+        del view
+    report = {"split": split, "tokens_this_card": S,
+              "tokens": B * S, "launches": launches["none"],
+              "forms": forms["none"], "remat_launches": launches["full"],
+              "remat_forms": forms["full"], "leaf_err": errs,
+              "spmm_ms": time_ms(torch, lambda: step("spmm"), reps),
+              "einsum_ms": time_ms(torch, lambda: step("einsum"), reps),
+              "spmm_remat_ms": time_ms(torch, lambda: step("spmm", "full"),
+                                       reps),
+              "data_sums": model_sum_report(gathers),
+              "kernels": kernels}
+    for p in leaves.values():
+        p.grad = None
+    del layer, leaves, got, want
+    torch.cuda.empty_cache()
+    return report, launches["none"]
+
+
+def dist_fsdp_no_remat(torch, ck, qwen):
+    """(F1') qwen3-4b at (4, 1) through launch.train.main --fsdp without
+    remat, 2 steps, no checkpoint: the blocks' gathered leaves that their
+    backward reads stay alive until it runs, so each card's peak holds
+    every block's whole leaves; its step ms beside (F1)'s; both steps'
+    losses equal (F1)'s bit for bit."""
+    import gc
+    from repro_torch.config import get_config
+    cfg = get_config("qwen3-4b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = lm_train(torch, cfg, ["--steps", "2", "--seq", str(DIST_TP_SEQ),
+                                "--batch", str(DIST_TP_BATCH),
+                                "--log-every", "1", "--fsdp"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [ln["loss"] for ln in rec["lines"]]
+    if losses != [ln["loss"] for ln in qwen["lines"][:2]]:
+        raise AssertionError(f"dist fsdp qwen3-4b without remat: losses "
+                             f"{losses}, with remat {qwen['lines'][:2]}")
+    ck.n += 1
+    out = {"losses": losses, "peak_gib": peak,
+           "step_ms": [t * 1e3 for t in rec["step_s"]]}
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_fsdp(torch, dist, ck, rank, world, out_dir):
+    """FSDP over the data axis on DIST_TP_WORLD cards: (F1) qwen3-4b at
+    (4, 1) through launch.train.main --fsdp --remat full, then 2 steps
+    without remat; (F2)
+    llama3.2-1b's remesh flow at (2, 2) with FSDP and remat against the
+    same flow without either; (F3) the DeepSeek-V2-Lite MoE layer's
+    leaves split, its SpMM and SDDMM launched."""
+    import gc
+    t0 = time.perf_counter()
+    out = {"qwen": dist_tp_qwen(torch, dist, ck, rank, world, out_dir,
+                                fsdp=True)}
+    out["seconds_qwen"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qwen_no_remat"] = dist_fsdp_no_remat(torch, ck, out["qwen"])
+    out["seconds_qwen_no_remat"] = time.perf_counter() - t0
+    flows = {k: dist_tp_elastic(torch, dist, ck, rank, world, out_dir,
+                                fsdp=k == "fsdp")
+             for k in ("plain", "fsdp")}
+    a, b = flows["plain"], flows["fsdp"]
+    la = [ln["loss"] for ln in a["steps"] + a["remesh"].get("steps", [])]
+    lb = [ln["loss"] for ln in b["steps"] + b["remesh"].get("steps", [])]
+    if len(la) != len(lb) or la[0] != lb[0] or max(
+            abs(u - v) for u, v in zip(la, lb)) > DIST_FSDP_FLOW_TOL:
+        raise AssertionError(f"dist fsdp remesh: losses {lb} against "
+                             f"{la} without FSDP")
+    ck.n += 1
+    out["elastic"] = dict(b, plain=a, loss_err=max(
+        abs(u - v) for u, v in zip(la, lb)))
+    out["seconds_elastic"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"], out["launches"] = dist_fsdp_moe(torch, dist, ck, rank,
+                                                world, 3)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dist_fsdp_report(ranks, world):
+    """Rank 0's FSDP record with each card's peaks, step ms, the data
+    group's gathers and reduce-scatters, and the MoE layer's launches
+    and kernel times; the remesh outcomes checked."""
+    rep = dict(ranks[0]["fsdp"])
+    outs = [rr["fsdp"]["elastic"]["remesh"]["outcome"] for rr in ranks]
+    n2 = DIST_TP_ELASTIC[1][0]
+    if outs != ["recovered"] * n2 + ["retired"] * (world - n2):
+        raise AssertionError(f"dist fsdp remesh: outcomes {outs}")
+    rep["cards"] = [{
+        "rank": rr["rank"],
+        **{f"qwen_{k}": rr["fsdp"]["qwen"][k] for k in (
+            "init_peak_gib", "after_shard_gib", "peak_gib", "save_peak_gib",
+            "save_gather_s", "step_ms", "model_sums")},
+        "qwen_no_remat_peak_gib": rr["fsdp"]["qwen_no_remat"]["peak_gib"],
+        "qwen_no_remat_step_ms": rr["fsdp"]["qwen_no_remat"]["step_ms"],
+        "elastic_peak_gib": rr["fsdp"]["elastic"]["peak_gib"],
+        "elastic_loss_err": rr["fsdp"]["elastic"]["loss_err"],
+        "moe_launches": rr["fsdp"]["moe"]["launches"],
+        "moe_remat_launches": rr["fsdp"]["moe"]["remat_launches"],
+        "moe_leaf_err": max(rr["fsdp"]["moe"]["leaf_err"].values()),
+        "moe_kernels": rr["fsdp"]["moe"]["kernels"]}
+        for rr in ranks]
+    return rep
+
+
 def dist_tp(torch, dist, ck, rank, world, out_dir):
     """The tensor-parallel cells on DIST_TP_WORLD cards: the model group's
     sum in its two forms, qwen3-4b through launch.train.main on the model
@@ -4647,9 +4937,10 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
                apps_scale: int, only: str | None = None):
     """One process per visible card over NCCL (``dist_rank``); fails if
     a rank fails or any outlives DIST_TIMEOUT_S (all are stopped).
-    ``only``: "serving" or "train" runs those cells alone (a cheaper
-    rehearsal).  Returns (a rank's d15 launches, each rank's serving
-    launches), None where the cells did not run."""
+    ``only``: "serving", "train", "tp", "tp_sums" or "fsdp" runs those
+    cells alone (a cheaper rehearsal).  Returns (a rank's d15 launches,
+    each rank's serving launches, each rank's tensor-parallel and FSDP
+    MoE launches), None where the cells did not run."""
     import multiprocessing
     import signal
     import tempfile
@@ -4727,10 +5018,13 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
             for rr in ranks])
     if only in (None, "train"):
         report["train"] = dist_train_report(ranks, world)
-    tp_launches = None
+    tp_launches = fsdp_launches = None
     if only in (None, "tp") and world == DIST_TP_WORLD:
         report["tp"] = dist_tp_report(ranks, world)
         tp_launches = [rr["tp"]["launches"] for rr in ranks]
+    if only in (None, "fsdp") and world == DIST_TP_WORLD:
+        report["fsdp"] = dist_fsdp_report(ranks, world)
+        fsdp_launches = [rr["fsdp"]["launches"] for rr in ranks]
     if only == "tp_sums":
         report["tp_sums"] = [rr["tp_sums"] for rr in ranks]
     if world > 1 and only is None:
@@ -4756,7 +5050,8 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
     emit(report)
     return (None if only else ranks[0]["problems"]["d15"]["launches"],
             [rr["serving"]["launches"] for rr in ranks]
-            if only in (None, "serving") else None, tp_launches)
+            if only in (None, "serving") else None, tp_launches,
+            fsdp_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -5598,7 +5893,7 @@ def lm_train(torch, cfg, argv):
 
     out = io.StringIO()
     with contextlib.ExitStack() as st:
-        st.enter_context(patched(M, "init_params", keep("model")))
+        st.enter_context(patched(M, "init_sharded", keep("model")))
         st.enter_context(patched(opt, "init_opt_state", keep("state")))
         st.enter_context(patched(StepMonitor, "observe", timing))
         st.enter_context(patched(train, "resolve_config",
@@ -5702,6 +5997,56 @@ def train_lm_resume(torch, ck):
     return report
 
 
+def train_lm_remat(torch, ck):
+    """(E) llama3.2-1b at full width, depth cut to TRAIN_LM_CUT_LAYERS,
+    through launch.train.main: 2 steps with --remat full against 2
+    without, every loss and every gradient leaf the optimizer is given
+    equal bit for bit; each run's memory peak and step ms."""
+    from repro_torch.training import optimizer as opt
+    cut = _llama_cut(TRAIN_LM_CUT_LAYERS)
+    t0 = time.perf_counter()
+    runs = {}
+    for remat in ("none", "full"):
+        seen = []
+
+        def spy(orig, seen=seen):
+            def update(cfg_, params, grads, state, **kw):
+                seen.append({k: v.detach().clone() for k, v in grads.items()})
+                return orig(cfg_, params, grads, state, **kw)
+            return update
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with patched(opt, "adamw_update", spy):
+            rec = lm_train(torch, cut, ["--steps", "2", "--log-every", "1",
+                                        "--remat", remat])
+        runs[remat] = {"losses": [ln["loss"] for ln in rec["lines"]],
+                       "grads": seen,
+                       "step_ms": [t * 1e3 for t in rec["step_s"]],
+                       "peak_gib": (torch.cuda.max_memory_allocated()
+                                    - held) / 2**30}
+        del rec
+    a, b = runs["none"], runs["full"]
+    if a["losses"] != b["losses"] or len(a["losses"]) != 2:
+        raise AssertionError(f"train_lm (E): losses {a['losses']} without "
+                             f"remat, {b['losses']} with")
+    ck.n += 1
+    for i, (ga, gb) in enumerate(zip(a["grads"], b["grads"])):
+        for k, g in ga.items():
+            if not torch.equal(g, gb[k]):
+                raise AssertionError(f"train_lm (E): step {i} gradient {k} "
+                                     f"differs under remat")
+    ck.n += 1
+    report = {"cut": cut.name, "steps": 2, "losses": a["losses"],
+              "leaves": len(a["grads"][0]),
+              **{f"{r}_{k}": v[k] for r, v in runs.items()
+                 for k in ("peak_gib", "step_ms")},
+              "seconds": time.perf_counter() - t0}
+    del runs, a, b
+    torch.cuda.empty_cache()
+    return report
+
+
 def _leaf_check(ck, got, want, tol, what):
     """Each leaf of ``got`` within ``tol`` of the largest magnitude of
     the same leaf of ``want``; returns {leaf: error / that magnitude}."""
@@ -5723,10 +6068,11 @@ def _leaf_check(ck, got, want, tol, what):
 
 
 def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps, rank=0,
-                         shares=1):
+                         shares=1, group=None):
     """The dispatch backward's three launches at the layer's shapes (of
     expert-parallel share ``rank`` of ``shares``: its experts' slots,
-    ``moe.moe_share``): dx = D^T dbuf and dy = G^T dout (SpMM), d(gate)
+    ``moe.moe_share``; routed over the data-parallel ``group``, as the
+    layer's tokens are): dx = D^T dbuf and dy = G^T dout (SpMM), d(gate)
     (SDDMM on G's pattern): each kernel against its plain version, its
     ms, bound, plain ms and the library call's ms."""
     from repro_torch.kernels import ops
@@ -5735,7 +6081,7 @@ def train_lm_moe_kernels(torch, ck, cfg, layer, x, dout, reps, rank=0,
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     with torch.no_grad():
-        _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf)
+        _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf, group)
     m = E // shares * C
     lo = rank * m
     keep = keep & (slot >= lo) & (slot < lo + m)
@@ -6008,8 +6354,9 @@ def phase_train_lm(torch, reps: int):
     against the CPU, (A) llama3.2-1b at full width and depth through
     launch.train.main, (A2) exact resume at full width (depth cut), (B)
     the MoE SpMM dispatch's backward at DeepSeek-V2-Lite's width, (D)
-    that layer's expert-parallel shares in turn.  Returns the launches
-    of (B)'s and of (D)'s counted forward and backward."""
+    that layer's expert-parallel shares in turn, (E) remat against none
+    bit for bit.  Returns the launches of (B)'s and of (D)'s counted
+    forward and backward."""
     ck = Checker(torch)
     t0 = time.perf_counter()
     report = {"phase": "train_lm", "device": torch.cuda.get_device_name(0),
@@ -6022,6 +6369,8 @@ def phase_train_lm(torch, reps: int):
     report["moe"], launches = train_lm_moe(torch, ck, reps)
     report["seconds_moe"] = time.perf_counter() - t0
     report["tp_shares"], tp_launches = train_lm_tp_shares(torch, ck, reps)
+    report["seconds_tp_shares"] = time.perf_counter() - t0
+    report["remat"] = train_lm_remat(torch, ck)
     report.update(launches=launches, tp_launches=tp_launches, checks=ck.n,
                   seconds=time.perf_counter() - t0)
     emit(report)
@@ -6047,6 +6396,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-tp-sums-only", action="store_true",
                     help="the dist phase times the model group's sum in "
                          "its two forms alone (four cards)")
+    ap.add_argument("--dist-fsdp-only", action="store_true",
+                    help="the dist phase runs its FSDP cells alone (four "
+                         "cards)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -6063,6 +6415,7 @@ def main(argv=None) -> int:
     serving_launches, obs_launches, dist_serving_launches = None, None, None
     lm_launches, train_lm_launches = None, None
     train_lm_tp_launches, dist_tp_launches = None, None
+    dist_fsdp_launches = None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -6092,14 +6445,16 @@ def main(argv=None) -> int:
             serving_launches = phase_serving(torch, args.scale,
                                              args.apps_scale)
         elif ph == "dist":
-            dist_launches, dist_serving_launches, dist_tp_launches = \
-                phase_dist(torch, args.scale, args.reps, args.comm_scale,
-                           args.apps_scale,
-                           "serving" if args.dist_serving_only
-                           else "train" if args.dist_train_only
-                           else "tp" if args.dist_tp_only
-                           else "tp_sums" if args.dist_tp_sums_only
-                           else None)
+            (dist_launches, dist_serving_launches, dist_tp_launches,
+             dist_fsdp_launches) = phase_dist(
+                torch, args.scale, args.reps, args.comm_scale,
+                args.apps_scale,
+                "serving" if args.dist_serving_only
+                else "train" if args.dist_train_only
+                else "tp" if args.dist_tp_only
+                else "tp_sums" if args.dist_tp_sums_only
+                else "fsdp" if args.dist_fsdp_only
+                else None)
         elif ph == "rmat_padding":
             phase_rmat_padding(torch, args.comm_scale - 2)
         elif ph == "train":
@@ -6144,6 +6499,9 @@ def main(argv=None) -> int:
             row["dist_tp_launches"] = (
                 None if dist_tp_launches is None
                 else [rk[row["name"]] for rk in dist_tp_launches])
+            row["dist_fsdp_launches"] = (
+                None if dist_fsdp_launches is None
+                else [rk[row["name"]] for rk in dist_fsdp_launches])
         emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

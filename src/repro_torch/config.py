@@ -141,8 +141,12 @@ class ParallelConfig:
     The port executes a mesh's data axis and, for training, its model
     axis (``distributed/tensor_parallel.py``, which also reads
     ``seq_parallel``; ``dp_over_model`` turns that axis into data
-    parallelism).  ``remat``, ``scan_layers`` and ``shard_embed_data``
-    are kept with the reference's defaults, and nothing reads them.
+    parallelism) and FSDP over the data axis (``distributed/fsdp.py``).
+    The training forward (``models.model._forward_tp``) reads ``remat``:
+    "full" and "dots" alike run each block under
+    ``torch.utils.checkpoint``.  ``scan_layers`` and
+    ``shard_embed_data`` are kept with the reference's defaults, and
+    nothing reads them.
     """
     data_axis: str = "data"
     model_axis: str = "model"

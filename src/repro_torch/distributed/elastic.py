@@ -12,7 +12,10 @@ Port of ``repro.distributed.elastic``.
   silent restores, so those propagate on the first attempt.
 * **Re-planning** of a distributed problem onto a degraded grid lives in
   ``repro_torch.core.api.degrade``; :func:`remesh` makes the LM zoo's
-  ``(data, model)`` mesh (``launch/mesh.py``) over fewer ranks.
+  ``(data, model)`` mesh (``launch/mesh.py``) over fewer ranks; a
+  checkpoint of whole leaves (``tensor_parallel.full_tree``) restores
+  onto its shards over both axes, with or without FSDP
+  (``launch.train.load_tree``).
 * **Straggler mitigation** -- :class:`StepMonitor` tracks a rolling
   median of step times; a step exceeding ``straggler_factor`` x median
   is flagged: its id accumulates in ``monitor.flagged`` and the hook

@@ -12,7 +12,11 @@ production launcher must rather than crash).
 
 ``fsdp_extend_spec`` is ZeRO-3/FSDP's placement: each parameter (and
 its optimizer moments) additionally shards one free, divisible dimension
-over the data axis.
+over the data axis.  :func:`fsdp_specs` applies it as the reference's
+training dry run does (to the *stacked* leaf, a repeating segment's
+scan axis in front, then sanitized) and drops the scan entry;
+:func:`fsdp_dims` is the dimension of each of the port's leaves that
+the data axis splits (``distributed/fsdp.py`` executes it).
 
 A tree is nested dicts, lists and tuples with a P or a shaped leaf
 (anything with ``.shape``) at each leaf; a spec tree and its shape tree
@@ -91,6 +95,37 @@ def fsdp_extend_tree(spec_tree, shape_tree, axis_sizes, data_axis):
     return _map(lambda s, shape: fsdp_extend_spec(s, shape, axis_sizes,
                                                   data_axis),
                 spec_tree, shape_tree)
+
+
+def fsdp_specs(cfg, pcfg, model, mesh) -> dict:
+    """``{parameter name: P}``: the reference's FSDP placement
+    (``launch/dryrun.py``: ``param_specs``, ``fsdp_extend_tree`` over
+    ``pcfg.data_axis``, ``sanitize_tree``) judged on each stacked leaf's
+    shape, the scan entry dropped.  ``model`` may be on the meta device
+    (its leaves' shapes are read, whole).  A leaf whose data split falls
+    on the scan axis raises: the port's leaf is one repeat and has no
+    such dimension."""
+    from repro_torch.models import model as M
+    sizes = mesh.axis_sizes
+    out = {}
+    for name, (spec, shape, stacked) in M.stacked_specs(
+            cfg, pcfg, model).items():
+        ext = sanitize_spec(fsdp_extend_spec(spec, shape, sizes,
+                                             pcfg.data_axis), shape, sizes)
+        if stacked and ext[0] == pcfg.data_axis:
+            raise NotImplementedError(
+                f"{name}: the FSDP placement splits the scan axis of its "
+                f"stacked shape {shape} over {pcfg.data_axis!r}")
+        out[name] = P(*ext[1:]) if stacked else ext
+    return out
+
+
+def fsdp_dims(cfg, pcfg, model, mesh) -> dict:
+    """``{parameter name: the dimension split over the data axis, or
+    None}`` of :func:`fsdp_specs` (one dimension at most)."""
+    return {n: next((i for i, e in enumerate(spec) if e == pcfg.data_axis),
+                    None)
+            for n, spec in fsdp_specs(cfg, pcfg, model, mesh).items()}
 
 
 _ACTIVE_MESH = None

@@ -5,9 +5,10 @@ The port's execution of ``models.model.param_specs`` under a mesh with
 makes that axis data parallelism instead, and then nothing here runs).
 :func:`shard_model` keeps this rank's shard of every leaf the sanitized
 specs split (``sharding.sanitize_tree``), along its one split dimension
-(``Parameter.tp_dim``); :func:`full_tree` gathers the full leaves back
-onto the host, one at a time, and :func:`local_part` slices a full leaf
-to a rank's shard.
+(``Parameter.tp_dim``), and under FSDP its data-axis shard of that
+(``distributed/fsdp.py``); :func:`full_tree` gathers the full leaves
+back onto the host over both axes, one at a time, and
+:func:`local_leaf` slices a full leaf to a rank's shard.
 
 The layers run their products on shards between two conjugate
 operators on the model group (:class:`TP`):
@@ -330,32 +331,78 @@ def local_part(full, dim: Optional[int], rank: int, size: int):
     return full.narrow(dim, rank * n, n)
 
 
-@torch.no_grad()
-def shard_model(cfg, pcfg, model, mesh):
-    """Keep this rank's shard of every leaf the sanitized specs split
-    over the model axis, in place (each a new ``Parameter`` with
-    ``tp_dim``; the whole leaf is freed).  The model's weights are the
-    one-rank model's, so an init from the seed then this slicing equals
-    the one-card model bit for bit.  Returns the model."""
+def placement(cfg, pcfg, model, mesh, fsdp: bool = False) -> dict:
+    """``{name: (dimension split over the model axis, over the data
+    axis)}``, each None where that axis does not split the leaf: the
+    model axis where it runs tensor parallel (:func:`split_dims`), the
+    data axis under ``fsdp`` (``sharding.fsdp_dims``; never the same
+    dimension).  ``model`` holds whole leaves (the meta device will
+    do)."""
+    from repro_torch.distributed import fsdp as fsdp_mod
     tp = of_mesh(mesh, pcfg)
-    if tp is None:
+    fs = fsdp_mod.of_mesh(mesh, pcfg) if fsdp else None
+    tdims = split_dims(cfg, pcfg, model, mesh) if tp is not None else {}
+    fdims = (sharding.fsdp_dims(cfg, pcfg, model, mesh) if fs is not None
+             else {})
+    return {n: (tdims.get(n), fdims.get(n))
+            for n, _ in model.named_parameters()}
+
+
+def local_leaf(full, dims, tp: Optional[TP], fs: Optional[TP]):
+    """This rank's shard of ``full`` over both axes (``dims`` as
+    :func:`placement` gives them; ``tp``/``fs`` the model and data
+    groups): a copy, or ``full`` itself where nothing splits it."""
+    td, fd = dims
+    x = full
+    if td is not None:
+        x = local_part(x, td, tp.rank, tp.size)
+    if fd is not None:
+        x = local_part(x, fd, fs.rank, fs.size)
+    return full if x is full else x.clone()
+
+
+def mark(model, dims, tp: Optional[TP], fs: Optional[TP]):
+    """Record the placement on ``model`` whose leaves hold their shards:
+    ``tp_dim``/``fsdp_dim`` on each split leaf, ``tp_shards`` and
+    ``fsdp_shards`` ((ranks, this rank) or None) on the model."""
+    for name, p in model.named_parameters():
+        td, fd = dims[name]
+        if td is not None:
+            p.tp_dim = td
+        if fd is not None:
+            p.fsdp_dim = fd
+    model.tp_shards = None if tp is None else (tp.size, tp.rank)
+    model.fsdp_shards = None if fs is None else (fs.size, fs.rank)
+    return model
+
+
+@torch.no_grad()
+def shard_model(cfg, pcfg, model, mesh, fsdp: bool = False):
+    """Keep this rank's shard of every leaf the sanitized specs split
+    over the model axis, and under ``fsdp`` over the data axis too
+    (``distributed/fsdp.py``), in place (each a new ``Parameter``; the
+    whole leaf is freed).  The model's weights are the one-rank model's,
+    so an init from the seed then this slicing equals the one-card model
+    bit for bit.  Returns the model."""
+    from repro_torch.distributed import fsdp as fsdp_mod
+    tp = of_mesh(mesh, pcfg)
+    fs = fsdp_mod.of_mesh(mesh, pcfg) if fsdp else None
+    if tp is None and fs is None:
         return model
-    if getattr(model, "tp_shards", None) is not None:
+    if getattr(model, "tp_shards", None) is not None or getattr(
+            model, "fsdp_shards", None) is not None:
         raise ValueError("the model is sharded already")
-    dims = split_dims(cfg, pcfg, model, mesh)
-    for name, dim in dims.items():
-        if dim is None:
+    dims = placement(cfg, pcfg, model, mesh, fsdp)
+    for name, d in dims.items():
+        if d == (None, None):
             continue
         owner, leaf = _owner(model, name)
         full = getattr(owner, leaf)
-        part = torch.nn.Parameter(
-            local_part(full.data, dim, tp.rank, tp.size).clone(),
+        owner._parameters[leaf] = torch.nn.Parameter(
+            local_leaf(full.data, d, tp, fs),
             requires_grad=full.requires_grad)
-        part.tp_dim = dim
-        owner._parameters[leaf] = part
         del full
-    model.tp_shards = (tp.size, tp.rank)
-    return model
+    return mark(model, dims, tp, fs)
 
 
 def _owner(model, name):
@@ -384,26 +431,46 @@ def full_leaf(x, dim: Optional[int], tp: Optional[TP]):
     return x if dim is None or tp is None else tp.cat(x, dim)
 
 
+def fsdp_dim(w) -> Optional[int]:
+    """The dimension leaf ``w`` is split along over the data group (None:
+    whole over it)."""
+    return getattr(w, "fsdp_dim", None)
+
+
+def _to_host(group, x, dim, keep):
+    """The group's parts of ``x`` concatenated along ``dim`` on the host
+    (None where not ``keep``); the card holds the parts until they are
+    copied."""
+    parts = group._parts(x)
+    host = [q.cpu() for q in parts] if keep else None
+    del parts
+    return torch.cat(host, dim) if keep else None
+
+
 @torch.no_grad()
 def full_tree(model, opt_state, mesh, keep: bool = True):
     """The checkpointed tree (``launch.train.train_tree``'s layout) with
     every leaf whole, on the host (None where not ``keep``).  Every rank
-    of ``mesh``'s model group takes part (the gathers are collectives),
+    of ``mesh`` takes part (the gathers are collectives: over the data
+    group first where FSDP splits a leaf, then over the model group),
     one leaf at a time: a card holds one whole leaf at most beside its
     shards, and frees it before the next."""
-    shards = getattr(model, "tp_shards", None)
-    tp = None if shards is None else TP(mesh.model_group, shards[1],
-                                        shards[0])
+    tps = getattr(model, "tp_shards", None)
+    fss = getattr(model, "fsdp_shards", None)
+    tp = None if tps is None else TP(mesh.model_group, tps[1], tps[0])
+    fs = None if fss is None else TP(mesh.data_group, fss[1], fss[0])
     params = dict(model.named_parameters())
-    dims = {n: shard_dim(p) for n, p in params.items()}
+    dims = {n: (shard_dim(p), fsdp_dim(p)) for n, p in params.items()}
 
     def whole(name, x):
-        if dims[name] is None or tp is None:
+        td, fd = dims[name]
+        if fd is not None and td is None:
+            return _to_host(fs, x, fd, keep)
+        if fd is not None:
+            x = fs.cat(x, fd)
+        if td is None:
             return x.detach().cpu() if keep else None
-        parts = tp._parts(x)
-        host = [q.cpu() for q in parts] if keep else None
-        del parts
-        return torch.cat(host, dims[name]) if keep else None
+        return _to_host(tp, x, td, keep)
     out = {"params": {n: whole(n, p) for n, p in params.items()},
            "opt": {k: {n: whole(n, v) for n, v in opt_state[k].items()}
                    for k in ("mu", "nu")}}
@@ -415,19 +482,21 @@ def full_shapes(model, opt_state):
     """:func:`full_tree`'s structure with zero-stride numpy leaves of the
     whole shapes: a restore target that holds no memory."""
     import numpy as np
-    size = (getattr(model, "tp_shards", None) or (1, 0))[0]
+    tsize = (getattr(model, "tp_shards", None) or (1, 0))[0]
+    fsize = (getattr(model, "fsdp_shards", None) or (1, 0))[0]
 
-    def like(x, dim):
+    def like(x, dims):
         shape = list(x.shape)
-        if dim is not None:
-            shape[dim] *= size
+        for dim, size in zip(dims, (tsize, fsize)):
+            if dim is not None:
+                shape[dim] *= size
         dt = np.dtype(str(x.dtype).replace("torch.", ""))
         return np.broadcast_to(np.zeros((), dt), shape)
     params = dict(model.named_parameters())
-    dims = {n: shard_dim(p) for n, p in params.items()}
+    dims = {n: (shard_dim(p), fsdp_dim(p)) for n, p in params.items()}
     out = {"params": {n: like(p, dims[n]) for n, p in params.items()},
            "opt": {k: {n: like(v, dims[n])
                        for n, v in opt_state[k].items()}
                    for k in ("mu", "nu")}}
-    out["opt"]["step"] = like(opt_state["step"], None)
+    out["opt"]["step"] = like(opt_state["step"], (None, None))
     return out

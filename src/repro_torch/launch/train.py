@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 200 --seq 512 --batch 8 --ckpt-dir /tmp/ckpt [--smoke] \\
-      [--device cpu]
+      [--device cpu] [--fsdp] [--remat {none,full,dots}]
 
 Port of ``repro.launch.train``: the config system, the synthetic data
 pipeline, the train step on a (data, model) mesh, checkpoint/restart
@@ -12,12 +12,20 @@ the reduced config of the same family.  It runs on the card unless
 ``--device`` names another device.  Under ``torch.distributed`` (one
 process a card, each with its own card set) every rank builds
 ``make_local_mesh(model=--model-parallel)`` and takes its rows of the
-global batch; the replicas stay equal.  Under ``--model-parallel m > 1``
-each rank initialises the whole model from the seed and keeps its
-shards (``distributed/tensor_parallel.py``).  A checkpoint holds whole
-leaves, whatever the mesh: every rank takes part in gathering them, the
-first rank writes, and a restore slices them to this rank's shards.  One
-JSON line a logged step, then ``TRAINING DONE``.
+global batch; the replicas stay equal.  Every rank draws the model from
+the seed with the sharded init (``models.model.init_sharded``): one
+whole leaf at a time, keeping this rank's shards of it, so a card never
+holds the whole model.  Under ``--model-parallel m > 1`` the leaves are
+split over the model axis (``distributed/tensor_parallel.py``).
+``--fsdp`` also splits the leaves and their moments over the data axis,
+as the reference's training dry run does (``distributed/fsdp.py``); on a
+data axis of one it changes nothing.  ``--remat``
+recomputes each block in the backward (``full`` and ``dots`` alike);
+the defaults, no FSDP and ``none``, are the reference driver's.  A
+checkpoint holds whole leaves, whatever the mesh: every rank takes part
+in gathering them, the first rank writes, and a restore slices them to
+this rank's shards.  One JSON line a logged step, then ``TRAINING
+DONE``.
 """
 from __future__ import annotations
 
@@ -69,14 +77,19 @@ def train_tree(model, opt_state):
 def load_tree(model, opt_state, tree) -> None:
     """Copy a restored :func:`train_tree` (tensors or arrays) into
     ``model`` and ``opt_state`` in place; whole leaves are sliced to the
-    shards a tensor-parallel model holds."""
-    size, rank = getattr(model, "tp_shards", None) or (1, 0)
-    dims = {n: tpm.shard_dim(p) for n, p in model.named_parameters()}
+    shards the model holds over both axes."""
+    tsize, trank = getattr(model, "tp_shards", None) or (1, 0)
+    fsize, frank = getattr(model, "fsdp_shards", None) or (1, 0)
+    dims = {n: (tpm.shard_dim(p), tpm.fsdp_dim(p))
+            for n, p in model.named_parameters()}
 
     def part(name, v, like):
         v = torch.as_tensor(v)
-        if tuple(v.shape) != tuple(like.shape):
-            v = tpm.local_part(v, dims[name], rank, size)
+        td, fd = dims[name]
+        if td is not None:
+            v = tpm.local_part(v, td, trank, tsize)
+        if fd is not None:
+            v = tpm.local_part(v, fd, frank, fsize)
         return v
     for name, p in model.named_parameters():
         p.copy_(part(name, tree["params"][name], p))
@@ -104,6 +117,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="split leaves and moments over the data axis")
+    ap.add_argument("--remat", default="none",
+                    choices=("none", "full", "dots"))
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -117,15 +134,14 @@ def main(argv=None):
     mesh = make_local_mesh(model=args.model_parallel, device=args.device)
     dev = mesh.device
     sharding.set_mesh(mesh)
-    pcfg = ParallelConfig(remat="none", compute_dtype="float32",
+    pcfg = ParallelConfig(remat=args.remat, compute_dtype="float32",
                           param_dtype="float32")
     tcfg = TrainConfig(seq_len=args.seq, global_batch=args.batch,
                        lr=args.lr, steps=args.steps,
                        microbatch=args.microbatch, seed=args.seed)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = tpm.shard_model(cfg, pcfg, M.init_params(cfg, gen, device=dev),
-                            mesh)
+    model = M.init_sharded(cfg, pcfg, gen, mesh, fsdp=args.fsdp, device=dev)
     opt_state = opt.init_opt_state(model)
 
     def restore(step):

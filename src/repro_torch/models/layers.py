@@ -16,12 +16,19 @@ class Init:
     """Makes parameters: ``normal`` draws N(0, std) in float32 from
     ``generator`` (on the generator's device) and casts to ``dtype`` on
     ``device``; ``full`` fills a constant.  ``device="meta"`` with no
-    generator makes shapes only, to be filled by ``load_state_dict``."""
+    generator makes shapes only, to be filled by ``load_state_dict``.
+    ``keep``, if given, is called once a leaf, in the order the leaves
+    are made, with the whole leaf, and returns what the parameter holds
+    (a sharded init keeps this rank's shard and lets the whole go)."""
 
-    def __init__(self, generator, dtype, device):
+    def __init__(self, generator, dtype, device, keep=None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        self.keep = keep
+
+    def _param(self, x) -> nn.Parameter:
+        return nn.Parameter(x if self.keep is None else self.keep(x))
 
     def normal(self, shape, std: float) -> nn.Parameter:
         if self.device.type == "meta":
@@ -29,11 +36,11 @@ class Init:
         g = self.generator
         x = torch.randn(shape, generator=g, device=g.device,
                         dtype=torch.float32).mul_(std)
-        return nn.Parameter(x.to(device=self.device, dtype=self.dtype))
+        return self._param(x.to(device=self.device, dtype=self.dtype))
 
     def full(self, shape, value: float) -> nn.Parameter:
-        return nn.Parameter(torch.full(shape, value, dtype=self.dtype,
-                                       device=self.device))
+        return self._param(torch.full(shape, value, dtype=self.dtype,
+                                      device=self.device))
 
 
 def rms_normalize(x, eps=1e-5):

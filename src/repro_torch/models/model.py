@@ -16,12 +16,17 @@ the reference's leading scan axis (a segment's repeats are a
 train step's ``group``: each rank holds rows of the global batch, see
 ``models/moe.py``) and ``model``: under an installed mesh with ``model
 > 1`` (``sharding.set_mesh``) the forward runs on the leaves' shards
-that ``distributed.tensor_parallel.shard_model`` keeps, Megatron-style
+(drawn by :func:`init_sharded`, or kept from a whole model by
+``distributed.tensor_parallel.shard_model``), Megatron-style
 (:func:`_forward_tp`; ``seq_parallel`` and ``dp_over_model`` as the
 reference reads them).  Every forward without a cache (training) runs
-that code, on one process's whole leaves as a group of one.  Serving
-under a model axis is not ported yet: a forward that keeps a cache there
-raises (:data:`SERVE_TP_ITEM`).
+that code, on one process's whole leaves as a group of one.  Under FSDP
+(``distributed/fsdp.py``: leaves split over the data axis, drawn by
+:func:`init_sharded`) each block gathers its leaves at its start, and
+``ParallelConfig.remat`` runs each block under
+``torch.utils.checkpoint``.  Serving under a model axis is not ported
+yet: a forward that keeps a cache there raises (:data:`SERVE_TP_ITEM`),
+as it does on leaves that FSDP split (:data:`SERVE_FSDP`).
 """
 from __future__ import annotations
 
@@ -30,9 +35,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import device as _device
+from repro_torch.distributed import fsdp as fsdp_mod
 from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import attention as attn_mod
@@ -59,6 +66,11 @@ def batch_axes(pcfg):
 SERVE_TP_ITEM = ("serving under a 'model' axis is not ported yet "
                  "(ROADMAP.md, queue 1: cache_specs' model-sharded caches "
                  "and seq_shard_decode)")
+
+
+#: why the cached forward refuses a model whose leaves FSDP has split
+SERVE_FSDP = ("FSDP splits leaves over the data axis for training; the "
+              "cached (serving) forward runs on whole leaves")
 
 
 def constrain(x, *spec):
@@ -132,6 +144,48 @@ def empty_model(cfg: ModelConfig, param_dtype: str = "float32") -> Model:
     """The model's shapes on the meta device, to be filled by
     ``load_state_dict(..., assign=True)``."""
     return Model(Init(None, _dtype(param_dtype), "meta"), cfg)
+
+
+class _Made(Init):
+    """A meta Init that lists the parameters in the order it makes
+    them."""
+
+    def __init__(self, dtype):
+        super().__init__(None, dtype, "meta")
+        self.made = []
+
+    def _param(self, x):
+        p = super()._param(x)
+        self.made.append(p)
+        return p
+
+
+def init_sharded(cfg: ModelConfig, pcfg: ParallelConfig,
+                 generator: torch.Generator, mesh, fsdp: bool = True,
+                 param_dtype: str = "float32", device=None) -> Model:
+    """:func:`init_params` sharded as it is drawn: the leaves come from
+    ``generator`` in init_params' order, one whole leaf at a time, and
+    each keeps this rank's shard over the mesh's model axis and, under
+    ``fsdp``, its data axis (``tensor_parallel.placement``) before the
+    next is drawn.  A card holds its shards and one whole leaf at most.
+    Equal bit for bit to ``tensor_parallel.shard_model(cfg, pcfg,
+    init_params(...), mesh, fsdp)``."""
+    dt = _dtype(param_dtype)
+    made = _Made(dt)
+    meta = Model(made, cfg)
+    names = {id(p): n for n, p in meta.named_parameters()}
+    order = iter([names[id(p)] for p in made.made])
+    dims = tpm.placement(cfg, pcfg, meta, mesh, fsdp)
+    tp = tpm.of_mesh(mesh, pcfg)
+    fs = fsdp_mod.of_mesh(mesh, pcfg) if fsdp else None
+    del meta, made
+
+    def keep(whole):
+        return tpm.local_leaf(whole, dims[next(order)], tp, fs)
+    with torch.no_grad():
+        model = Model(Init(generator, dt, _device.resolve(device), keep),
+                      cfg)
+    return tpm.mark(model, dims, tp, fs)
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
@@ -214,10 +268,12 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
     serving = cache is not None or want_cache
     if serving and tp is not None:
         raise NotImplementedError(SERVE_TP_ITEM)
+    if serving and getattr(model, "fsdp_shards", None) is not None:
+        raise NotImplementedError(SERVE_FSDP)
     tpm.check_sharded(model, tp)
     if not serving:
-        return _forward_tp(cfg, pcfg, model, batch, return_hidden, group,
-                           tp or tpm.ONE)
+        return _forward_tp(cfg, pcfg, fsdp_mod.view(model, pcfg), batch,
+                           return_hidden, group, tp or tpm.ONE)
     cdt = _dtype(pcfg.compute_dtype)
     x = embed_tp(cfg, model, batch, cdt, tpm.ONE)
     x = constrain(x, batch_axes(pcfg), None, None)
@@ -302,20 +358,37 @@ def _forward_tp(cfg, pcfg, model, batch, return_hidden, group, tp):
     """:func:`forward` without a cache (training) on the leaves' shards,
     or on one process's whole leaves under ``tensor_parallel.ONE``.  The
     returned hidden states are this rank's positions under
-    ``seq_parallel``; logits are gathered whole."""
+    ``seq_parallel``; logits are gathered whole.  ``model`` is
+    ``fsdp.view``'s: each block gathers its FSDP-split leaves at its
+    start.  Under ``pcfg.remat`` "full" or "dots" (alike, as in the
+    reference) each block runs under ``torch.utils.checkpoint``, its
+    gathers inside: the backward recomputes the block, gathering again,
+    so a block's whole leaves live only while it runs; the values are
+    those without remat, bit for bit.  Without remat the gathered leaves
+    that the block's backward reads stay alive until it runs."""
     cdt = _dtype(pcfg.compute_dtype)
     S = next(iter(batch.values())).shape[1]
     if tp.seq and S % tp.size:
         raise ValueError(f"seq_parallel: {S} positions do not split over "
                          f"{tp.size} model ranks")
+    if pcfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{pcfg.remat!r}")
+    fs = fsdp_mod.group_of(model)
     x = embed_tp(cfg, model, batch, cdt, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (sb, _) in enumerate(cfg.segments):
         for blocks in model.segments[si]:
             for i, spec in enumerate(sb):
-                x, aux = _apply_block_tp(cfg, pcfg, spec,
-                                         getattr(blocks, f"blk{i}"), x,
-                                         batch, aux, group, tp)
+
+                def run(x, aux, spec=spec, blk=getattr(blocks, f"blk{i}")):
+                    return _apply_block_tp(cfg, pcfg, spec,
+                                           fsdp_mod.gathered(blk, fs), x,
+                                           batch, aux, group, tp)
+                if pcfg.remat == "none":
+                    x, aux = run(x, aux)
+                else:
+                    x, aux = checkpoint(run, x, aux, use_reentrant=False)
     x = tpm.rms_norm(x, model.final_norm, cfg.norm_eps, tp)
     if return_hidden:
         return x, None, aux
@@ -330,25 +403,15 @@ def _forward_tp(cfg, pcfg, model, batch, return_hidden, group, tp):
 # partition specs
 # ---------------------------------------------------------------------------
 
-def param_specs(cfg: ModelConfig, pcfg: ParallelConfig, model: Model):
-    """``{parameter name: P}``: Megatron-style TP over the "model" axis
-    (or fully replicated when dp_over_model re-purposes the axis as data
-    parallelism), the reference's rules on the port's names.  A repeating
-    segment's leaf gets the reference's spec of its stacked leaf (one
-    dimension more, the scan axis, in front) with that first entry
-    dropped, its quirks kept (a stacked shared expert's ``w1`` has
-    "model" on the scan axis, so none on its own)."""
+def stacked_specs(cfg: ModelConfig, pcfg: ParallelConfig, model: Model):
+    """``{parameter name: (P, shape, stacked)}``: the reference's spec
+    and shape of the leaf that holds this one, Megatron-style TP over the
+    "model" axis (fully replicated when dp_over_model re-purposes the
+    axis as data parallelism).  A repeating segment's leaf is held by the
+    reference's stacked leaf (one dimension more, the scan axis, in
+    front; ``stacked`` True); any other leaf by itself."""
     P = sharding.P
     mdl = None if pcfg.dp_over_model else pcfg.model_axis
-
-    def stacked(names):
-        return names[0] == "segments" and cfg.segments[int(names[1])][1] > 1
-
-    def spec(name, x):
-        names = name.split(".")
-        if not stacked(names):
-            return rule(names, x.ndim)
-        return P(*rule(names, x.ndim + 1)[1:])
 
     def rule(names, rank):
 
@@ -372,7 +435,28 @@ def param_specs(cfg: ModelConfig, pcfg: ParallelConfig, model: Model):
             return lead((None, None))
         return lead(())                                  # norms, scalars
 
-    return {name: spec(name, x) for name, x in model.named_parameters()}
+    out = {}
+    for name, x in model.named_parameters():
+        names = name.split(".")
+        shape = tuple(x.shape)
+        cnt = cfg.segments[int(names[1])][1] if names[0] == "segments" \
+            else 1
+        if cnt > 1:
+            out[name] = (rule(names, x.ndim + 1), (cnt,) + shape, True)
+        else:
+            out[name] = (rule(names, x.ndim), shape, False)
+    return out
+
+
+def param_specs(cfg: ModelConfig, pcfg: ParallelConfig, model: Model):
+    """``{parameter name: P}``: the reference's rules on the port's names
+    (:func:`stacked_specs`).  A repeating segment's leaf gets the spec of
+    its stacked leaf with that first entry dropped, its quirks kept (a
+    stacked shared expert's ``w1`` has "model" on the scan axis, so none
+    on its own)."""
+    return {name: sharding.P(*spec[1:]) if stacked else spec
+            for name, (spec, _, stacked) in stacked_specs(
+                cfg, pcfg, model).items()}
 
 
 def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, cache):

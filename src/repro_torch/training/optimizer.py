@@ -58,33 +58,49 @@ def _schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(grads, params=None, model_group=None) -> torch.Tensor:
+def global_norm(grads, params=None, model_group=None,
+                data_group=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in float32.  Under
     tensor parallelism (``model_group``, a ``tensor_parallel.TP``) the
     leaves of ``params`` that are shards (``tp_dim``) add their squares
-    over the group in rank order and each replicated leaf counts once,
-    so every rank gets the one-rank norm's sum."""
-    if model_group is None:
+    over the group in rank order, and under FSDP (``data_group``) those
+    split over the data axis (``fsdp_dim``) over that group (a leaf
+    split over both: the data group's sum, then the model group's); each
+    replicated leaf counts once, so every rank gets the one-rank norm's
+    sum."""
+    if model_group is None and data_group is None:
         leaves = [torch.sum(torch.square(g.float())) for g in grads.values()]
         return torch.sqrt(sum(leaves))
-    from repro_torch.distributed.tensor_parallel import shard_dim
-    split = {n for n, p in params.items() if shard_dim(p) is not None}
+    from repro_torch.distributed.tensor_parallel import fsdp_dim, shard_dim
+
+    def split(p):
+        return (model_group is not None and shard_dim(p) is not None,
+                data_group is not None and fsdp_dim(p) is not None)
+    kind = {n: split(p) for n, p in params.items()}
     sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
-    whole = sum(v for n, v in sq.items() if n not in split)
-    if split:
-        whole = whole + model_group.sum(
-            sum(v for n, v in sq.items() if n in split))
+    whole = sum(v for n, v in sq.items() if kind[n] == (False, False))
+    for key, over in (((True, False), (model_group,)),
+                      ((False, True), (data_group,)),
+                      ((True, True), (data_group, model_group))):
+        part = [v for n, v in sq.items() if kind[n] == key]
+        if part:
+            total = sum(part)
+            for grp in over:
+                total = grp.sum(total)
+            whole = whole + total
     return torch.sqrt(whole)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state, model_group=None):
+def adamw_update(cfg: AdamWConfig, params, grads, state, model_group=None,
+                 data_group=None):
     """One AdamW step on ``params`` and ``state`` in place; returns the
-    metrics ``{"grad_norm", "lr"}`` (device scalars).  ``model_group``:
-    see :func:`global_norm` (the moments are shards like their leaves)."""
+    metrics ``{"grad_norm", "lr"}`` (device scalars).  ``model_group``,
+    ``data_group``: see :func:`global_norm` (the moments are shards like
+    their leaves)."""
     params = _named(params)
     step = state["step"] + 1
-    gnorm = global_norm(grads, params, model_group)
+    gnorm = global_norm(grads, params, model_group, data_group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

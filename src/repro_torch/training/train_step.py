@@ -26,6 +26,16 @@ summed over the model group again), and the clip's norm counts each
 shard once (``optimizer.global_norm``).  Under ``dp_over_model`` the
 model axis is more data parallelism: the leaves stay whole and the rows
 split over data x model.
+
+**FSDP** over the ``data`` axis (``distributed/fsdp.py``; a model whose
+leaves ``fsdp_shards`` records): a split leaf's gradient arrives
+reduce-scattered from its gather's backward, this rank's shard of the
+rank-order sum, so :func:`ordered_sum` takes only the other leaves, and
+the clip's norm adds the shards' squares over the data group.  With
+``microbatch > 1`` each microbatch's backward reduce-scatters, and the
+shard accumulates the microbatches' sums: (sum over ranks of mb 0) +
+(sum over ranks of mb 1), where the replicated path sums each rank's
+accumulated gradient, so those bits differ by rounding.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.distributed import fsdp as fsdp_mod
 from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import model as M
@@ -152,12 +163,12 @@ def lm_loss(cfg: ModelConfig, pcfg: ParallelConfig, model, batch,
     """Next-token CE in f32 (+ MoE load-balance aux).  Under ``group``
     the batch is this rank's rows and the loss its share of the global
     batch's (the shares sum to it)."""
+    model = fsdp_mod.view(model, pcfg)
     hidden, _, aux = M.forward(cfg, pcfg, model, batch, want_cache=False,
                                return_hidden=True, group=group)
     cdt = hidden.dtype
     tp = tpm.active(pcfg)
-    head, lo = (M.vocab_head(cfg, model) if tp is not None else
-                (model.embed.T if cfg.tie_embeddings else model.head, None))
+    head, lo = M.vocab_head(cfg, model)
     head = head.to(cdt)
     targets = batch["labels"]
     mask = torch.ones(targets.shape, dtype=torch.float32,
@@ -238,6 +249,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     def run(model, opt_state, batch):
         tp = tpm.active(pcfg)
         tpm.check_sharded(model, tp)
+        fs = None
+        if getattr(model, "fsdp_shards", None) is not None:
+            fs = fsdp_mod.of_mesh(mesh, pcfg)
+            fsdp_mod.check(model, fs)
         nmicro = tcfg.microbatch or 1
         params = dict(model.named_parameters())
         for p in params.values():
@@ -257,10 +272,14 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
             for g in grads.values():
                 g.div_(nmicro)
         metrics = {k: v.detach().reshape(1) for k, v in metrics.items()}
-        ordered_sum(list(grads.values()), group)
+        # an FSDP-split leaf's gradient arrives reduce-scattered
+        ordered_sum([g for n, g in grads.items()
+                     if tpm.fsdp_dim(params[n]) is None], group)
         ordered_sum(list(metrics.values()), group)
         metrics = {k: v[0] for k, v in metrics.items()}
         kw = {} if tp is None else {"model_group": tp}
+        if fs is not None:
+            kw["data_group"] = fs
         om = opt.adamw_update(opt_cfg, params, grads, opt_state, **kw)
         for p in params.values():
             p.grad = None
@@ -268,6 +287,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def shardings_for(model):
         axis_sizes = mesh.axis_sizes if mesh is not None else {}
+        if getattr(model, "fsdp_shards", None) is not None:
+            param_sh = sharding.fsdp_specs(cfg, pcfg, M.empty_model(cfg),
+                                           mesh)
+            return param_sh, {"mu": param_sh, "nu": param_sh,
+                              "step": sharding.P()}
         specs = M.param_specs(cfg, pcfg, model)
         param_sh = sharding.sanitize_tree(
             specs, dict(model.named_parameters()), axis_sizes)
