@@ -233,6 +233,28 @@ Phases, each printing one JSON line:
            dispatch="spmm" against "einsum" within 1e-3, each card's 4
            bulk SpMM and 1 load SDDMM (6 and 1 under remat, its grads
            equal), the backward launches' ms, bound, plain and library;
+           with --dist-serve-tp-only, on four cards, serving on the model
+           axis (float32, seq_shard_decode, each card a block of cached
+           positions): (S1) jamba-v0.1-52b at full size (51.5e9
+           parameters, 205.8 GB: no card holds it) at (data 1, model 4)
+           through launch.serve.main --model-parallel 4 --batch 4
+           --prompt-len 512 --gen 32, 2 batches, its capacity factor
+           raised to (E + 0.5) / k so that no token is dropped (a
+           4-token decode step and a teacher-forced forward then route
+           alike): every generated position's logits against a
+           teacher-forced forward of the same tokens on the same cards
+           within 5e-3, each card's cache bytes a quarter of the whole
+           cache's, then the cache extended to 32,768 slots (8,192 a
+           card) and 16 decode steps timed there, the first against the
+           served first step within 5e-3; prefill s, decode p50/p99 at
+           544 and 32,768 slots, each card's peak after init and
+           serving; (S3) its MoE layer expert-parallel (4 experts a
+           card, capacity 1.25) at 4 and 2,048 tokens, dispatch="spmm"
+           (2 SpMM launches counted) against "einsum" within 2e-4, and
+           this card's dispatch and combine packs' kernel against its
+           plain version with bound, plain and torch.sparse.mm ms; (S2)
+           DeepSeek-V2-Lite at full width, depth cut to 4 layers, the
+           same as (S1) (its MLA latents split over positions);
   train    the training path (core/grads.py, apps/): (A) grads.fusedmm
            forward + backward on d15 at the main path's size, each cell:
            launches of the forward and of the backward (the same cell
@@ -313,7 +335,9 @@ the dist phase's serving cells alone, ``--dist-train-only`` its train
 cells alone, ``--dist-tp-only`` its tensor-parallel cells alone (four
 cards), ``--dist-tp-sums-only`` the model group's sum in its two forms
 alone (four cards), ``--dist-fsdp-only`` its FSDP cells alone (four
-cards);
+cards), ``--dist-serve-tp-only`` its serving cells on the model axis
+alone (four cards; they run only so, and their ``kernels`` line holds
+the SpMM row of (S3));
 ``--phases`` picks phases.
 """
 from __future__ import annotations
@@ -3035,6 +3059,16 @@ def _dist_rank(torch, dist, rank, world, scale, reps, comm_scale,
     elif only == "fsdp":
         raise AssertionError(f"dist fsdp: the cells need {DIST_TP_WORLD} "
                              f"cards, {world} visible")
+    if only == "serve_tp" and world == DIST_TP_WORLD:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dist rank {rank}: the serving cells on the model axis start "
+            f"at +{time.perf_counter() - t_rank:.1f} s")
+        report["serve_tp"] = dist_serve_tp(torch, dist, ck, rank, world,
+                                           out_dir)
+    elif only == "serve_tp":
+        raise AssertionError(f"dist serve tp: the cells need "
+                             f"{DIST_TP_WORLD} cards, {world} visible")
     report["checks"] = ck.n
     return report
 
@@ -4909,6 +4943,275 @@ def dist_tp_report(ranks, world):
     return rep
 
 
+#: (S1)/(S2): launch.serve.main's arguments beside --model-parallel, the
+#: slots the cache is extended to (the reference's decode_32k length) and
+#: the decode steps timed there
+DIST_SERVE_TP_ARGS = ["--batches", "2", "--batch", "4", "--prompt-len",
+                      "512", "--gen", "32"]
+DIST_SERVE_TP_SLOTS = 32768
+DIST_SERVE_TP_LONG_STEPS = 16
+#: (S3): jamba's MoE layer at a decode step's tokens and at prefill's
+DIST_SERVE_TP_MOE = {"decode": (4, 1), "prefill": (4, 512)}
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity factor at which no assignment is dropped
+    (C >= T a expert): a decode step of 4 tokens has capacity 1 at the
+    configs' 1.25, so a cached step and a teacher-forced forward of the
+    same tokens would route differently by design; widths and depth
+    stay."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, capacity_factor=(cfg.moe_experts + 0.5) / cfg.moe_top_k)
+
+
+def whole_cache_bytes(torch, cfg, B, S):
+    """Bytes of the whole cache of ``B`` rows and ``S`` positions in
+    float32 (the compute dtype the serve driver's caches hold), its fill
+    counters left out."""
+    from repro_torch.models import model as M
+    return cache_bytes(M.init_cache(cfg, B, S, torch.float32,
+                                    device="meta"))
+
+
+def serve_tp_cell(torch, dist, ck, rank, world, cfg, tag):
+    """(S1)/(S2): ``cfg`` through launch.serve.main --model-parallel
+    ``world`` (the sharded init, seq_shard_decode), DIST_SERVE_TP_ARGS:
+    every decode step's and prefill's logits against a teacher-forced
+    forward of the same tokens on the same cards (the uncached
+    ``_forward_tp``) within LM_TF_TOL; each card's cache bytes a quarter
+    of the whole cache's after prefill and while decoding; then the first
+    batch's prompt prefilled again and its cache extended to
+    DIST_SERVE_TP_SLOTS slots (each card a block of them), its first
+    step's logits against the served first step's within LM_TF_TOL, and
+    DIST_SERVE_TP_LONG_STEPS decode steps timed there, and one more
+    step's device split.  Returns (report, the model, the mesh)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.serving import decode
+    B, S, G = (int(DIST_SERVE_TP_ARGS[i]) for i in (3, 5, 7))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = lm_serve(torch, cfg, DIST_SERVE_TP_ARGS + [
+        "--model-parallel", str(world)], caches=True)
+    serve_s = time.perf_counter() - t0
+    model, mesh = rec["models"][0], rec["meshes"][0]
+    pcfg = ParallelConfig(compute_dtype="float32", seq_shard_decode=True)
+    report = {"arch": cfg.name, "params": cfg.param_count(),
+              "params_this_card": sum(p.numel() for p in model.parameters()),
+              "mesh": [1, world], "batch": B, "prompt": S, "gen": G,
+              "capacity_factor": cfg.capacity_factor,
+              "batches": lm_report(rec), "serve_s": serve_s,
+              "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    fills = {"prefill": S, "decode": S + G}
+    for key, fill in fills.items():
+        whole = whole_cache_bytes(torch, cfg, B, fill)
+        got = set(rec[key + "_cache"])
+        if got != {whole // world} or whole % world:
+            raise AssertionError(f"dist serve tp {tag}: {key} cache bytes "
+                                 f"{got} a card, whole {whole}")
+        ck.n += 1
+        report[f"{key}_cache_gib"] = {"card": whole / world / 2**30,
+                                      "whole": whole / 2**30}
+    sharding.set_mesh(mesh)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        report["teacher_forcing_err"] = lm_teacher_forcing(
+            torch, ck, cfg, pcfg, model, rec)
+        report["teacher_forcing_s"] = time.perf_counter() - t1
+        report["teacher_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        prompt = rec["prefill"][0][0]
+        first = rec["decode"][0]
+        torch.cuda.reset_peak_memory_stats()
+        logits, cache = decode.prefill(cfg, pcfg, model, {"tokens": prompt})
+        cache = decode.extend_cache(cache, DIST_SERVE_TP_SLOTS - S, pcfg)
+        per = DIST_SERVE_TP_SLOTS // world
+        leaf = "c_kv" if cfg.mla_kv_lora else "k"
+        blocks = {x[leaf].shape[1] for seg in cache["segments"]
+                  for rep in seg for x in rep.values() if leaf in x}
+        if blocks != {per}:
+            raise AssertionError(f"dist serve tp {tag}: {leaf} blocks "
+                                 f"{blocks}, want {per} a card")
+        ck.n += 1
+        tok = first[0]
+        lat, outs = [], []
+        for _ in range(DIST_SERVE_TP_LONG_STEPS):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits, cache = decode.decode_step(cfg, pcfg, model,
+                                               {"tokens": tok}, cache)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t2) * 1e3)
+            outs.append(logits)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        long_err = ck.close(outs[0], first[1], LM_TF_TOL,
+                            f"dist serve tp {tag} first step at "
+                            f"{DIST_SERVE_TP_SLOTS} slots vs {S + G}")
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"dist serve tp {tag}: non-finite logits "
+                                 f"at {DIST_SERVE_TP_SLOTS} slots")
+        ck.n += 1
+        # one step's device split (torch.profiler): every rank profiles
+        # the same calls, so the collectives line up
+        split = device_breakdown(torch, lambda: decode.decode_step(
+            cfg, pcfg, model, {"tokens": tok}, cache))
+        report["long"] = {
+            "device_split": split,
+            "slots": DIST_SERVE_TP_SLOTS, "slots_this_card": per,
+            "cache_gib_card": cache_bytes(cache) / 2**30,
+            "steps": DIST_SERVE_TP_LONG_STEPS, "step_ms": lat,
+            "decode_p50_ms": float(np.median(lat[1:])),
+            "decode_p99_ms": float(np.quantile(lat[1:], 0.99)),
+            "first_step_err": long_err,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del cache, logits, outs
+    finally:
+        sharding.set_mesh(None)
+    report["decode_p50_ms"] = [ln["decode_p50_ms"] for ln in rec["lines"]]
+    report["decode_p99_ms"] = [ln["decode_p99_ms"] for ln in rec["lines"]]
+    report["prefill_s"] = [ln["prefill_s"] for ln in rec["lines"]]
+    report["init_peak_gib"] = rec["lines"][0].get("init_peak_gib")
+    report["peak_gib_cards"] = rec["lines"][-1].get("peak_gib")
+    del rec
+    torch.cuda.empty_cache()
+    return report, model, mesh
+
+
+def serve_tp_moe(torch, ck, cfg, layer, mesh, rank, world, reps):
+    """(S3): jamba's MoE layer expert-parallel over the model group (this
+    card's E / world experts; ``moe.moe_tp``) at DIST_SERVE_TP_MOE's
+    tokens: dispatch="spmm" (the Hopper SpMM) against "einsum" within
+    LM_MOE_TOL, this card's share and the group's sum; the launches and
+    forms of one counted call (2 SpMM), both calls' ms, and this share's
+    dispatch and combine packs' kernel against its plain version with
+    its bound, plain and torch.sparse.mm ms.  Returns (report, the
+    prefill shape's counted launches)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    pcfg = ParallelConfig(compute_dtype="float32")
+    tp = tpm.of_mesh(mesh, pcfg)
+    out, counted = {}, None
+    for shape, (B, S) in DIST_SERVE_TP_MOE.items():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda")
+        with torch.inference_mode():
+
+            def call(dispatch, x=x):
+                return MOE.moe_tp(cfg, pcfg, layer, tp.enter(x), tp,
+                                  dispatch=dispatch)[0]
+            want = call("einsum")
+            ops.reset_launch_counts()
+            got = call("spmm")
+            torch.cuda.synchronize()
+            launches, forms = ops.launch_counts(), ops.form_counts()
+            if launches["spmm"] != 2 or launches["sddmm"] != 0 or \
+                    launches["fusedmm"] != 0:
+                raise AssertionError(f"dist serve tp moe {shape}: expected "
+                                     f"2 SpMM launches, got {launches}")
+            err = ck.close(got[0], want[0], LM_MOE_TOL,
+                           f"dist serve tp moe {shape} card {rank} share "
+                           f"spmm vs einsum")
+            err_sum = ck.close(tp.exit(*got), tp.exit(*want), LM_MOE_TOL,
+                               f"dist serve tp moe {shape} layer spmm vs "
+                               f"einsum")
+            C = MOE.route(cfg, layer, x.reshape(-1, cfg.d_model))[5]
+            out[shape] = {
+                "tokens": B * S, "capacity": C,
+                "experts_this_card": cfg.moe_experts // world,
+                "launches": launches, "forms": forms, "share_err": err,
+                "layer_err": err_sum,
+                "spmm_ms": time_ms(torch, lambda: call("spmm"), reps),
+                "einsum_ms": time_ms(torch, lambda: call("einsum"), reps),
+                "packs": lm_moe_packs(torch, ck, cfg, layer, x, reps, rank,
+                                      world)}
+        if shape == "prefill":
+            counted = launches
+        del x, want, got
+    torch.cuda.empty_cache()
+    return out, counted
+
+
+def dist_serve_tp(torch, dist, ck, rank, world, out_dir):
+    """Serving under the mesh's model axis on DIST_TP_WORLD cards: (S1)
+    jamba-v0.1-52b at full size (51.5e9 parameters, 205.8 GB in float32:
+    no card holds it) through launch.serve.main --model-parallel 4, (S3)
+    its MoE layer's SpMM dispatch expert-parallel, (S2) DeepSeek-V2-Lite
+    at full width with its depth cut to 4 layers, the same as (S1)."""
+    import gc
+    from repro_torch.config import get_config
+    t0 = time.perf_counter()
+    cfg = no_drop(get_config("jamba-v0.1-52b"))
+    out = {}
+    out["jamba"], model, mesh = serve_tp_cell(torch, dist, ck, rank, world,
+                                              cfg, "jamba")
+    out["seconds_jamba"] = time.perf_counter() - t0
+    layer = model.segments[0][0].blk1.moe
+    out["moe"], out["launches"] = serve_tp_moe(
+        torch, ck, get_config("jamba-v0.1-52b"), layer, mesh, rank, world,
+        3)
+    out["seconds_moe"] = time.perf_counter() - t0
+    del model, layer, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    cut, full = deepseek_cut()
+    out["deepseek"], model, _ = serve_tp_cell(torch, dist, ck, rank, world,
+                                              no_drop(cut), "deepseek")
+    out["deepseek"]["cut"] = (
+        f"layers {full.n_layers} -> {cut.n_layers} (the dense layer 0 and "
+        f"3 MoE layers), params {full.param_count()} -> "
+        f"{cut.param_count()}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dist_serve_tp_report(ranks, world):
+    """Rank 0's serving record with each card's peaks, decode times and
+    MoE launches and kernel times."""
+    rep = dict(ranks[0]["serve_tp"])
+    rep["cards"] = [{
+        "rank": rr["rank"],
+        **{f"{cell}_{k}": rr["serve_tp"][cell][k]
+           for cell in ("jamba", "deepseek")
+           for k in ("params_this_card", "serve_peak_gib", "teacher_peak_gib",
+                     "decode_p50_ms", "teacher_forcing_err")},
+        **{f"{cell}_long": {k: rr["serve_tp"][cell]["long"][k] for k in (
+            "decode_p50_ms", "decode_p99_ms", "peak_gib", "cache_gib_card")}
+           for cell in ("jamba", "deepseek")},
+        "moe_launches": rr["serve_tp"]["launches"],
+        "moe": {shape: {k: c[k] for k in ("share_err", "layer_err",
+                                           "spmm_ms", "einsum_ms", "packs")}
+                for shape, c in rr["serve_tp"]["moe"].items()}}
+        for rr in ranks]
+    return rep
+
+
+def serve_tp_kernel_row(ranks):
+    """The ``kernels`` line's SpMM row of the serving phase: the counted
+    launches of (S3)'s prefill-shape call on card 0 and that share's
+    dispatch pack's kernel against its bound, plain and library times."""
+    rr = ranks[0]["serve_tp"]
+    pack = rr["moe"]["prefill"]["packs"]["dispatch"]
+    return [{"name": "spmm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/spmm.cu",
+             "replaces": "src/repro/kernels/spmm.py:52",
+             "launches": rr["launches"]["spmm"],
+             "max_abs_err": pack["max_abs_err"], "ms": pack["ms"],
+             "plain_ms": pack["plain_ms"], "bound_ms": pack["bound_ms"],
+             "bound_by": pack["bound_by"], "library_ms": pack["library_ms"],
+             "dist_serve_tp_launches": [r["serve_tp"]["launches"]["spmm"]
+                                        for r in ranks],
+             "packs": {shape: c["packs"]
+                       for shape, c in rr["moe"].items()}}]
+
+
 def dist_train_report(ranks, world):
     """Rank 0's train record with each rank's outcome and step ms; the
     remesh outcomes checked."""
@@ -4937,10 +5240,11 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
                apps_scale: int, only: str | None = None):
     """One process per visible card over NCCL (``dist_rank``); fails if
     a rank fails or any outlives DIST_TIMEOUT_S (all are stopped).
-    ``only``: "serving", "train", "tp", "tp_sums" or "fsdp" runs those
-    cells alone (a cheaper rehearsal).  Returns (a rank's d15 launches,
-    each rank's serving launches, each rank's tensor-parallel and FSDP
-    MoE launches), None where the cells did not run."""
+    ``only``: "serving", "train", "tp", "tp_sums", "fsdp" or "serve_tp"
+    runs those cells alone (a cheaper rehearsal; "serve_tp" runs only so).
+    Returns (a rank's d15 launches, each rank's serving launches, each
+    rank's tensor-parallel and FSDP MoE launches, the serving-on-the-
+    model-axis kernel rows), None where the cells did not run."""
     import multiprocessing
     import signal
     import tempfile
@@ -5027,6 +5331,10 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
         fsdp_launches = [rr["fsdp"]["launches"] for rr in ranks]
     if only == "tp_sums":
         report["tp_sums"] = [rr["tp_sums"] for rr in ranks]
+    serve_tp_rows = None
+    if only == "serve_tp":
+        report["serve_tp"] = dist_serve_tp_report(ranks, world)
+        serve_tp_rows = serve_tp_kernel_row(ranks)
     if world > 1 and only is None:
         # the survivors recovered onto the degraded group, every other
         # rank (the lost one among them) retired
@@ -5051,7 +5359,7 @@ def phase_dist(torch, scale: int, reps: int, comm_scale: int,
     return (None if only else ranks[0]["problems"]["d15"]["launches"],
             [rr["serving"]["launches"] for rr in ranks]
             if only in (None, "serving") else None, tp_launches,
-            fsdp_launches)
+            fsdp_launches, serve_tp_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -5533,22 +5841,36 @@ def cpu_copy(torch, cfg, model):
     return cpu
 
 
-def lm_serve(torch, cfg):
-    """``launch.serve.main(LM_SERVE)`` with ``cfg`` in place of the
-    arch's: returns the model it built, each batch's JSON line, and each
-    prefill's and decode step's tokens, logits and host seconds (the
-    card synchronised before the clock is read, as serve does)."""
+def cache_bytes(cache):
+    """Bytes of a cache's leaves but the fill counters ("pos")."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(v) for k, v in cache.items() if k != "pos")
+    if isinstance(cache, list):
+        return sum(cache_bytes(v) for v in cache)
+    return cache.numel() * cache.element_size()
+
+
+def lm_serve(torch, cfg, argv=None, caches=False):
+    """``launch.serve.main(argv)`` (LM_SERVE by default) with ``cfg`` in
+    place of the arch's: returns the model it drew (``init_sharded``),
+    the mesh it made, each batch's JSON line, and each prefill's and
+    decode step's tokens, logits and host seconds (the card synchronised
+    before the clock is read, as serve does); with ``caches`` each
+    call's cache bytes too (``prefill_cache``, ``decode_cache``)."""
     import io
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serving import decode
-    rec = {"models": [], "prefill": [], "decode": []}
+    rec = {"models": [], "meshes": [], "prefill": [], "decode": [],
+           "prefill_cache": [], "decode_cache": []}
 
-    def keep_model(orig):
-        def init(*a, **k):
-            rec["models"].append(orig(*a, **k))
-            return rec["models"][-1]
-        return init
+    def keeping(key):
+        def wrap(orig):
+            def make(*a, **k):
+                rec[key].append(orig(*a, **k))
+                return rec[key][-1]
+            return make
+        return wrap
 
     def recording(key):
         def wrap(orig):
@@ -5558,20 +5880,24 @@ def lm_serve(torch, cfg):
                 torch.cuda.synchronize()
                 rec[key].append((batch["tokens"], logits,
                                  time.perf_counter() - t0))
+                if caches:
+                    rec[key + "_cache"].append(cache_bytes(cache))
                 return logits, cache
             return step
         return wrap
 
     out = io.StringIO()
     with contextlib.ExitStack() as st:
-        st.enter_context(patched(M, "init_params", keep_model))
+        st.enter_context(patched(M, "init_sharded", keeping("models")))
+        st.enter_context(patched(serve, "make_local_mesh",
+                                 keeping("meshes")))
         st.enter_context(patched(decode, "prefill", recording("prefill")))
         st.enter_context(patched(decode, "decode_step",
                                  recording("decode")))
         st.enter_context(patched(serve, "resolve_config",
                                  lambda orig: lambda arch, smoke: cfg))
         st.enter_context(contextlib.redirect_stdout(out))
-        rc = serve.main(LM_SERVE)
+        rc = serve.main(LM_SERVE if argv is None else argv)
     lines = out.getvalue().splitlines()
     for ln in lines:
         log(f"[serve {cfg.name}] {ln}")
@@ -5601,12 +5927,19 @@ def lm_report(rec):
 
 def lm_teacher_forcing(torch, ck, cfg, pcfg, model, rec):
     """Each batch's prefill and decode logits against one full forward
-    of the same tokens on the card; returns the largest error."""
+    of the same tokens on the card; returns the largest error.  Where
+    ``cfg`` has a Mamba layer, the forward's tokens are padded at the end
+    to a multiple of its SSD chunk, which the earlier positions of a
+    causal model do not read."""
     from repro_torch.models import model as M
+    mamba = any(sp.mixer == "mamba" for sb, _ in cfg.segments for sp in sb)
+    multiple = cfg.ssm_chunk if mamba else 1
     err = 0.0
     for (prompt, logits_p, _), dec in zip(rec["prefill"],
                                           _per_batch(rec, "decode")):
         toks = torch.cat([prompt] + [t for t, _, _ in dec], dim=1)
+        pad = -toks.shape[1] % multiple
+        toks = torch.cat([toks, toks.new_zeros((toks.shape[0], pad))], 1)
         with torch.inference_mode():
             full, _, _ = M.forward(cfg, pcfg, model, {"tokens": toks},
                                    want_cache=False)
@@ -5673,20 +6006,28 @@ def lm_full(torch, ck, cfg, pcfg, teacher, decode_batches):
     return report, model
 
 
-def lm_moe_packs(torch, ck, cfg, layer, x, reps):
-    """The dispatch and combine packs of one routing of ``x``: the
-    kernel against its plain version on the same inputs, its ms, bound,
-    plain ms and ``torch.sparse.mm``'s (CSR) ms."""
+def lm_moe_packs(torch, ck, cfg, layer, x, reps, rank=0, shares=1):
+    """The dispatch and combine packs of one routing of ``x`` (of
+    expert-parallel share ``rank`` of ``shares``: its experts' slots,
+    ``moe.moe_share``): the kernel against its plain version on the same
+    inputs, its ms, bound, plain ms and ``torch.sparse.mm``'s (CSR)
+    ms."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.spmm import spmm_cuda
     from repro_torch.models import moe as MOE
     E, d = cfg.moe_experts, cfg.d_model
     xf = x.reshape(-1, d)
     _, _, gate_v, slot, keep, C, _ = MOE.route(cfg, layer, xf)
+    rows = E // shares * C
+    if shares > 1:
+        lo = rank * rows
+        keep = keep & (slot >= lo) & (slot < lo + rows)
+        slot = torch.where(keep, slot - lo, 0)
     g = torch.Generator(device="cuda").manual_seed(6)
-    y = torch.randn((E * C, d), generator=g, device="cuda")
-    packs = {"dispatch": (MOE.dispatch_pack(slot, keep, xf.shape[0], E * C,
+    y = torch.randn((rows, d), generator=g, device="cuda")
+    packs = {"dispatch": (MOE.dispatch_pack(slot, keep, xf.shape[0], rows,
                                             xf.dtype), xf),
-             "combine": (MOE.combine_pack(slot, gate_v * keep, E * C), y)}
+             "combine": (MOE.combine_pack(slot, gate_v * keep, rows), y)}
     out = {}
     for name, (S, Bd) in packs.items():
         m = S.shape[0]
@@ -5708,6 +6049,7 @@ def lm_moe_packs(torch, ck, cfg, layer, x, reps):
             "slots": S.rows_local.numel(), "row_tile": S.row_tile,
             "max_abs_err": ck.close(kern(), plain(), 2e-3,
                                     f"lm moe {name} kernel vs plain"),
+            "form": spmm_cuda.last_form,
             "ms": time_ms(torch, kern, reps),
             "plain_ms": time_ms(torch, plain, reps),
             "library_ms": time_ms(torch, lambda sp=sp, Bd=Bd:
@@ -6399,6 +6741,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-fsdp-only", action="store_true",
                     help="the dist phase runs its FSDP cells alone (four "
                          "cards)")
+    ap.add_argument("--dist-serve-tp-only", action="store_true",
+                    help="the dist phase runs its serving cells on the "
+                         "model axis alone (four cards)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -6415,7 +6760,7 @@ def main(argv=None) -> int:
     serving_launches, obs_launches, dist_serving_launches = None, None, None
     lm_launches, train_lm_launches = None, None
     train_lm_tp_launches, dist_tp_launches = None, None
-    dist_fsdp_launches = None
+    dist_fsdp_launches, serve_tp_rows = None, None
     main_state = {} if "obs" in phases else None
     for ph in phases:
         t0 = time.perf_counter()
@@ -6446,7 +6791,7 @@ def main(argv=None) -> int:
                                              args.apps_scale)
         elif ph == "dist":
             (dist_launches, dist_serving_launches, dist_tp_launches,
-             dist_fsdp_launches) = phase_dist(
+             dist_fsdp_launches, serve_tp_rows) = phase_dist(
                 torch, args.scale, args.reps, args.comm_scale,
                 args.apps_scale,
                 "serving" if args.dist_serving_only
@@ -6454,6 +6799,7 @@ def main(argv=None) -> int:
                 else "tp" if args.dist_tp_only
                 else "tp_sums" if args.dist_tp_sums_only
                 else "fsdp" if args.dist_fsdp_only
+                else "serve_tp" if args.dist_serve_tp_only
                 else None)
         elif ph == "rmat_padding":
             phase_rmat_padding(torch, args.comm_scale - 2)
@@ -6503,6 +6849,8 @@ def main(argv=None) -> int:
                 None if dist_fsdp_launches is None
                 else [rk[row["name"]] for rk in dist_fsdp_launches])
         emit({"kernels": kernels})
+    elif serve_tp_rows is not None:
+        emit({"kernels": serve_tp_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

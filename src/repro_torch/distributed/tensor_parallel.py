@@ -32,6 +32,11 @@ column-parallel product); the backward adds the second's summed
 gradient to the first's.  A layer's output is a partial sum (``g``
 applies) and/or a replicated tensor, which :meth:`TP.exit` adds.
 
+A serving forward's cache leaves split over the group carry their
+dimension as a shard does (:func:`placed`; :func:`full_cache` gathers
+them), and a decode step over blocks of cached positions adds the ranks'
+softmax shares in rank order (:meth:`TP.softmax_combine`).
+
 Under ``seq_parallel`` (Megatron-SP) the residual stream between two
 layers holds this rank's ``S / m`` positions: :meth:`TP.enter` all-gathers
 the sequence (its backward reduce-scatters), :meth:`TP.exit`
@@ -101,6 +106,39 @@ class TP:
 
     def chunk(self, x, dim):
         return x.chunk(self.size, dim=dim)[self.rank]
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        """Chunk ``j`` of ``x`` along ``split_dim`` to rank ``j``; the
+        chunks this rank receives, concatenated along ``cat_dim`` in rank
+        order."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+        chunks = torch.stack([c.contiguous() for c in
+                              x.chunk(self.size, dim=split_dim)])
+        got = torch.empty_like(chunks)
+        dist.all_to_all_single(got, chunks, group=self.group)
+        return torch.cat(list(got), dim=cat_dim)
+
+    def softmax_combine(self, m, l, acc):
+        """Attention over the group's blocks of keys from each rank's
+        share: its row max ``m``, sum of exponentials ``l`` (..., H) and
+        exponential-weighted values ``acc`` (..., H, dv), all gathered and
+        rescaled to the group's max, then added in rank order (the same
+        bits on every rank and in every run; no atomics).  Returns the
+        attention output (..., H, dv) in float32."""
+        parts = self._parts(torch.cat([m[..., None], l[..., None], acc],
+                                      -1).float())
+        top = parts[0][..., 0]
+        for q in parts[1:]:
+            top = torch.maximum(top, q[..., 0])
+        den = num = None
+        for q in parts:
+            w = torch.exp(q[..., 0] - top)
+            dl, da = q[..., 1] * w, q[..., 2:] * w[..., None]
+            den = dl if den is None else den + dl
+            num = da if num is None else num + da
+        return num / torch.clamp_min(den, 1e-30)[..., None]
 
     # -- the operators (identities on a group of one) ------------------
     def copy(self, x):
@@ -429,6 +467,28 @@ def full_leaf(x, dim: Optional[int], tp: Optional[TP]):
     """The whole leaf of ``x``, this rank's shard along ``dim`` (gathered
     over ``tp``'s group; ``x`` itself where it is whole)."""
     return x if dim is None or tp is None else tp.cat(x, dim)
+
+
+def placed(x, dim: Optional[int]):
+    """``x`` marked as this rank's part of a cache leaf split along
+    ``dim`` over the model group (``shard_dim`` reads it); ``x`` itself
+    where ``dim`` is None."""
+    if dim is not None:
+        x.tp_dim = dim
+    return x
+
+
+@torch.no_grad()
+def full_cache(cache, tp: Optional[TP]):
+    """``cache`` with every leaf that the model group splits
+    (``placed``) gathered whole along its dimension, in rank order: this
+    data rank's rows of the whole cache (every rank of ``tp`` takes
+    part)."""
+    if isinstance(cache, dict):
+        return {k: full_cache(v, tp) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(full_cache(v, tp) for v in cache)
+    return full_leaf(cache, shard_dim(cache), tp)
 
 
 def fsdp_dim(w) -> Optional[int]:

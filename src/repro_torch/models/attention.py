@@ -6,12 +6,20 @@ where the reference scans), so its memory is O(S * block) instead of
 O(S^2).  Decode attends one query against the cache with a fill mask;
 the new token is written at ``cache["pos"]`` by an index write where the
 reference writes through a one-hot mask (the same values).
+
+Each layer's math is written once, on the leaves' shards under a model
+group (``gqa_tp``, ``mla_tp``; ``distributed/tensor_parallel.py``):
+``gqa`` and ``mla`` are those bodies on the group of one.  A cache leaf
+split over the group carries the dimension it splits (``tp_dim``, read
+by ``tensor_parallel.shard_dim``): positions under ``seq_shard_decode``,
+else a GQA cache's KV heads.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models.layers import Init, apply_mrope, apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -106,11 +114,64 @@ def flash_attention(q, k, v, *, causal: bool, block: int, q_offset=0,
     return out.reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
-def _write_at(cache, new, fill):
-    """``cache`` (B, S, ...) with ``new`` (B, 1, ...) at row fill[b] of
-    each batch entry b (out of place)."""
-    b = torch.arange(cache.shape[0], device=cache.device)
-    return cache.index_put((b, fill.long()), new[:, 0].to(cache.dtype))
+
+
+def decode_partial(q, k, v, valid, scale):
+    """One rank's share of single-query attention over its block of
+    cached positions: ``(m, l, acc)``, the row max of the scores, the sum
+    of their exponentials and the exponential-weighted values, each
+    (B, Sq, H[, hd_v]) in float32.  ``valid`` (B, Sk) masks the block's
+    positions past the fill; a block with none has m = NEG_INF and l =
+    acc = 0.  ``TP.softmax_combine`` adds the ranks' shares."""
+    B, Sq, H, hd = q.shape
+    KvH, hd_v = k.shape[2], v.shape[-1]
+    rep = H // KvH
+    qf = (q.float() * scale).reshape(B, Sq, KvH, rep, hd)
+    s = torch.einsum("bqgrh,bkgh->bqgrk", qf, k.float())
+    mask = valid[:, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bqgrk,bkgh->bqgrh", p, v.float())
+    return (m.reshape(B, Sq, H), p.sum(-1).reshape(B, Sq, H),
+            acc.reshape(B, Sq, H, hd_v))
+
+
+def _write_block(cache, new, fill, lo=0):
+    """``cache`` (B, S_block, ...), the positions ``[lo, lo + S_block)``
+    of a cache, with ``new`` (B, 1, ...) at position fill[b] of each batch
+    entry b whose fill falls in the block (out of place; a fill outside
+    it writes nothing, as the reference's one-hot write does past the
+    end).  Keeps ``cache``'s placement (``tensor_parallel.placed``)."""
+    B, Sb = cache.shape[:2]
+    local = fill.long() - lo if lo else fill.long()
+    at = local.clamp(0, Sb - 1)
+    idx = (torch.arange(B, device=cache.device), at)
+    keep = (at == local).reshape((B,) + (1,) * (new.dim() - 2))
+    val = torch.where(keep, new[:, 0].to(cache.dtype), cache[idx])
+    return tpm.placed(cache.index_put(idx, val), tpm.shard_dim(cache))
+
+
+def _decode_positions(cfg, fill, B, S):
+    """The rotary positions of a decode step: the fill (the reference's
+    decode ignores ``batch["positions"]``)."""
+    pos = fill[:, None]
+    if cfg.pos_dims == 3:
+        pos = pos[..., None].expand(B, S, 3)
+    return pos
+
+
+def _seq_split(pcfg, tp, S: int) -> bool:
+    """Whether a cache of ``S`` positions holds one block of them on each
+    rank of ``tp``: ``seq_shard_decode``'s split, kept where ``S``
+    divides (``sharding.sanitize_spec``)."""
+    return bool(pcfg.seq_shard_decode) and tp.size > 1 and S % tp.size == 0
+
+
+def _block(tp, y):
+    """This rank's block of positions (dimension 1) of a replicated
+    ``y``, placed."""
+    return tpm.placed(tp.chunk(y, 1).contiguous(), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -138,40 +199,13 @@ def init_gqa(init: Init, cfg) -> GQA:
 
 
 def gqa(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
-    """Returns (out, new_cache_entry).  cache entry: dict(k, v, pos)."""
+    """Returns (out, new_cache_entry).  cache entry: dict(k, v, pos).
+    :func:`gqa_tp` on a group of one."""
     del layer_id
-    B, S, d = x.shape
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(B, S, Kv, hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(B, S, Kv, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
-
-    if cache is None:                      # train / full prefill
-        pos = _positions(cfg, batch, B, S, device=x.device)
-        q = _rope(cfg, q, pos)
-        k = _rope(cfg, k, pos)
-        out = flash_attention(q, k, v, causal=cfg.causal,
-                              block=pcfg.flash_block)
-        new_cache = {"k": k, "v": v,
-                     "pos": torch.full((B,), S, dtype=torch.int32,
-                                       device=x.device)}
-    else:                                  # single-token decode
-        fill = cache["pos"]                # (B,)
-        pos = fill[:, None]
-        if cfg.pos_dims == 3:
-            pos = pos[..., None].expand(B, S, 3)
-        q = _rope(cfg, q, pos)
-        k = _rope(cfg, k, pos)
-        ck = _write_at(cache["k"], k, fill)
-        cv = _write_at(cache["v"], v, fill)
-        out = plain_decode_attention(q, ck, cv, fill + 1)
-        new_cache = {"k": ck, "v": cv, "pos": fill + 1}
-
-    out = out.reshape(B, S, H * hd)
-    return out @ p.wo.to(x.dtype), new_cache
+    one = tpm.ONE
+    (part, rep), new = gqa_tp(cfg, pcfg, p, one.enter(x), batch, one, cache,
+                              want_cache=True)
+    return one.exit(part, rep), new
 
 
 def init_gqa_cache(cfg, B, S, dtype=torch.bfloat16, device=None):
@@ -208,48 +242,13 @@ def init_mla(init: Init, cfg) -> MLA:
 def mla(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
     """Multi-head Latent Attention.  Cache holds only (c_kv, k_pe) --
     (kv_lora + rope_dim) floats per token instead of 2*Kv*hd.  k_pe is
-    shared by the heads; the score scale is (hd + rd)**-0.5."""
+    shared by the heads; the score scale is (hd + rd)**-0.5.
+    :func:`mla_tp` on a group of one."""
     del layer_id
-    B, S, d = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    rd = cfg.mla_rope_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, H, hd + rd)
-    q_nope, q_pe = q[..., :hd], q[..., hd:]
-    c_kv = x @ p.wdkv.to(x.dtype)
-    k_pe = x @ p.wkpe.to(x.dtype)
-
-    if cache is None:
-        pos = _positions(cfg, batch, B, S, device=x.device)
-        fill = torch.full((B,), S, dtype=torch.int32, device=x.device)
-        kv_len = None
-    else:
-        fill = cache["pos"]
-        pos = fill[:, None]
-        c_kv = _write_at(cache["c_kv"], c_kv, fill)
-        kv_len = fill + 1
-
-    q_pe = _rope(cfg, q_pe, pos)
-    k_pe = _rope(cfg, k_pe[:, :, None, :], pos)[:, :, 0]
-    if cache is None:
-        new_cache = {"c_kv": c_kv, "k_pe": k_pe, "pos": fill}
-        pe_c = k_pe
-    else:
-        pe_c = _write_at(cache["k_pe"], k_pe, fill)
-        new_cache = {"c_kv": c_kv, "k_pe": pe_c, "pos": fill + 1}
-
-    # decompress K/V from the latent cache
-    k_nope = (c_kv @ p.wuk.to(x.dtype)).reshape(B, -1, H, hd)
-    v = (c_kv @ p.wuv.to(x.dtype)).reshape(B, -1, H, hd)
-    k = torch.cat([k_nope, pe_c[:, :, None, :].expand(
-        *k_nope.shape[:3], rd)], -1)
-    qf = torch.cat([q_nope, q_pe], -1)
-    if kv_len is None:
-        out = flash_attention(qf, k, v, causal=cfg.causal,
-                              block=pcfg.flash_block)
-    else:
-        out = plain_decode_attention(qf, k, v, kv_len)
-    out = out.reshape(B, S, H * hd)
-    return out @ p.wo.to(x.dtype), new_cache
+    one = tpm.ONE
+    (part, rep), new = mla_tp(cfg, pcfg, p, one.enter(x), batch, one, cache,
+                              want_cache=True)
+    return one.exit(part, rep), new
 
 
 def init_mla_cache(cfg, B, S, dtype=torch.bfloat16, device=None):
@@ -261,7 +260,7 @@ def init_mla_cache(cfg, B, S, dtype=torch.bfloat16, device=None):
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism (training: no cache)
+# the layers under tensor parallelism (a group of one: the whole layer)
 # ---------------------------------------------------------------------------
 
 def _tp_heads(tp, h, w, nh, width):
@@ -270,9 +269,8 @@ def _tp_heads(tp, h, w, nh, width):
     ``w``'s column split falls on head boundaries, else all ``nh`` heads
     computed the same on every rank (``first`` None; a split inside a
     head is gathered whole, as GSPMD's resharding does)."""
-    from repro_torch.distributed.tensor_parallel import shard_dim
     B, S = h.rep.shape[:2]
-    if shard_dim(w) != 1:
+    if tpm.shard_dim(w) != 1:
         return (h.rep @ w.to(h.rep.dtype)).reshape(B, S, nh, width), None
     y = h.par @ w.to(h.par.dtype)
     if nh % tp.size == 0:
@@ -298,6 +296,14 @@ def _heads_for(tp, y, first, q0, nq, rep):
     return tp.copy(y).index_select(2, idx)
 
 
+def _kv_for(tp, y, first, q0, nq, rep):
+    """The KV heads the attention of this rank's query heads reads: all
+    of them where the rank computes every query head (``q0`` None)."""
+    if q0 is None:
+        return _all_heads(tp, y, first)
+    return _heads_for(tp, y, first, q0, nq, rep)
+
+
 def _norm_param(tp, w, first):
     """A replicated norm scale, *f* applied where it meets this rank's
     heads only."""
@@ -308,19 +314,61 @@ def _tp_out(tp, p, out, q0):
     """``(partial, replicated)``: this rank's heads through its rows of
     the row-parallel ``wo``, or all heads (this rank's part where ``wo``
     is split)."""
-    from repro_torch.distributed.tensor_parallel import shard_dim
     wo = p.wo
     if q0 is not None:
         return out @ wo.to(out.dtype), None
-    if shard_dim(wo) == 0:
+    if tpm.shard_dim(wo) == 0:
         return tp.split(out, -1) @ wo.to(out.dtype), None
     return None, out @ wo.to(out.dtype)
 
 
-def gqa_tp(cfg, pcfg, p, h, batch, tp):
+def _kv_entry(pcfg, tp, y, first, S):
+    """A prefill's cached K or V (rotated K), placed as the cache is
+    (``models.model.init_cache``): under ``seq_shard_decode`` where ``S``
+    splits, this rank's block of positions of every head (one all-to-all
+    where the rank holds its heads); else this rank's heads where it
+    computes them, unless ``seq_shard_decode`` keeps the cache whole;
+    else every head."""
+    if _seq_split(pcfg, tp, S):
+        if first is None:
+            return _block(tp, y)
+        return tpm.placed(tp.all_to_all(y, 1, 2), 1)
+    if first is None:
+        return y
+    if pcfg.seq_shard_decode:
+        return tp.cat(y, 2)
+    return tpm.placed(y, 2)
+
+
+def _combined(tp, q, k, v, valid, scale):
+    """Single-query attention of ``q`` over the group's blocks of
+    positions: each rank's share (:func:`decode_partial`) added in rank
+    order (``TP.softmax_combine``)."""
+    m, l, acc = decode_partial(q, k, v, valid, scale)
+    return tp.softmax_combine(m, l, acc).to(q.dtype)
+
+
+def _block_valid(cache, fill, lo):
+    """(B, S_block): the block's positions ``[lo, lo + S_block)`` below
+    the new fill ``fill + 1``."""
+    idx = lo + torch.arange(cache.shape[1], device=cache.device)
+    return idx[None, :] <= fill[:, None].long()
+
+
+def gqa_tp(cfg, pcfg, p, h, batch, tp, cache=None, want_cache=False):
     """GQA on the leaves' shards under ``tp`` (``h`` an ``Entry``):
     column-parallel ``wq``/``wk``/``wv``, each rank its own heads, and
-    row-parallel ``wo``.  Returns ``(partial, replicated)``."""
+    row-parallel ``wo``.  Returns ``(partial, replicated)``, and with
+    ``want_cache`` ``((partial, replicated), new cache entry)``.
+
+    Without ``cache`` (training, prefill) causal flash attention over the
+    sequence; the entry keeps the rotated K and V as :func:`_kv_entry`
+    places them.  With one (decode, one token at ``cache["pos"]``): where
+    the cache holds this rank's block of positions, every rank scores
+    all query heads (gathered: a few KB a step) against its block, the
+    new token's K/V go to the rank owning its position, and the ranks'
+    softmax shares are combined in rank order; else this rank's query
+    heads attend over the whole cache (its KV heads, or all)."""
     B, S, _ = h.rep.shape
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, q0 = _tp_heads(tp, h, p.wq, H, hd)
@@ -329,47 +377,144 @@ def gqa_tp(cfg, pcfg, p, h, batch, tp):
     if cfg.qk_norm:
         q = rms_norm(q, _norm_param(tp, p.q_norm, q0), cfg.norm_eps)
         k = rms_norm(k, _norm_param(tp, p.k_norm, k0), cfg.norm_eps)
-    pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    if cache is None:
+        pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    else:
+        fill = cache["pos"]
+        pos = _decode_positions(cfg, fill, B, S)
     q = _rope(cfg, q, pos)
     k = _rope(cfg, k, pos)
-    if q0 is None:
-        k, v = _all_heads(tp, k, k0), _all_heads(tp, v, v0)
+    nq, rep = q.shape[2], H // Kv
+    if cache is None:
+        out = flash_attention(q, _kv_for(tp, k, k0, q0, nq, rep),
+                              _kv_for(tp, v, v0, q0, nq, rep),
+                              causal=cfg.causal, block=pcfg.flash_block)
+        res = _tp_out(tp, p, out.reshape(B, S, -1), q0)
+        new = None if not want_cache else {
+            "k": _kv_entry(pcfg, tp, k, k0, S),
+            "v": _kv_entry(pcfg, tp, v, v0, S),
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=h.rep.device)}
+    elif tpm.shard_dim(cache["k"]) == 1:      # this rank's positions
+        lo = tp.rank * cache["k"].shape[1]
+        ck = _write_block(cache["k"], _all_heads(tp, k, k0), fill, lo)
+        cv = _write_block(cache["v"], _all_heads(tp, v, v0), fill, lo)
+        out = _combined(tp, _all_heads(tp, q, q0), ck, cv,
+                        _block_valid(ck, fill, lo), hd ** -0.5)
+        res = _tp_out(tp, p, out.reshape(B, S, -1), None)
+        new = {"k": ck, "v": cv, "pos": fill + 1}
     else:
-        nq, rep = q.shape[2], H // Kv
-        k = _heads_for(tp, k, k0, q0, nq, rep)
-        v = _heads_for(tp, v, v0, q0, nq, rep)
-    out = flash_attention(q, k, v, causal=cfg.causal, block=pcfg.flash_block)
-    return _tp_out(tp, p, out.reshape(B, S, -1), q0)
+        kf = k0 if tpm.shard_dim(cache["k"]) == 2 else None
+        ck = _write_block(cache["k"], k if kf is not None
+                          else _all_heads(tp, k, k0), fill)
+        cv = _write_block(cache["v"], v if kf is not None
+                          else _all_heads(tp, v, v0), fill)
+        out = plain_decode_attention(q, _kv_for(tp, ck, kf, q0, nq, rep),
+                                     _kv_for(tp, cv, kf, q0, nq, rep),
+                                     fill + 1)
+        res = _tp_out(tp, p, out.reshape(B, S, -1), q0)
+        new = {"k": ck, "v": cv, "pos": fill + 1}
+    return (res, new) if want_cache else res
 
 
-def mla_tp(cfg, pcfg, p, h, batch, tp):
+def _latent_queries(cfg, tp, p, q_nope, q0):
+    """Every head's no-rope query in latent space, q_nope_h @ wuk_h^T
+    (B, S, H, kv_lora): this rank's heads through its columns of ``wuk``,
+    gathered, where both split on the same heads; else from the whole
+    queries and ``wuk``."""
+    B, S = q_nope.shape[:2]
+    kvl, hd = cfg.mla_kv_lora, cfg.hd
+    if q0 is not None and tpm.shard_dim(p.wuk) == 1:
+        w = p.wuk.to(q_nope.dtype).reshape(kvl, q_nope.shape[2], hd)
+        return tp.gather(torch.einsum("bshd,lhd->bshl", q_nope, w), 2)
+    w = tp.weight(p.wuk).to(q_nope.dtype).reshape(kvl, cfg.n_heads, hd)
+    return torch.einsum("bshd,lhd->bshl", _all_heads(tp, q_nope, q0), w)
+
+
+def _latent_values(cfg, tp, p, lat, q0):
+    """Attention over the latents ``lat`` (B, S, H, kv_lora) through each
+    head's ``wuv`` columns, then ``wo``: ``(partial, replicated)``."""
+    B, S = lat.shape[:2]
+    kvl, hd = cfg.mla_kv_lora, cfg.hd
+    if q0 is not None and tpm.shard_dim(p.wuv) == 1:
+        n = p.wuv.shape[1] // hd
+        w = p.wuv.to(lat.dtype).reshape(kvl, n, hd)
+        out = torch.einsum("bshl,lhd->bshd", lat[:, :, q0:q0 + n], w)
+        return _tp_out(tp, p, out.reshape(B, S, -1), q0)
+    w = tp.weight(p.wuv).to(lat.dtype).reshape(kvl, cfg.n_heads, hd)
+    out = torch.einsum("bshl,lhd->bshd", lat, w)
+    return _tp_out(tp, p, out.reshape(B, S, -1), None)
+
+
+def mla_tp(cfg, pcfg, p, h, batch, tp, cache=None, want_cache=False):
     """MLA on the leaves' shards under ``tp``: column-parallel ``wq``,
     ``wuk`` and ``wuv`` (each rank its own heads), the latent projections
     ``wdkv``/``wkpe`` replicated, row-parallel ``wo``.  Returns
-    ``(partial, replicated)``."""
-    from repro_torch.distributed.tensor_parallel import Entry
+    ``(partial, replicated)``, and with ``want_cache`` ``((partial,
+    replicated), new cache entry)``.
+
+    The latents ``c_kv``/``k_pe`` are computed the same on every rank.
+    Where the cache holds this rank's block of positions of them
+    (``seq_shard_decode``), a decode step runs in the absorbed form: every
+    head's query enters latent space (:func:`_latent_queries`), each rank
+    scores every head against its block, the softmax shares are combined
+    in rank order over the latents, and each rank projects its heads'
+    latent mix through its ``wuv`` columns.  Else K and V are decompressed
+    from the whole latents, this rank's heads."""
     B, S, _ = h.rep.shape
     H, hd, rd = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
     q, q0 = _tp_heads(tp, h, p.wq, H, hd + rd)
     q_nope, q_pe = q[..., :hd], q[..., hd:]
     c_kv = h.rep @ p.wdkv.to(h.rep.dtype)
     k_pe = h.rep @ p.wkpe.to(h.rep.dtype)
-    pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    if cache is None:
+        pos = _positions(cfg, batch, B, S, device=h.rep.device)
+    else:
+        fill = cache["pos"]
+        pos = _decode_positions(cfg, fill, B, S)
     q_pe = _rope(cfg, q_pe, pos)
     k_pe = _rope(cfg, k_pe[:, :, None, :], pos)[:, :, 0]
-    ckv = Entry(c_kv, tp.copy(c_kv))
+    if cache is not None and tpm.shard_dim(cache["c_kv"]) == 1:
+        lo = tp.rank * cache["c_kv"].shape[1]
+        ckv = _write_block(cache["c_kv"], c_kv, fill, lo)
+        pe = _write_block(cache["k_pe"], k_pe, fill, lo)
+        qc = torch.cat([_latent_queries(cfg, tp, p, q_nope, q0),
+                        _all_heads(tp, q_pe, q0)], -1)
+        kc = torch.cat([ckv, pe], -1)[:, :, None, :]
+        lat = _combined(tp, qc, kc, ckv[:, :, None, :],
+                        _block_valid(ckv, fill, lo), (hd + rd) ** -0.5)
+        res = _latent_values(cfg, tp, p, lat, q0)
+        new = {"c_kv": ckv, "k_pe": pe, "pos": fill + 1}
+        return (res, new) if want_cache else res
+    if cache is None:
+        kv_len = None
+        split = _seq_split(pcfg, tp, S)
+        new = None if not want_cache else {
+            "c_kv": _block(tp, c_kv) if split else c_kv,
+            "k_pe": _block(tp, k_pe) if split else k_pe,
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=h.rep.device)}
+    else:
+        c_kv = _write_block(cache["c_kv"], c_kv, fill)
+        k_pe = _write_block(cache["k_pe"], k_pe, fill)
+        kv_len = fill + 1
+        new = {"c_kv": c_kv, "k_pe": k_pe, "pos": kv_len}
+    # decompress K/V from the latent cache
+    ckv = tpm.Entry(c_kv, tp.copy(c_kv))
     k_nope, k0 = _tp_heads(tp, ckv, p.wuk, H, hd)
     v, v0 = _tp_heads(tp, ckv, p.wuv, H, hd)
-    if q0 is None:
-        k_nope, v = _all_heads(tp, k_nope, k0), _all_heads(tp, v, v0)
-    else:
-        nq = q.shape[2]
-        k_nope = _heads_for(tp, k_nope, k0, q0, nq, 1)
-        v = _heads_for(tp, v, v0, q0, nq, 1)
+    nq = q.shape[2]
+    k_nope = _kv_for(tp, k_nope, k0, q0, nq, 1)
+    v = _kv_for(tp, v, v0, q0, nq, 1)
+    if q0 is not None:
         k_pe = tp.copy(k_pe)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         *k_nope.shape[:3], rd)], -1)
     qf = torch.cat([q_nope, q_pe], -1)
-    out = flash_attention(qf, k, v, causal=cfg.causal,
-                          block=pcfg.flash_block)
-    return _tp_out(tp, p, out.reshape(B, S, -1), q0)
+    if kv_len is None:
+        out = flash_attention(qf, k, v, causal=cfg.causal,
+                              block=pcfg.flash_block)
+    else:
+        out = plain_decode_attention(qf, k, v, kv_len)
+    res = _tp_out(tp, p, out.reshape(B, S, -1), q0)
+    return (res, new) if want_cache else res

@@ -19,17 +19,20 @@ train step's ``group``: each rank holds rows of the global batch, see
 (drawn by :func:`init_sharded`, or kept from a whole model by
 ``distributed.tensor_parallel.shard_model``), Megatron-style
 (:func:`_forward_tp`; ``seq_parallel`` and ``dp_over_model`` as the
-reference reads them).  Every forward without a cache (training) runs
-that code, on one process's whole leaves as a group of one.  Under FSDP
-(``distributed/fsdp.py``: leaves split over the data axis, drawn by
-:func:`init_sharded`) each block gathers its leaves at its start, and
-``ParallelConfig.remat`` runs each block under
-``torch.utils.checkpoint``.  Serving under a model axis is not ported
-yet: a forward that keeps a cache there raises (:data:`SERVE_TP_ITEM`),
-as it does on leaves that FSDP split (:data:`SERVE_FSDP`).
+reference reads them).  Every forward runs that code, with or without a
+cache, on one process's whole leaves as a group of one.  A serving
+forward keeps a cache placed as :func:`init_cache` places it (the
+sanitized ``cache_specs``: this rank's positions under
+``seq_shard_decode``, its heads of the SSM state, its channels of the
+conv window).  Under FSDP (``distributed/fsdp.py``: leaves split over
+the data axis, drawn by :func:`init_sharded`) each block gathers its
+leaves at its start, and ``ParallelConfig.remat`` runs each block under
+``torch.utils.checkpoint``; a forward that keeps a cache refuses leaves
+that FSDP split (:data:`SERVE_FSDP`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -45,8 +48,7 @@ from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (Init, init_mlp, init_rms, rms_norm,
-                                       swiglu, swiglu_tp)
+from repro_torch.models.layers import Init, init_mlp, init_rms, swiglu_tp
 
 
 def _dtype(name):
@@ -60,12 +62,6 @@ def batch_axes(pcfg):
     if pcfg.dp_over_model:
         axes = axes + (pcfg.model_axis,)
     return axes
-
-
-#: the ROADMAP item that serves under the "model" axis
-SERVE_TP_ITEM = ("serving under a 'model' axis is not ported yet "
-                 "(ROADMAP.md, queue 1: cache_specs' model-sharded caches "
-                 "and seq_shard_decode)")
 
 
 #: why the cached forward refuses a model whose leaves FSDP has split
@@ -189,9 +185,14 @@ def init_sharded(cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
-               device=None):
-    """Static KV/SSM cache mirroring the segment structure."""
+               device=None, pcfg: Optional[ParallelConfig] = None,
+               mesh=None):
+    """Static KV/SSM cache mirroring the segment structure.  With
+    ``pcfg``, under ``mesh`` (default: the installed one) each leaf is
+    only this rank's slice of the whole (:func:`cache_placement`), its
+    model-axis split recorded (``tensor_parallel.placed``)."""
     dev = _device.resolve(device)
+    whole_dev = "meta" if pcfg is not None else dev
     segs = []
     for sb, cnt in cfg.segments:
         reps = []
@@ -200,53 +201,76 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
             for i, spec in enumerate(sb):
                 if spec.mixer == "attn":
                     if cfg.mla_kv_lora:
-                        c = attn_mod.init_mla_cache(cfg, B, S, dtype, dev)
+                        c = attn_mod.init_mla_cache(cfg, B, S, dtype,
+                                                    whole_dev)
                     else:
-                        c = attn_mod.init_gqa_cache(cfg, B, S, dtype, dev)
+                        c = attn_mod.init_gqa_cache(cfg, B, S, dtype,
+                                                    whole_dev)
                 else:
-                    c = ssm_mod.init_mamba2_cache(cfg, B, dtype, dev)
+                    c = ssm_mod.init_mamba2_cache(cfg, B, dtype, whole_dev)
                 blks[f"blk{i}"] = c
             reps.append(blks)
         segs.append(reps)
-    return {"segments": segs}
+    cache = {"segments": segs}
+    if pcfg is None:
+        return cache
+    mesh = sharding.current_mesh() if mesh is None else mesh
+    sizes = {} if mesh is None else mesh.axis_sizes
+
+    def local(_, x, dims):
+        shape = list(x.shape)
+        for dim, axis in zip(dims, (pcfg.model_axis, pcfg.data_axis)):
+            if dim is not None:
+                shape[dim] //= sizes[axis]
+        return tpm.placed(torch.zeros(shape, dtype=x.dtype, device=dev),
+                          dims[0])
+    return _cache_map(local, cache, cache_placement(cfg, pcfg, cache, mesh))
+
+
+def _cache_map(fn, cache, *others):
+    """``fn(leaf name, leaf, each of others' leaves)`` at each leaf of a
+    tree of :func:`init_cache`'s structure."""
+    return {"segments": [[{blk: {
+        name: fn(name, x, *(o["segments"][si][ri][blk][name] for o in others))
+        for name, x in entry.items()} for blk, entry in rep.items()}
+        for ri, rep in enumerate(seg)]
+        for si, seg in enumerate(cache["segments"])]}
+
+
+def cache_placement(cfg: ModelConfig, pcfg: ParallelConfig, cache, mesh):
+    """``cache``'s structure with ``(dimension split over the model axis,
+    over the data axis)`` a leaf, each None where that axis does not
+    split it: :func:`cache_specs` sanitized on the whole shapes
+    (``cache``'s leaves; the meta device will do), as the reference's
+    serving cells place their caches.  One difference by design: without
+    ``seq_shard_decode`` a GQA cache's ``k``/``v`` keep the KV heads that
+    this rank's column shard of ``wk``/``wv`` makes (where they split:
+    ``n_kv_heads % model == 0``), where ``cache_specs`` keeps them whole
+    on every model rank.  The model axis splits nothing where the forward
+    does not run on it (no mesh, one model rank, ``dp_over_model``)."""
+    sizes = {} if mesh is None else mesh.axis_sizes
+    specs = sharding.sanitize_tree(cache_specs(cfg, pcfg, cache), cache,
+                                   sizes)
+    tp = None if mesh is None else tpm.of_mesh(mesh, pcfg)
+    m = 1 if tp is None else tp.size
+    rows = sizes.get(pcfg.data_axis, 1) > 1
+
+    def axis_dim(spec, axis):
+        return next((i for i, e in enumerate(spec) if e == axis or (
+            isinstance(e, tuple) and axis in e)), None)
+
+    def dims(name, spec):
+        td = axis_dim(spec, pcfg.model_axis) if m > 1 else None
+        if name in ("k", "v") and m > 1 and not pcfg.seq_shard_decode \
+                and cfg.n_kv_heads % m == 0:
+            td = 2
+        return td, axis_dim(spec, pcfg.data_axis) if rows else None
+    return _cache_map(lambda name, _, spec: dims(name, spec), cache, specs)
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-
-def _apply_block(cfg, pcfg, spec, p, x, batch, cache, aux,
-                 want_cache=True, group=None):
-    h = rms_norm(x, p.norm1, cfg.norm_eps)
-    if spec.mixer == "attn":
-        fn = attn_mod.mla if cfg.mla_kv_lora else attn_mod.gqa
-        out, new_cache = fn(cfg, pcfg, p.attn, h, batch, cache)
-    else:
-        out, new_cache = ssm_mod.mamba2(cfg, pcfg, p.mamba, h, batch, cache)
-    if not want_cache:
-        new_cache = None
-    x = x + out
-    if spec.ffn != "none":
-        h = rms_norm(x, p.norm2, cfg.norm_eps)
-        if spec.ffn == "dense":
-            x = x + swiglu(h, p.mlp.w1, p.mlp.w3, p.mlp.w2)
-        else:
-            out, moe_aux = moe_mod.moe(cfg, pcfg, p.moe, h, group=group)
-            x = x + out
-            aux = aux + moe_aux["lb_loss"]
-    return x, new_cache, aux
-
-
-def _apply_superblock(cfg, pcfg, sb, blocks, x, batch, caches, aux,
-                      want_cache=True, group=None):
-    new_caches = {}
-    for i, spec in enumerate(sb):
-        cache_i = None if caches is None else caches[f"blk{i}"]
-        x, nc, aux = _apply_block(cfg, pcfg, spec, getattr(blocks, f"blk{i}"),
-                                  x, batch, cache_i, aux, want_cache, group)
-        new_caches[f"blk{i}"] = nc
-    return x, (new_caches if want_cache else None), aux
-
 
 def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
             cache: Optional[dict] = None, want_cache: bool = True,
@@ -260,57 +284,37 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, model: Model, batch,
     place of the logits (the caller projects: last-token-only prefill).
     ``group``: the data-parallel group whose ranks hold consecutive rows
     of one global batch (MoE routing and ``aux`` are the global batch's,
-    ``aux`` this rank's share; ``models/moe.py``).  Without a cache
-    (training) it runs :func:`_forward_tp`: on the installed mesh's model
-    group, or on this process's whole leaves as a group of one.
+    ``aux`` this rank's share; ``models/moe.py``).  Runs
+    :func:`_forward_tp`: on the installed mesh's model group, or on this
+    process's whole leaves as a group of one; a cache is placed as
+    :func:`init_cache` places it.
     """
     tp = tpm.active(pcfg)
     serving = cache is not None or want_cache
-    if serving and tp is not None:
-        raise NotImplementedError(SERVE_TP_ITEM)
     if serving and getattr(model, "fsdp_shards", None) is not None:
         raise NotImplementedError(SERVE_FSDP)
     tpm.check_sharded(model, tp)
-    if not serving:
-        return _forward_tp(cfg, pcfg, fsdp_mod.view(model, pcfg), batch,
-                           return_hidden, group, tp or tpm.ONE)
-    cdt = _dtype(pcfg.compute_dtype)
-    x = embed_tp(cfg, model, batch, cdt, tpm.ONE)
-    x = constrain(x, batch_axes(pcfg), None, None)
-
-    new_segs = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for si, (sb, _) in enumerate(cfg.segments):
-        seg_c = cache["segments"][si] if cache is not None else None
-        reps = []
-        for ri, blocks in enumerate(model.segments[si]):
-            x, nc, aux = _apply_superblock(
-                cfg, pcfg, sb, blocks, x, batch,
-                None if seg_c is None else seg_c[ri], aux, want_cache,
-                group)
-            reps.append(nc)
-        new_segs.append(reps)
-
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    new_cache = {"segments": new_segs} if want_cache else None
-    if return_hidden:
-        return x, new_cache, aux
-    return (x @ vocab_head(cfg, model)[0].to(cdt)).float(), new_cache, aux
+    return _forward_tp(cfg, pcfg, fsdp_mod.view(model, pcfg), batch,
+                       return_hidden, group, tp or tpm.ONE, cache,
+                       want_cache)
 
 
 # ---------------------------------------------------------------------------
 # forward under tensor parallelism
 # ---------------------------------------------------------------------------
 
-def _apply_block_tp(cfg, pcfg, spec, p, x, batch, aux, group, tp):
+def _apply_block_tp(cfg, pcfg, spec, p, x, batch, aux, group, tp,
+                    cache=None, serving=False):
     """One layer on the leaves' shards: each sublayer enters from the
-    residual stream and exits onto it (``tensor_parallel.TP``)."""
+    residual stream and exits onto it (``tensor_parallel.TP``).  Returns
+    ``(x, aux, new cache entry)``, the entry None unless ``serving``."""
     h = tp.enter(tpm.rms_norm(x, p.norm1, cfg.norm_eps, tp))
     if spec.mixer == "attn":
         fn = attn_mod.mla_tp if cfg.mla_kv_lora else attn_mod.gqa_tp
-        part, rep = fn(cfg, pcfg, p.attn, h, batch, tp)
+        res = fn(cfg, pcfg, p.attn, h, batch, tp, cache, serving)
     else:
-        part, rep = ssm_mod.mamba2_tp(cfg, pcfg, p.mamba, h, tp)
+        res = ssm_mod.mamba2_tp(cfg, pcfg, p.mamba, h, tp, cache, serving)
+    (part, rep), new = res if serving else (res, None)
     x = x + tp.exit(part, rep)
     if spec.ffn != "none":
         h = tp.enter(tpm.rms_norm(x, p.norm2, cfg.norm_eps, tp))
@@ -321,7 +325,7 @@ def _apply_block_tp(cfg, pcfg, spec, p, x, batch, aux, group, tp):
                                                  group=group)
             aux = aux + moe_aux["lb_loss"]
         x = x + tp.exit(part, rep)
-    return x, aux
+    return x, aux, new
 
 
 def embed_tp(cfg, model, batch, cdt, tp):
@@ -354,49 +358,82 @@ def vocab_head(cfg, model):
     return head, model.tp_shards[1] * head.shape[1]
 
 
-def _forward_tp(cfg, pcfg, model, batch, return_hidden, group, tp):
-    """:func:`forward` without a cache (training) on the leaves' shards,
-    or on one process's whole leaves under ``tensor_parallel.ONE``.  The
+def logits_tp(cfg, model, x, tp, cdt=None):
+    """The logits (float32) of final-normed hidden states ``x``, the
+    residual stream's positions under ``tp`` (this rank's under
+    ``seq_parallel``), of every position: through the whole head, or this
+    rank's vocab columns of it gathered whole."""
+    h = tp.enter(x)
+    head, lo = vocab_head(cfg, model)
+    cdt = x.dtype if cdt is None else cdt
+    if lo is None:
+        return (h.rep @ head.to(cdt)).float()
+    return tp.gather(h.par @ head.to(cdt), -1).float()
+
+
+def _forward_tp(cfg, pcfg, model, batch, return_hidden, group, tp,
+                cache=None, want_cache=False):
+    """:func:`forward` on the leaves' shards, or on one process's whole
+    leaves under ``tensor_parallel.ONE``.  Without a cache (training) the
     returned hidden states are this rank's positions under
     ``seq_parallel``; logits are gathered whole.  ``model`` is
     ``fsdp.view``'s: each block gathers its FSDP-split leaves at its
     start.  Under ``pcfg.remat`` "full" or "dots" (alike, as in the
-    reference) each block runs under ``torch.utils.checkpoint``, its
-    gathers inside: the backward recomputes the block, gathering again,
-    so a block's whole leaves live only while it runs; the values are
-    those without remat, bit for bit.  Without remat the gathered leaves
-    that the block's backward reads stay alive until it runs."""
+    reference) each block of a training forward runs under
+    ``torch.utils.checkpoint``, its gathers inside: the backward
+    recomputes the block, gathering again, so a block's whole leaves live
+    only while it runs; the values are those without remat, bit for bit.
+    Without remat the gathered leaves that the block's backward reads
+    stay alive until it runs.
+
+    With a cache, or ``want_cache`` (serving), each layer reads and
+    writes its cache entry and no block is recomputed; a step whose
+    positions do not split over the group's ``seq_parallel`` (a decode
+    step's one) runs without the sequence split (the same values:
+    tests/test_torch_tp.py holds ``seq_parallel`` to TP bit for bit), and
+    returned hidden states are the whole sequence."""
     cdt = _dtype(pcfg.compute_dtype)
+    serving = cache is not None or want_cache
     S = next(iter(batch.values())).shape[1]
     if tp.seq and S % tp.size:
-        raise ValueError(f"seq_parallel: {S} positions do not split over "
-                         f"{tp.size} model ranks")
+        if not serving:
+            raise ValueError(f"seq_parallel: {S} positions do not split "
+                             f"over {tp.size} model ranks")
+        tp = dataclasses.replace(tp, seq=False)
     if pcfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
                          f"{pcfg.remat!r}")
     fs = fsdp_mod.group_of(model)
     x = embed_tp(cfg, model, batch, cdt, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_segs = []
     for si, (sb, _) in enumerate(cfg.segments):
-        for blocks in model.segments[si]:
+        reps = []
+        for ri, blocks in enumerate(model.segments[si]):
+            entries = {}
             for i, spec in enumerate(sb):
+                key = f"blk{i}"
+                entry = (None if cache is None
+                         else cache["segments"][si][ri][key])
 
-                def run(x, aux, spec=spec, blk=getattr(blocks, f"blk{i}")):
+                def run(x, aux, spec=spec, blk=getattr(blocks, key),
+                        entry=entry):
                     return _apply_block_tp(cfg, pcfg, spec,
                                            fsdp_mod.gathered(blk, fs), x,
-                                           batch, aux, group, tp)
-                if pcfg.remat == "none":
-                    x, aux = run(x, aux)
+                                           batch, aux, group, tp, entry,
+                                           serving)
+                if serving or pcfg.remat == "none":
+                    x, aux, entries[key] = run(x, aux)
                 else:
-                    x, aux = checkpoint(run, x, aux, use_reentrant=False)
+                    x, aux = checkpoint(lambda x, aux, run=run: run(
+                        x, aux)[:2], x, aux, use_reentrant=False)
+            reps.append(entries)
+        new_segs.append(reps)
+    new_cache = {"segments": new_segs} if want_cache else None
     x = tpm.rms_norm(x, model.final_norm, cfg.norm_eps, tp)
     if return_hidden:
-        return x, None, aux
-    h = tp.enter(x)
-    head, lo = vocab_head(cfg, model)
-    if lo is None:
-        return (h.rep @ head.to(cdt)).float(), None, aux
-    return tp.gather(h.par @ head.to(cdt), -1).float(), None, aux
+        return (tp.cat(x, 1) if serving and tp.seq else x), new_cache, aux
+    return logits_tp(cfg, model, x, tp, cdt), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -485,8 +522,4 @@ def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, cache):
             return P(*lead3, baxes, None, pcfg.model_axis)
         return P(*((None,) * rank))
 
-    return {"segments": [[{blk: {leaf: rule(leaf, x)
-                                 for leaf, x in entry.items()}
-                           for blk, entry in rep.items()}
-                          for rep in seg]
-                         for seg in cache["segments"]]}
+    return _cache_map(rule, cache)

@@ -9,6 +9,9 @@ window, updated in O(1) per token.
 
 Shapes: d_inner = expand*d_model, H = d_inner/head_dim heads, state N.
 Single B/C group (G=1), scalar A per head (Mamba2 simplification).
+
+The block's math is written once, on the leaves' shards under a model
+group (``mamba2_tp``); ``mamba2`` is that body on the group of one.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models.layers import Init, rms_norm
 
 
@@ -112,35 +116,56 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk):
 def mamba2(cfg, pcfg, p, x, batch, cache=None, layer_id=0):
     """Returns (out, new_cache).
 
-    cache: dict(conv (B,K-1,C), ssm (B,H,P,N), pos (B,))."""
-    del pcfg, batch, layer_id
-    y, new_cache = _mix(cfg, p, x @ p.in_proj.to(x.dtype), cache)
-    return y @ p.out_proj.to(x.dtype), new_cache
+    cache: dict(conv (B,K-1,C), ssm (B,H,P,N), pos (B,)).
+    :func:`mamba2_tp` on a group of one."""
+    del batch, layer_id
+    one = tpm.ONE
+    (part, rep), new = mamba2_tp(cfg, pcfg, p, one.enter(x), one, cache,
+                                 want_cache=True)
+    return one.exit(part, rep), new
 
 
-def mamba2_tp(cfg, pcfg, p, h, tp):
-    """Mamba2 on the leaves' shards under ``tp`` (``h`` an ``Entry``;
-    training, no cache).  ``in_proj``'s column split cuts across the
-    sections of ``[z, x, B, C, dt]``, so its product is gathered whole and
-    the convolution and the chunked SSD run the same on every rank; the
-    row-parallel ``out_proj`` takes this rank's part of the gated, normed
-    ``y``.  Returns ``(partial, replicated)``."""
-    from repro_torch.distributed.tensor_parallel import shard_dim
+def mamba2_tp(cfg, pcfg, p, h, tp, cache=None, want_cache=False):
+    """Mamba2 on the leaves' shards under ``tp`` (``h`` an ``Entry``).
+    ``in_proj``'s column split cuts across the sections of ``[z, x, B, C,
+    dt]``, so its product is gathered whole; the row-parallel
+    ``out_proj`` takes this rank's part of the gated, normed ``y``.
+    Returns ``(partial, replicated)``, and with ``want_cache``
+    ``((partial, replicated), new cache entry)``.
+
+    A sequence (training, prefill) runs the convolution and the chunked
+    SSD the same on every rank; its cache entry keeps this rank's
+    channels of the ``conv`` window and heads of the ``ssm`` state where
+    they split over the group (``cache_specs``).  A decode step on such a
+    cache convolves this rank's channels and runs the recurrence on its
+    heads, each gathered whole after (the gated norm spans all of
+    ``d_inner``)."""
     del pcfg
     w = p.in_proj
-    if shard_dim(w) == 1:
+    if tpm.shard_dim(w) == 1:
         proj = tp.gather(h.par @ w.to(h.par.dtype), -1)
     else:
         proj = h.rep @ w.to(h.rep.dtype)
-    y, _ = _mix(cfg, p, proj, None)
-    if shard_dim(p.out_proj) == 0:
-        return tp.split(y, -1) @ p.out_proj.to(y.dtype), None
-    return None, y @ p.out_proj.to(y.dtype)
+    y, new = _mix(cfg, p, proj, cache, tp)
+    if tpm.shard_dim(p.out_proj) == 0:
+        res = tp.split(y, -1) @ p.out_proj.to(y.dtype), None
+    else:
+        res = None, y @ p.out_proj.to(y.dtype)
+    return (res, new) if want_cache else res
 
 
-def _mix(cfg, p, proj, cache):
+def _part(tp, n):
+    """(first, count) of this rank's share of ``n`` channels or heads
+    that split over ``tp`` (``sanitize_spec``'s rule); None where they
+    stay whole."""
+    if tp.size == 1 or n % tp.size:
+        return None
+    return tp.rank * (n // tp.size), n // tp.size
+
+
+def _mix(cfg, p, proj, cache, tp):
     """From the input projection to the gated, normed ``y`` (B, S, din)
-    and the new cache."""
+    and the new cache entry (:func:`mamba2_tp`)."""
     B, S, _ = proj.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xr, Bm, Cm, dt = torch.split(proj, [din, din, N, N, H], dim=-1)
@@ -148,28 +173,52 @@ def _mix(cfg, p, proj, cache):
     A = -torch.exp(p.A_log.float())
 
     xBC = torch.cat([xr, Bm, Cm], dim=-1)
-    conv_state = None if cache is None else cache["conv"]
-    xBC, new_conv = _causal_conv(xBC, p.conv_w.to(proj.dtype),
-                                 p.conv_b.to(proj.dtype), conv_state)
+    conv_w, conv_b = p.conv_w.to(proj.dtype), p.conv_b.to(proj.dtype)
+    chans = _part(tp, xBC.shape[-1])
+    if cache is not None and tpm.shard_dim(cache["conv"]) == 2:
+        c0, nc = chans
+        out, new_conv = _causal_conv(xBC[..., c0:c0 + nc],
+                                     conv_w[:, c0:c0 + nc],
+                                     conv_b[c0:c0 + nc], cache["conv"])
+        xBC = tp.cat(out, -1)
+        new_conv = tpm.placed(new_conv, 2)
+    else:
+        xBC, new_conv = _causal_conv(
+            xBC, conv_w, conv_b, None if cache is None else cache["conv"])
+        if cache is None and chans is not None:
+            new_conv = tpm.placed(new_conv[..., chans[0]:chans[0] + chans[1]]
+                                  .contiguous(), 2)
     xr, Bm, Cm = torch.split(xBC, [din, N, N], dim=-1)
     xh = xr.reshape(B, S, H, P)
+    heads = _part(tp, H)
 
     if cache is None:
         chunk = min(cfg.ssm_chunk, S)
         y, final = _ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
                                 chunk)
-        new_cache = {"conv": new_conv, "ssm": final,
+        if heads is not None:
+            final = final[:, heads[0]:heads[0] + heads[1]].contiguous()
+        new_cache = {"conv": new_conv,
+                     "ssm": tpm.placed(final, None if heads is None else 1),
                      "pos": torch.full((B,), S, dtype=torch.int32,
                                        device=proj.device)}
     else:
         # O(1) recurrent update: s = s*exp(dt*A) + dt * B (x) x ; y = C.s
-        s = cache["ssm"].float()                            # (B,H,P,N)
-        dA = torch.exp(dt[:, 0] * A[None, :])               # (B,H)
-        upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(),
-                           xh[:, 0].float())
+        # on this rank's heads where the state splits
+        split = tpm.shard_dim(cache["ssm"]) == 1
+        h0, nh = heads if split else (0, H)
+        dtl, xl = dt[:, 0, h0:h0 + nh], xh[:, 0, h0:h0 + nh]
+        s = cache["ssm"].float()                            # (B,h,P,N)
+        dA = torch.exp(dtl * A[None, h0:h0 + nh])           # (B,h)
+        upd = torch.einsum("bh,bn,bhp->bhpn", dtl, Bm[:, 0].float(),
+                           xl.float())
         s = s * dA[:, :, None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), s)[:, None]
-        new_cache = {"conv": new_conv, "ssm": s.to(cache["ssm"].dtype),
+        if split:
+            y = tp.cat(y, 2)
+        new_cache = {"conv": new_conv,
+                     "ssm": tpm.placed(s.to(cache["ssm"].dtype),
+                                       1 if split else None),
                      "pos": cache["pos"] + 1}
 
     y = y + xh.float() * p.D.float()[None, None, :, None]

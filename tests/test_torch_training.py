@@ -488,8 +488,10 @@ def test_sanitize_and_fsdp_match_reference_rule_for_rule():
 def test_constrain_and_model_axis_refused():
     """constrain is the identity, with or without a model axis; the
     train step builds under a mesh with model > 1 (tests/test_torch_tp.py
-    runs it); serving under that mesh raises (decode and the serve
-    driver), naming the ROADMAP item, rather than run replicated."""
+    runs it); serving a whole model under that mesh raises (decode), as
+    does the serve driver asked for a model axis that one process cannot
+    hold, rather than run replicated (tests/test_torch_serve_tp.py
+    serves on the model axis)."""
     import types
     from repro_torch.launch import serve as lserve
     from repro_torch.serving import decode
@@ -507,14 +509,15 @@ def test_constrain_and_model_axis_refused():
     sharding.set_mesh(tp)
     try:
         assert M.constrain(x) is x
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="shard_model"):
             decode.prefill(cfg, PCFG, model, {"tokens": tok})
         cache = M.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="serving"):
+        with pytest.raises(ValueError, match="shard_model"):
             decode.decode_step(cfg, PCFG, model, {"tokens": tok[:, :1]},
                                cache)
-        with pytest.raises(NotImplementedError, match="cache_specs"):
-            lserve.main(["--smoke", "--device", "cpu", "--batches", "1"])
+        with pytest.raises(ValueError, match=r"\(0, 2\) mesh"):
+            lserve.main(["--smoke", "--device", "cpu", "--batches", "1",
+                         "--model-parallel", "2"])
     finally:
         sharding.set_mesh(None)
     assert M.batch_axes(jconfig.ParallelConfig(pod_axis="pod")) == \
